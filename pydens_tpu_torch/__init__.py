@@ -1,0 +1,30 @@
+"""PyDEns-TPU ported to PyTorch and CUDA: physics-informed training of
+neural networks for ODEs and PDEs on an NVIDIA GPU.
+
+A second package beside ``pydens_tpu`` (JAX, the reference it is held
+against), with the same ``Solver`` / ``D`` / ``V`` surface.  It imports
+``torch`` and never ``jax``.  The fused Taylor traversal that every planned
+training step runs and the fused MLP forward behind ``predict`` are CUDA
+kernels written for Hopper (``csrc/``), built with ``nvcc`` at first use;
+on the CPU their plain PyTorch versions run instead.
+"""
+
+from .ops.tokens import D, V, Expr, lift
+from .ops.math import (sin, cos, tan, arcsin, arccos, arctan, arctan2, sinh,
+                       cosh, tanh, exp, expm1, log, log1p, log2, log10, sqrt,
+                       square, power, sign, maximum, minimum, where, clip,
+                       sigmoid, softplus, erf)
+from .models import Model, ConvBlockModel, TorchModel
+from .solver import Solver
+from .interop import params_from_jax
+
+__version__ = "0.5.0"
+
+__all__ = [
+    "Solver", "D", "V", "Expr", "lift", "Model", "ConvBlockModel",
+    "TorchModel", "params_from_jax",
+    "sin", "cos", "tan", "arcsin", "arccos", "arctan", "arctan2", "sinh",
+    "cosh", "tanh", "exp", "expm1", "log", "log1p", "log2", "log10", "sqrt",
+    "square", "power", "sign", "maximum", "minimum", "where", "clip",
+    "sigmoid", "softplus", "erf",
+]
