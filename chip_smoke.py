@@ -8,12 +8,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    convolutions without TF32;
 2. build: compiles the CUDA kernels of pydens_tpu_torch/csrc (timed);
 3. kernels vs plain: every kernel against its plain PyTorch version on the
-   card, at the README workload's shapes and at large ones, with timings;
+   card, at the README workload's shapes and at large ones (the 64-wide
+   chain at 65,537 and 262,144 points, and a 6-stream heat closure), with
+   timings and the backward's peak device memory at width 64;
 4. the README 2D Poisson fit (1500 Adam steps, batch 100) and predict on a
    100 x 100 grid through the public Solver, with the launch counters
    showing that every step ran the fused Taylor kernels and predict the
    fused MLP kernel; then the same fit with the kernels routed to their
-   plain versions, for the comparison of iterations/s.
+   plain versions, for the comparison of iterations/s;
+5. the wide fit: 2D Poisson, ``fa fa fa f`` [64, 64, 64, 1] Tanh, 200 Adam
+   steps at batch 65,536 through the public Solver, in three arms: the
+   kernels, the Taylor traversal routed to its plain version, and
+   ``fit(fast_taps=False)`` (nested gradients); iterations/s and points/s
+   of each.
 
 Prints one JSON line of per-kernel results, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -30,8 +37,13 @@ import torch
 VALUE_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=2e-3, atol=2e-5)
 POISSON_CLOSURE = [(0,), (1,), (0, 0), (1, 1)]
+HEAT_CLOSURE = [(0,), (1,), (2,), (0, 0), (1, 1)]   # 2D + t: 6 streams
 README = dict(ndims=2, boundary_condition=1, layout="fa fa fa f",
               activation="Tanh", units=[10, 12, 15, 1])
+WIDE = dict(ndims=2, boundary_condition=1, layout="fa fa fa f",
+            activation="Tanh", units=[64, 64, 64, 1])
+WIDE_BATCH = 65536
+WIDE_STEPS = 200
 
 
 def log(msg):
@@ -55,6 +67,13 @@ def time_ms(fn, reps):
     end.record()
     sync()
     return start.elapsed_time(end) / reps
+
+
+def timed_pair(name, kernel, plain, reps):
+    """``{name: kernel ms, name_plain: plain ms}``, each the mean of two
+    timings taken in turns: plain, kernel, kernel, plain."""
+    p1, k1, k2, p2 = (time_ms(f, reps) for f in (plain, kernel, kernel, plain))
+    return {name: (k1 + k2) / 2, f"{name}_plain": (p1 + p2) / 2}
 
 
 def max_err(a, b):
@@ -88,32 +107,41 @@ def phase_build():
             log(f"  ptxas: {line.strip()}")
 
 
-def _taylor_case(features, n, seed):
+def _taylor_case(features, n, seed, closure, in_dim):
     from pydens_tpu_torch.models.layout import make_layout_network
     from pydens_tpu_torch.ops import fused_taylor as ft
     dev = torch.device("cuda")
-    net = make_layout_network("fa fa fa f", features, "Tanh", in_dim=2,
+    net = make_layout_network("fa fa fa f", features, "Tanh", in_dim=in_dim,
                               device=dev)
     net.reset_parameters(torch.Generator().manual_seed(seed))
-    plan = ft.TaylorPlan(net.tokens, net.activations, POISSON_CLOSURE,
-                         net.layer_shapes, 2)
+    plan = ft.TaylorPlan(net.tokens, net.activations, closure,
+                         net.layer_shapes, in_dim)
     with torch.no_grad():
         packed = ft.pack_weights(net.params(), net.layer_names)
-    x = torch.rand((n, 2), device=dev,
+    x = torch.rand((n, in_dim), device=dev,
                    generator=torch.Generator(dev).manual_seed(seed))
     return plan, packed, x
 
 
-def check_taylor(features, n, seed=0, reps=0):
-    """Forward and backward kernels against the plain autograd path."""
+def check_taylor(features, n, seed=0, reps=0, closure=POISSON_CLOSURE,
+                 in_dim=2, memory=False):
+    """Forward and backward kernels against the plain autograd path; with
+    ``memory``, the backward's peak device memory beyond its inputs."""
     from pydens_tpu_torch.ops import fused_taylor as ft
-    plan, packed, x = _taylor_case(features, n, seed)
+    plan, packed, x = _taylor_case(features, n, seed, closure, in_dim)
     out = ft.fused_taylor_forward(packed, x, plan)
     ref = ft.fused_taylor_forward_plain(packed, x, plan)
     sync()
     torch.testing.assert_close(out, ref, **VALUE_TOL)
+    fwd_err = max_err(out, ref)
     g = 2.0 * ref / ref.numel()   # cotangent of mean(out ** 2)
+    del out
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     dp, dx = ft.fused_taylor_backward(packed, x, g, plan)
+    sync()
+    peak = torch.cuda.max_memory_allocated() - base
     rdp, rdx = ft.fused_taylor_backward_plain(packed, x, g, plan)
     sync()
     torch.testing.assert_close(dp, rdp, **GRAD_TOL)
@@ -122,23 +150,26 @@ def check_taylor(features, n, seed=0, reps=0):
     sync()
     assert torch.equal(dp, dp2) and torch.equal(dx, dx2), \
         "backward not bitwise repeatable"
-    errs = {"fwd": max_err(out, ref),
-            "bwd": max(max_err(dp, rdp), max_err(dx, rdx))}
+    errs = {"fwd": fwd_err, "bwd": max(max_err(dp, rdp), max_err(dx, rdx))}
     times = {}
     if reps:
-        times = {
-            "fwd": time_ms(lambda: ft.fused_taylor_forward(packed, x, plan),
-                           reps),
-            "fwd_plain": time_ms(
-                lambda: ft.fused_taylor_forward_plain(packed, x, plan), reps),
-            "bwd": time_ms(
-                lambda: ft.fused_taylor_backward(packed, x, g, plan), reps),
-            "bwd_plain": time_ms(
-                lambda: ft.fused_taylor_backward_plain(packed, x, g, plan),
-                reps)}
-    log(f"taylor fa fa fa f {features} n={n}: max|err| fwd "
-        f"{errs['fwd']:.3e} bwd {errs['bwd']:.3e}, bitwise-repeatable"
-        + "".join(f", {k} {v:.4f} ms" for k, v in times.items()))
+        times = timed_pair(
+            "fwd", lambda: ft.fused_taylor_forward(packed, x, plan),
+            lambda: ft.fused_taylor_forward_plain(packed, x, plan), reps)
+        times.update(timed_pair(
+            "bwd", lambda: ft.fused_taylor_backward(packed, x, g, plan),
+            lambda: ft.fused_taylor_backward_plain(packed, x, g, plan), reps))
+    mem = ""
+    if memory:
+        _, save_f, part_f = plan.backward_workspace(
+            n, torch.cuda.get_device_properties(0).multi_processor_count)
+        mem = (f", backward peak memory {peak / 2**20:.2f} MiB beyond its "
+               f"inputs (outputs {(dp.numel() + dx.numel()) * 4 / 2**20:.2f}"
+               f" MiB, workspace {(save_f + part_f) * 4 / 2**20:.2f} MiB)")
+    log(f"taylor fa fa fa f {features} closure {len(closure)} n={n}: "
+        f"max|err| fwd {errs['fwd']:.3e} bwd {errs['bwd']:.3e}, "
+        "bitwise-repeatable"
+        + "".join(f", {k} {v:.4f} ms" for k, v in times.items()) + mem)
     return errs, times
 
 
@@ -174,9 +205,13 @@ def check_mlp(layout, features, in_dim, n, reps=0):
 
 
 def phase_kernels():
+    wide = [64, 64, 64, 1]
     taylor = [check_taylor([10, 12, 15, 1], 100, reps=200),
               check_taylor([10, 12, 15, 1], 1000, reps=200),
-              check_taylor([64, 64, 64, 1], 65537, reps=10)]
+              check_taylor(wide, 65537, reps=20, memory=True),
+              check_taylor(wide, 262144, reps=5, memory=True),
+              check_taylor(wide, 65537, reps=10, closure=HEAT_CLOSURE,
+                           in_dim=3, memory=True)]
     sync()
     mlp = [check_mlp("fa fa fa f", [10, 12, 15, 1], 2, 10000, reps=200)]
     for layout, features in [("fa fa f", [32, 32, 1]),
@@ -268,15 +303,62 @@ def phase_poisson():
     return launches, (wall, rate), (p_wall, p_rate)
 
 
+def _falling(losses):
+    k = max(1, len(losses) // 10)
+    return (np.isfinite(losses).all()
+            and losses[-k:].mean() < losses[:k].mean())
+
+
+def phase_wide_fit():
+    """The 64-wide Poisson fit in three arms: kernels, the Taylor traversal
+    on its plain version, and nested gradients (``fast_taps=False``).  Each
+    arm warms up for 5 steps, then runs WIDE_STEPS timed steps."""
+    from pydens_tpu_torch import Solver
+    from pydens_tpu_torch.ops import fused_taylor as ft
+    counters = (ft.fused_taylor_forward, ft.fused_taylor_backward)
+    for arm in ("kernels", "plain", "nested"):
+        solver = Solver(_pde(), seed=0, **WIDE)
+        assert solver.device.type == "cuda" and solver._plan_ok
+        if arm == "plain":
+            _route_plain(solver.model)
+        fast = arm != "nested"
+        solver.fit(batch_size=WIDE_BATCH, niters=5, progress=False,
+                   fast_taps=fast)
+        for c in counters:
+            c.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        solver.fit(batch_size=WIDE_BATCH, niters=WIDE_STEPS, progress=False,
+                   fast_taps=fast)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        losses = np.asarray(solver.losses[-WIDE_STEPS:])
+        rate = WIDE_STEPS / wall
+        log(f"wide fit ({arm}): {WIDE_STEPS} steps at batch {WIDE_BATCH} in "
+            f"{wall:.3f} s, {rate:.2f} it/s, {rate * WIDE_BATCH:.0f} "
+            f"points/s, loss {losses[0]:.5f} -> {losses[-1]:.5f}; launches "
+            f"{launches}")
+        assert losses.shape == (WIDE_STEPS,) and _falling(losses), arm
+        if arm == "kernels":
+            assert min(launches.values()) >= WIDE_STEPS, launches
+        else:
+            assert max(launches.values()) == 0, launches
+        del solver
+        torch.cuda.empty_cache()
+
+
 def main():
     name, smi = phase_device()
     phase_build()
     sync()
     taylor, mlp = phase_kernels()
     launches, _, _ = phase_poisson()
+    phase_wide_fit()
     fwd_err = max(e["fwd"] for e, _ in taylor)
     bwd_err = max(e["bwd"] for e, _ in taylor)
     main_taylor = taylor[0][1]   # README shapes: n = 100
+    wide_taylor = taylor[2][1]   # 64-wide chain, n = 65,537
     main_mlp = mlp[0][1]         # README predict: 10,000 points
     kernels = [
         {"name": "fused_taylor_forward", "route": "cuda",
@@ -284,13 +366,17 @@ def main():
          "replaces": "pydens_tpu/ops/pallas_taylor.py:386",
          "launches": launches["fused_taylor_forward"],
          "max_abs_err": fwd_err, "ms": main_taylor["fwd"],
-         "plain_ms": main_taylor["fwd_plain"]},
+         "plain_ms": main_taylor["fwd_plain"],
+         "wide_ms": wide_taylor["fwd"],
+         "wide_plain_ms": wide_taylor["fwd_plain"]},
         {"name": "fused_taylor_backward", "route": "cuda",
          "source": "pydens_tpu_torch/csrc/fused_taylor.cu",
          "replaces": "pydens_tpu/ops/pallas_taylor.py:428",
          "launches": launches["fused_taylor_backward"],
          "max_abs_err": bwd_err, "ms": main_taylor["bwd"],
-         "plain_ms": main_taylor["bwd_plain"]},
+         "plain_ms": main_taylor["bwd_plain"],
+         "wide_ms": wide_taylor["bwd"],
+         "wide_plain_ms": wide_taylor["bwd_plain"]},
         {"name": "fused_mlp_forward", "route": "cuda",
          "source": "pydens_tpu_torch/csrc/fused_mlp.cu",
          "replaces": "pydens_tpu/ops/pallas_mlp.py:92",

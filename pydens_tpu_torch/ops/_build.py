@@ -33,10 +33,10 @@ MAX_SHARED_BYTES = 232_448
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "pdt_taylor_points_per_block": [],
-    "pdt_taylor_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "pdt_taylor_tile_points": [],
+    "pdt_taylor_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "pdt_taylor_backward": [_P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _P],
     "pdt_mlp_points_per_block": [],
     "pdt_mlp_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

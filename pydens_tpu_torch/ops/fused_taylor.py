@@ -40,7 +40,14 @@ _ACT_KINDS = {id(ACTIVATIONS["tanh"]): TANH,
               id(ACTIVATIONS["sigmoid"]): SIGMOID,
               id(ACTIVATIONS["sin"]): SIN}
 
-_POINTS_PER_BLOCK = 32  # csrc/fused_taylor.cu POINTS_PER_BLOCK
+# csrc/fused_taylor.cu: TILE_POINTS, ROW_PAD, MIN_BLOCKS_PER_SM.
+_TILE_POINTS = 16
+_ROW_PAD = 4
+_BLOCKS_PER_SM = 2
+# Shared memory of one H100 SM, and what CUDA reserves of it per block.
+_SM_SHARED_BYTES = 233_472
+_BLOCK_RESERVED_BYTES = 1024
+_SM_COUNTS = {}
 
 
 def act_kind(act):
@@ -72,8 +79,13 @@ def pack_weights(net_params, layer_names):
                       for t in (net_params[name]["w"], net_params[name]["b"])])
 
 
-def _taylor_smem_bytes(n_params, n_streams, wmax):
-    return 4 * (n_params + 2 * n_streams * wmax * _POINTS_PER_BLOCK)
+def _taylor_smem_bytes(n_params, n_streams, wmax, n_bufs):
+    """Shared memory of one block: the packed weights (rounded up to 16
+    bytes) and ``n_bufs`` tile states of ``wmax`` features x
+    ``n_streams * TILE_POINTS`` rows (2 in the forward, 3 in the
+    backward) — ``taylor_smem_bytes`` of the CUDA source."""
+    ld = n_streams * _TILE_POINTS + _ROW_PAD
+    return 4 * (-(-n_params // 4) * 4 + n_bufs * wmax * ld)
 
 
 def _chain_ops(tokens, acts, layer_shapes):
@@ -108,7 +120,7 @@ def supports(tokens, acts, closure, layer_shapes, in_dim,
     n_streams = 1 + len(closure)
     wmax = max([in_dim] + [n for _, n in layer_shapes])
     n_params = sum(k * n + n for k, n in layer_shapes)
-    return _taylor_smem_bytes(n_params, n_streams, wmax) <= MAX_SHARED_BYTES
+    return _taylor_smem_bytes(n_params, n_streams, wmax, 3) <= MAX_SHARED_BYTES
 
 
 class TaylorPlan:
@@ -126,22 +138,57 @@ class TaylorPlan:
         self.ops, self.n_params = _chain_ops(tokens, acts, layer_shapes)
         self.out_dim = layer_shapes[-1][1]
         self.wmax = max([in_dim] + [n for _, n in layer_shapes])
+        # What the backward keeps per point of a tile: the input state of
+        # every activation, and of a dense layer fed by another dense
+        # layer.  Every other dense input is x or an activation applied
+        # again to its saved input.  save_offsets[i] is op i's first row in
+        # the slab (S * width rows each), or -1.
+        records, self.save_offsets = [], []
+        width, save, prev = in_dim, 0, None
+        for op in self.ops:
+            keep = op[0] == "act" or prev == "dense"
+            self.save_offsets.append(save if keep else -1)
+            off = self.save_offsets[-1]
+            if op[0] == "dense":
+                records += [0, op[1], op[2], op[3], op[4], off]
+            else:
+                records += [1, width, op[1], 0, 0, off]
+            if keep:
+                save += self.n_streams * width
+            if op[0] == "dense":
+                width = op[2]
+            prev = op[0]
+        self.save_rows = save
         table = [len(self.ops), in_dim, len(self.firsts), len(self.pairs),
-                 self.wmax, *self.firsts]
+                 self.wmax, self.save_rows, *self.firsts]
         for a, b in self.pairs:
             table += [pos[a], pos[b]]
-        width, save = in_dim, 0
-        for op in self.ops:
-            if op[0] == "dense":
-                table += [0, op[1], op[2], op[3], op[4], save]
-                save += self.n_streams * width
-                width = op[2]
-            else:
-                table += [1, width, op[1], 0, 0, save]
-                save += self.n_streams * width
-        self.save_rows = save
-        self.table = table
+        self.table = table + records
         self._device_tables = {}
+
+    def smem_bytes(self, n_bufs):
+        return _taylor_smem_bytes(self.n_params, self.n_streams, self.wmax,
+                                  n_bufs)
+
+    def launch_shape(self, n, sm_count, n_bufs):
+        """``(grid, slots)`` of a launch over ``n`` points: ``slots``
+        persistent blocks fit the card at once (``MIN_BLOCKS_PER_SM`` per
+        SM where shared memory allows, else one), and the grid is the
+        smaller of that and the number of tiles."""
+        per_block = self.smem_bytes(n_bufs) + _BLOCK_RESERVED_BYTES
+        per_sm = (_BLOCKS_PER_SM
+                  if _BLOCKS_PER_SM * per_block <= _SM_SHARED_BYTES else 1)
+        slots = sm_count * per_sm
+        return min(-(-n // _TILE_POINTS), slots), slots
+
+    def backward_workspace(self, n, sm_count):
+        """``(grid, save_floats, partial_floats)`` of one backward launch.
+        The workspace is sized by the slots, never by ``n``: a per-block
+        slab of ``save_rows * TILE_POINTS`` floats and a per-block partial
+        gradient of ``n_params`` floats."""
+        grid, slots = self.launch_shape(n, sm_count, 3)
+        return (grid, slots * self.save_rows * _TILE_POINTS,
+                slots * self.n_params)
 
     def device_table(self, device):
         if device not in self._device_tables:
@@ -152,10 +199,17 @@ class TaylorPlan:
 
 def _lib():
     lib = load_library()
-    if lib.pdt_taylor_points_per_block() != _POINTS_PER_BLOCK:
+    if lib.pdt_taylor_tile_points() != _TILE_POINTS:
         raise RuntimeError("csrc/fused_taylor.cu and fused_taylor.py "
-                           "disagree on the points per block")
+                           "disagree on the points per tile")
     return lib
+
+
+def _sm_count(device):
+    if device not in _SM_COUNTS:
+        _SM_COUNTS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNTS[device]
 
 
 def _check_kernel_args(packed, x, plan):
@@ -180,10 +234,11 @@ def fused_taylor_forward(packed, x, plan):
     if n == 0:
         return out
     lib = _lib()
+    grid, _ = plan.launch_shape(n, _sm_count(x.device), 2)
     err = lib.pdt_taylor_forward(
         x.data_ptr(), packed.data_ptr(), plan.device_table(x.device).data_ptr(),
         out.data_ptr(), n, plan.n_params, plan.n_streams, plan.wmax,
-        plan.out_dim, torch.cuda.current_stream(x.device).cuda_stream)
+        plan.out_dim, grid, torch.cuda.current_stream(x.device).cuda_stream)
     launch_checked("pdt_taylor_forward", err)
     fused_taylor_forward.launches += 1
     return out
@@ -220,9 +275,11 @@ def fused_taylor_forward_plain(packed, x, plan):
 
 def fused_taylor_backward(packed, x, g, plan):
     """``(d packed, d x)`` for the cotangent ``g`` of
-    :func:`fused_taylor_forward`'s output: the CUDA kernels (per-block
-    partials, then a fixed-order sum over blocks) for CUDA tensors, the
-    plain version for CPU tensors."""
+    :func:`fused_taylor_forward`'s output: the CUDA kernels (persistent
+    blocks, each summing its tiles into one partial, then a fixed-order sum
+    over blocks) for CUDA tensors, the plain version for CPU tensors.  The
+    workspace does not grow with ``n``
+    (:meth:`TaylorPlan.backward_workspace`)."""
     if x.device.type == "cpu":
         return fused_taylor_backward_plain(packed, x, g, plan)
     n = _check_kernel_args(packed, x, plan)
@@ -231,17 +288,16 @@ def fused_taylor_backward(packed, x, g, plan):
     dx = torch.empty((n, plan.in_dim), dtype=x.dtype, device=x.device)
     if n == 0:
         return d_packed.zero_(), dx
-    blocks = -(-n // _POINTS_PER_BLOCK)
-    scratch = torch.empty((plan.save_rows * blocks * _POINTS_PER_BLOCK,),
-                          dtype=x.dtype, device=x.device)
-    partials = torch.empty((blocks * plan.n_params,), dtype=x.dtype,
-                           device=x.device)
+    grid, save_floats, partial_floats = plan.backward_workspace(
+        n, _sm_count(x.device))
+    saves = torch.empty((save_floats,), dtype=x.dtype, device=x.device)
+    partials = torch.empty((partial_floats,), dtype=x.dtype, device=x.device)
     lib = _lib()
     err = lib.pdt_taylor_backward(
         x.data_ptr(), packed.data_ptr(), plan.device_table(x.device).data_ptr(),
-        g.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
+        g.data_ptr(), saves.data_ptr(), partials.data_ptr(),
         d_packed.data_ptr(), dx.data_ptr(), n, plan.n_params, plan.n_streams,
-        plan.wmax, plan.out_dim,
+        plan.wmax, plan.out_dim, grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     launch_checked("pdt_taylor_backward", err)
     fused_taylor_backward.launches += 1

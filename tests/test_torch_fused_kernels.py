@@ -3,6 +3,9 @@ Pallas kernels, run in interpret mode as tests/test_pallas_taylor.py and
 tests/test_pallas_mlp.py run them on the CPU.  The CUDA kernels themselves
 are held to these plain versions in tests/test_torch_kernels_gpu.py."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +20,7 @@ import pydens_tpu_torch as tpdt
 from pydens_tpu_torch import params_from_jax
 from pydens_tpu_torch.models.layout import make_layout_network
 from pydens_tpu_torch.ops import fused_mlp, fused_taylor
+from pydens_tpu_torch.ops._build import MAX_SHARED_BYTES
 
 POISSON_CLOSURE = [(0,), (1,), (0, 0), (1, 1)]
 
@@ -216,3 +220,122 @@ def test_mlp_forward_refuses_grad():
     packed = fused_taylor.pack_weights(net.params(), net.layer_names)
     with pytest.raises(RuntimeError, match="no backward"):
         fused_mlp.fused_mlp_forward(packed, torch.zeros(3, 2), plan)
+
+
+# The Taylor kernels' tile layout (csrc/fused_taylor.cu) as the wrapper
+# mirrors it.  These run on the CPU: they read the CUDA source's constants
+# and check the plan, the shared-memory reckoning and the backward's
+# workspace that the wrapper computes for a launch.
+
+HEAT_CLOSURE = [(0,), (1,), (2,), (0, 0), (1, 1)]   # 2D + t: 6 streams
+CU_SOURCE = (Path(fused_taylor.__file__).resolve().parents[1] / "csrc"
+             / "fused_taylor.cu")
+
+# Every (chain, closure) the kernels are run on in
+# tests/test_torch_kernels_gpu.py and chip_smoke.py.
+KERNEL_CASES = [
+    ("fa fa fa f", [10, 12, 15, 1], "Tanh", 2, POISSON_CLOSURE),
+    ("fa fa fa f", [64, 64, 64, 1], "Tanh", 2, POISSON_CLOSURE),
+    ("fa fa fa f", [64, 64, 64, 1], "Tanh", 3, HEAT_CLOSURE),
+    ("fafaf", [12, 10, 1], "Tanh", 1, [(0,)]),
+    ("fa fa f", [16, 16, 1], "Sigmoid", 3, [(0,), (2,), (0, 2)]),
+    ("fa fa f", [16, 16, 1], "Sin", 2, [(0,), (1,), (0, 0), (0, 1)]),
+]
+
+
+def _cu_constant(name):
+    m = re.search(rf"constexpr int {name} = (\d+);", CU_SOURCE.read_text())
+    assert m, name
+    return int(m.group(1))
+
+
+def _plan(layout, features, act, in_dim, closure):
+    net = make_layout_network(layout, features, act, in_dim=in_dim)
+    return fused_taylor.TaylorPlan(net.tokens, net.activations, closure,
+                                   net.layer_shapes, in_dim)
+
+
+@pytest.mark.parametrize("layout,features,act,in_dim,closure", [
+    *KERNEL_CASES,
+    ("fa f f a f", [9, 7, 5, 2], "Tanh", 2, [(0,), (1,), (0, 1)]),
+    ("f a a f", [6, 3], "Sin", 2, [(0,), (0, 0)]),
+])
+def test_taylor_plan_table_matches_the_cuda_source(layout, features, act,
+                                                   in_dim, closure):
+    # The tile and table constants agree with the CUDA source, and the
+    # backward's per-tile save layout keeps exactly the input state of each
+    # activation and of each dense layer fed by a dense layer, packed
+    # without gaps.
+    assert fused_taylor._TILE_POINTS == _cu_constant("TILE_POINTS")
+    assert fused_taylor._ROW_PAD == _cu_constant("ROW_PAD")
+    assert fused_taylor._BLOCKS_PER_SM == _cu_constant("MIN_BLOCKS_PER_SM")
+    plan = _plan(layout, features, act, in_dim, closure)
+    header, op_ints = _cu_constant("HEADER_INTS"), _cu_constant("OP_INTS")
+    tab = plan.table
+    assert tab[:header] == [len(plan.ops), in_dim, len(plan.firsts),
+                            len(plan.pairs), plan.wmax, plan.save_rows]
+    records = tab[header + len(plan.firsts) + 2 * len(plan.pairs):]
+    assert len(records) == op_ints * len(plan.ops)
+    width, expect, prev = in_dim, 0, None
+    for i, op in enumerate(plan.ops):
+        rec = records[op_ints * i:op_ints * (i + 1)]
+        keep = op[0] == "act" or prev == "dense"
+        assert rec[-1] == plan.save_offsets[i] == (expect if keep else -1)
+        if op[0] == "dense":
+            assert rec[:5] == [0, op[1], op[2], op[3], op[4]]
+            assert op[1] == width
+        else:
+            assert rec[:3] == [1, width, op[1]]
+        if keep:
+            expect += plan.n_streams * width
+        width = op[2] if op[0] == "dense" else width
+        prev = op[0]
+    assert plan.save_rows == expect
+
+
+@pytest.mark.parametrize("layout,features,act,in_dim,closure", KERNEL_CASES)
+def test_supports_keeps_the_kernels_scope(layout, features, act, in_dim,
+                                          closure):
+    # Every configuration the kernels were built and checked for stays in
+    # scope, and its backward (the larger block) fits shared memory.
+    net = make_layout_network(layout, features, act, in_dim=in_dim)
+    assert fused_taylor.supports(net.tokens, net.activations, closure,
+                                 net.layer_shapes, in_dim)
+    plan = _plan(layout, features, act, in_dim, closure)
+    assert plan.smem_bytes(2) < plan.smem_bytes(3) <= MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("n_streams", range(2, 9))
+def test_smem_reckoning_admits_all_the_one_thread_per_point_design_did(
+        n_streams):
+    # The first design (one thread per point, 32 points per block, two
+    # state buffers) needed 4 * (P + 2 * S * wmax * 32) bytes; the tiled
+    # backward's three 16-point buffers need no more, so supports() admits
+    # every (chain, closure) it admitted then.
+    for wmax in (1, 2, 3, 5, 10, 15, 16, 63, 64, 100, 128, 200):
+        for n_params in (3, 373, 8577, 20_601, 57_000):
+            old = 4 * (n_params + 2 * n_streams * wmax * 32)
+            new = fused_taylor._taylor_smem_bytes(n_params, n_streams, wmax,
+                                                  3)
+            assert new <= old, (n_params, wmax)
+
+
+@pytest.mark.parametrize("layout,features,act,in_dim,closure",
+                         KERNEL_CASES[:3])
+@pytest.mark.parametrize("sm_count", [132, 114])   # H100 SXM, H100 PCIe
+def test_backward_workspace_does_not_grow_with_n(layout, features, act,
+                                                 in_dim, closure, sm_count):
+    # The wrapper sizes the backward's save slabs and partial gradients by
+    # the persistent grid's slots, never by n; the grid is the tile count
+    # up to those slots.
+    plan = _plan(layout, features, act, in_dim, closure)
+    M = fused_taylor._TILE_POINTS
+    small = plan.backward_workspace(1000, sm_count)
+    large = plan.backward_workspace(1_000_000, sm_count)
+    assert small[1:] == large[1:]
+    _, slots = plan.launch_shape(1, sm_count, 3)
+    assert small[0] == -(-1000 // M) <= slots and large[0] == slots
+    assert large[1:] == (slots * plan.save_rows * M, slots * plan.n_params)
+    if features[0] == 64 and len(closure) == 4:
+        # The 64-wide Poisson chain: under 32 MiB at any n.
+        assert 4 * sum(large[1:]) < 32 * 2**20

@@ -13,11 +13,24 @@ from pydens_tpu_torch.models.layout import make_layout_network
 from pydens_tpu_torch.ops import fused_mlp, fused_taylor
 
 POISSON_CLOSURE = [(0,), (1,), (0, 0), (1, 1)]
+HEAT_CLOSURE = [(0,), (1,), (2,), (0, 0), (1, 1)]   # 2D + t: 6 streams
+M = fused_taylor._TILE_POINTS
+README_CHAIN = ("fa fa fa f", [10, 12, 15, 1], "Tanh", 2, POISSON_CLOSURE)
+WIDE_CHAIN = ("fa fa fa f", [64, 64, 64, 1], "Tanh", 2, POISSON_CLOSURE)
 
 
 def _require_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels run only there")
+
+
+def _points(n):
+    """``n``, or for "grid" two full waves of persistent blocks plus one
+    point: 2 * (SM count) * TILE_POINTS + 1."""
+    if n == "grid":
+        return 2 * torch.cuda.get_device_properties(
+            0).multi_processor_count * M + 1
+    return n
 
 
 @pytest.mark.gpu
@@ -28,12 +41,21 @@ def _require_cuda():
     ("fafaf", [12, 10, 1], "Tanh", 1, [(0,)], 400),     # w2: first order only
     ("fa fa f", [16, 16, 1], "Sigmoid", 3, [(0,), (2,), (0, 2)], 257),
     ("fa fa f", [16, 16, 1], "Sin", 2, [(0,), (1,), (0, 0), (0, 1)], 96),
+    # Ragged n around the tile and the grid of persistent blocks.
+    (*README_CHAIN, 1),
+    (*README_CHAIN, M - 1),
+    (*README_CHAIN, M + 1),
+    (*README_CHAIN, "grid"),
+    (*WIDE_CHAIN, "grid"),
+    (*WIDE_CHAIN, 262144),
+    ("fa fa fa f", [64, 64, 64, 1], "Tanh", 3, HEAT_CLOSURE, 20000),
 ])
 def test_taylor_kernels_match_plain_on_cuda(layout, features, act, in_dim,
                                             closure, n):
     # Values rtol/atol 2e-5; gradients rtol 2e-3 / atol 2e-5 against the
     # plain autograd path on the card; the backward is bitwise repeatable.
     _require_cuda()
+    n = _points(n)
     dev = torch.device("cuda")
     net = make_layout_network(layout, features, act, in_dim=in_dim,
                               device=dev)
@@ -54,6 +76,41 @@ def test_taylor_kernels_match_plain_on_cuda(layout, features, act, in_dim,
     torch.testing.assert_close(dx, rdx, rtol=2e-3, atol=2e-5)
     dp2, dx2 = fused_taylor.fused_taylor_backward(packed, x, g, plan)
     assert torch.equal(dp, dp2) and torch.equal(dx, dx2)
+
+
+@pytest.mark.gpu
+def test_taylor_backward_memory_does_not_grow_with_n():
+    # 64-wide chain, 262,144 points: beyond its inputs and outputs the
+    # backward allocates only its workspace, which is sized by the grid
+    # (TaylorPlan.backward_workspace, about 25 MB on an H100) and stays
+    # under 64 MiB; saving every op's input state per point would take
+    # 2.3 GB at this n.
+    _require_cuda()
+    layout, features, act, in_dim, closure = WIDE_CHAIN
+    dev = torch.device("cuda")
+    net = make_layout_network(layout, features, act, in_dim=in_dim,
+                              device=dev)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    plan = fused_taylor.TaylorPlan(net.tokens, net.activations, closure,
+                                   net.layer_shapes, in_dim)
+    with torch.no_grad():
+        packed = fused_taylor.pack_weights(net.params(), net.layer_names)
+    n = 262144
+    gen = torch.Generator(dev).manual_seed(1)
+    x = torch.rand(n, in_dim, device=dev, generator=gen)
+    g = torch.randn(n, plan.n_streams * plan.out_dim, device=dev,
+                    generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dp, dx = fused_taylor.fused_taylor_backward(packed, x, g, plan)
+    torch.cuda.synchronize()
+    extra = (torch.cuda.max_memory_allocated() - base
+             - 4 * (dp.numel() + dx.numel()))
+    _, save_floats, partial_floats = plan.backward_workspace(
+        n, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert extra <= 4 * (save_floats + partial_floats) + 2**20
+    assert extra < 64 * 2**20
 
 
 @pytest.mark.gpu
