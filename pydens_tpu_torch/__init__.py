@@ -16,6 +16,10 @@ from .ops.math import (sin, cos, tan, arcsin, arccos, arctan, arctan2, sinh,
                        sigmoid, softplus, erf)
 from .models import Model, ConvBlockModel, TorchModel
 from .solver import Solver
+from .samplers import (Sampler, NumpySampler, NS, ConstantSampler,
+                       HistoSampler, ScipySampler, ProductSampler,
+                       MixtureSampler, GeometrySampler, BoundarySampler,
+                       HaltonSampler)
 from .interop import params_from_jax
 
 __version__ = "0.5.0"
@@ -23,6 +27,9 @@ __version__ = "0.5.0"
 __all__ = [
     "Solver", "D", "V", "Expr", "lift", "Model", "ConvBlockModel",
     "TorchModel", "params_from_jax",
+    "Sampler", "NumpySampler", "NS", "ConstantSampler", "HistoSampler",
+    "ScipySampler", "ProductSampler", "MixtureSampler", "GeometrySampler",
+    "BoundarySampler", "HaltonSampler",
     "sin", "cos", "tan", "arcsin", "arccos", "arctan", "arctan2", "sinh",
     "cosh", "tanh", "exp", "expm1", "log", "log1p", "log2", "log10", "sqrt",
     "square", "power", "sign", "maximum", "minimum", "where", "clip",

@@ -92,6 +92,14 @@ def _normalize_ic_shape(ic, n_points, n_out):
         "scalar, 1-D, or 2-D")
 
 
+def _tree_fill(tree, value):
+    """The dict structure of ``tree`` with every leaf replaced by
+    ``value``."""
+    if isinstance(tree, dict):
+        return {k: _tree_fill(v, value) for k, v in tree.items()}
+    return value
+
+
 class Model(nn.Module):
     """Base model: problem dimensionality, condition parsing, the ansatz and
     the Taylor-plan tap table.  Subclasses provide the network body:
@@ -144,6 +152,11 @@ class Model(nn.Module):
         # Interpretation of 1-D callable condition outputs, frozen at the
         # Solver's one-row discovery run ('per_point' | 'per_component').
         self._cond_modes = {}
+        self._frozen_layers = set()
+        self._frozen_variables = set()
+        # False until the Solver's discovery run has created the V
+        # variables: names frozen before then are validated lazily.
+        self._params_ready = False
 
     # -- network body (provided by subclasses) ------------------------------
     def reset_parameters(self, generator):
@@ -173,6 +186,96 @@ class Model(nn.Module):
         for name, value in values.items():
             self.variables[name] = nn.Parameter(torch.as_tensor(
                 np.asarray(value), dtype=self.dtype, device=self.device))
+        self._params_ready = True
+
+    def trainable_mask(self, params):
+        """Boolean tree matching ``params``: True where trainable.
+
+        Frozen layers are addressed by name (``fc1``..., or ``conv_block`` /
+        ``net`` for the whole body); frozen variables by name (``log_scale``
+        or any V-token variable), a name also freezing every variable it
+        prefixes as ``name.``.  Names frozen before the parameters existed
+        are validated here: a misspelled name raises instead of being
+        ignored.
+        """
+        unknown_layers = (self._frozen_layers - set(params["net"])
+                          - {"conv_block", "net"})
+        if unknown_layers:
+            raise AttributeError(
+                f"unknown frozen layer(s) {sorted(unknown_layers)}; known "
+                f"layers: {sorted(params['net'])} (or 'conv_block' for the "
+                "whole network body)")
+        known_vars = set(params["variables"]) | {"log_scale"}
+        unknown_vars = {
+            v for v in self._frozen_variables
+            if v not in known_vars
+            and not any(k.startswith(v + ".") for k in known_vars)}
+        if unknown_vars:
+            raise AttributeError(
+                f"unknown frozen variable(s) {sorted(unknown_vars)}; known: "
+                f"{sorted(known_vars)}")
+        freeze_all_net = bool({"conv_block", "net"} & self._frozen_layers)
+
+        def layer_mask(name, subtree):
+            trainable = not (freeze_all_net or name in self._frozen_layers)
+            return _tree_fill(subtree, trainable)
+
+        return {
+            "net": {name: layer_mask(name, sub)
+                    for name, sub in params["net"].items()},
+            "log_scale": "log_scale" not in self._frozen_variables,
+            "variables": {
+                name: (name not in self._frozen_variables
+                       and not any(name.startswith(fz + ".")
+                                   for fz in self._frozen_variables))
+                for name in params["variables"]},
+        }
+
+    def _validate_freeze_names(self, layers, variables):
+        """Unknown names are an error, as in the reference (its ``getattr``
+        lookups raise AttributeError, ``model_torch.py:76,81``)."""
+        if not self._params_ready:
+            return  # pre-init freeze; validated lazily by trainable_mask
+        params = self.params
+        known_layers = set(params["net"]) | {"conv_block", "net"}
+        for name in layers:
+            if name not in known_layers:
+                raise AttributeError(
+                    f"unknown layer {name!r}; known layers: "
+                    f"{sorted(params['net'])} (or 'conv_block' for the "
+                    "whole network body)")
+        known_vars = set(params["variables"]) | {"log_scale"}
+        for name in variables:
+            if (name not in known_vars
+                    and not any(k.startswith(name + ".")
+                                for k in known_vars)):
+                raise AttributeError(
+                    f"unknown trainable variable {name!r}; known: "
+                    f"{sorted(known_vars)} (a Field freezes by prefix)")
+
+    # -- freeze / unfreeze (reference API: model_torch.py:56-105) ----------
+    def freeze_trainable(self, layers=None, variables=None):
+        """Freeze layers (by name) and trainable variables, as in the
+        reference's two-phase inverse-problem training.  The Solver masks
+        their gradient entries to zero before the optimizer."""
+        layers = list(layers or [])
+        variables = list(variables or [])
+        self._validate_freeze_names(layers, variables)
+        self._frozen_layers |= set(layers)
+        self._frozen_variables |= set(variables)
+
+    def unfreeze_trainable(self, layers=None, variables=None):
+        """Reverse :meth:`freeze_trainable`."""
+        layers = list(layers or [])
+        variables = list(variables or [])
+        self._validate_freeze_names(layers, variables)
+        self._frozen_layers -= set(layers)
+        self._frozen_variables -= set(variables)
+
+    # The reference README and examples use these names (v1.0.2 ships
+    # freeze_trainable); both work.
+    freeze_layers = freeze_trainable
+    unfreeze_layers = unfreeze_trainable
 
     def load_params(self, params):
         """Copy a parameter tree (same structure as :attr:`params`) into

@@ -13,19 +13,27 @@ ported slice (``__init__`` / ``fit`` / ``predict`` / ``reshape_and_concat``
   buffer that the host reads once per chunk.
 * The default sampler is U(0, 1) per column and IGNORES ``domain``
   (``model_torch.py:431``), drawn on the device from the Solver's
-  ``torch.Generator`` once per chunk.
+  ``torch.Generator`` once per chunk; so is any sampler with a device path
+  (``sample_device``).  Host-only samplers are drawn on the host.
+* Constraints run in the discovery run too, in a context of their own, so
+  a ``V`` used only in a constraint is trained and the derivative plan is
+  the equation's alone.
 """
 
 from __future__ import annotations
 
+import re
 import sys
+import time
+import warnings
 
 import numpy as np
 import torch
 
 from .models import ConvBlockModel
 from .models.base import resolve_device
-from .ops.tokens import Expr, EvalContext, variable_scope, as_array
+from .ops.tokens import (Expr, EvalContext, _batch_diagonal_grad,
+                         as_array, variable_scope)
 from .utils.criteria import resolve_criterion
 from .utils.optimizers import resolve_optimizer
 
@@ -86,8 +94,58 @@ class _FlatSpec:
         return tree
 
 
+# Keyword arguments of pydens_tpu's fit that this package does not take
+# yet, with their ROADMAP.md Queue 1 item.
+_FIT_NOT_PORTED = {"callback": 8, "checkpoint_path": 8, "checkpoint_every": 8,
+                   "profile_dir": 8, "adaptive": 10, "rba": 10, "causal": 10,
+                   "causal_axis": 10, "loss_balancing": 10}
+
+
 def _is_number(x):
     return isinstance(x, (int, float, np.integer, np.floating))
+
+
+def _numel(x):
+    return x.numel() if torch.is_tensor(x) else int(np.prod(np.shape(x)))
+
+
+def _normalize_loss_terms(loss_terms):
+    """``((name, weight), ...)`` from a name, a list of names or a
+    ``{name: weight}`` dict.  Dict keys are validated (a misspelled key
+    raises); the list form keeps the reference's quirk of dropping unknown
+    names other than constraint names (``model_torch.py:447-449``)."""
+    if isinstance(loss_terms, dict):
+        for k in loss_terms:
+            if (str(k) != "equation"
+                    and not re.fullmatch(r"constraint_?\d+", str(k))):
+                raise ValueError(
+                    f"unknown loss term {str(k)!r}; expected 'equation' "
+                    "or 'constraint_<k>'")
+        return tuple((str(k), float(v)) for k, v in loss_terms.items())
+    if not isinstance(loss_terms, (tuple, list)):
+        loss_terms = (loss_terms,)
+    return tuple((str(t), 1.0) for t in loss_terms)
+
+
+def _constraint_terms(loss_terms, n_constraints):
+    """``[(k, weight), ...]`` of the ``constraint_k`` / ``constraint<k>``
+    terms, in request order, each checked against the constraints given."""
+    nums = []
+    for term, w in loss_terms:
+        if "constraint" not in term:
+            continue
+        m = re.fullmatch(r"constraint_?(\d+)", term)
+        if m is None:
+            raise ValueError(
+                f"malformed loss term {term!r}; expected "
+                "'constraint_<k>' (e.g. 'constraint_0')")
+        nums.append((int(m.group(1)), w))
+    for num, _ in nums:
+        if num >= n_constraints:
+            raise ValueError(
+                f"loss term 'constraint_{num}' requested but only "
+                f"{n_constraints} constraints were supplied to Solver")
+    return nums
 
 
 class Solver:
@@ -115,6 +173,12 @@ class Solver:
     model : class
         Model class (default :class:`ConvBlockModel`); receives all extra
         kwargs (``layout``, ``features``/``units``, ``activation``, ...).
+    constraints : callable or sequence of callables, optional
+        ``constraint(f, *coords)``, where ``f`` evaluates the model at any
+        points (``f(np.array([0.5]))``; ``D`` works on ``f(x, ...)`` of
+        coordinate symbols; ``f.grad(*pts, wrt=k or (k, l, ...))`` is a
+        derivative at fixed points).  Trained through the ``constraint_k``
+        loss terms as ``criterion(c, 0)``.
     seed : int
         Seed of the parameter-init generator (CPU) and of the sampling
         generator (on ``device``).
@@ -127,13 +191,17 @@ class Solver:
                  boundary_condition=None, domain=(0, 1), nparams=0,
                  model=ConvBlockModel, constraints=None, seed=0, device=None,
                  **kwargs):
-        if constraints:
-            raise NotImplementedError(
-                "constraints are not ported to pydens_tpu_torch yet "
-                "(ROADMAP.md, Queue 1 item 6)")
         self.equation = equation
+        if constraints is None:
+            self.constraints = ()
+        elif isinstance(constraints, (tuple, list)):
+            self.constraints = tuple(constraints)
+        else:
+            self.constraints = (constraints,)
         self.device = resolve_device(device)
         self.losses = []
+        self.history = []   # one record per fit call
+        self._step_counter = 0
         self.model = model(**kwargs, ndims=ndims,
                            initial_condition=initial_condition,
                            boundary_condition=boundary_condition,
@@ -145,9 +213,11 @@ class Solver:
         self._opt = None
         self._opt_state = None
 
-        # Discovery: one real forward of model + equation on a single row of
-        # domain midpoints registers the V variables and records which pure
-        # field derivatives the equation takes (the plan).
+        # Discovery: one real forward of model + equation + constraints on a
+        # single row of domain midpoints registers the V variables and
+        # records which pure field derivatives the equation takes (the
+        # plan).  The constraints run in a context of their own, so D used
+        # there does not void the equation's plan.
         total = self.model.total
         mids = ([0.5 * (float(lo) + float(hi)) for lo, hi in
                  self.model.domain] + [0.5] * nparams)
@@ -174,6 +244,12 @@ class Solver:
                 raise
             for r in residuals:
                 as_array(r)
+            ctx_c = EvalContext(leaves)
+            coords_c = [Expr(_leaf_fn(ctx_c, k), ctx_c, leaf_index=k)
+                        for k in range(total)]
+            fwd = self._make_forward(params, ctx_c)
+            for constraint in self.constraints:
+                as_array(constraint(fwd, *coords_c))
         self._plan_derivs = frozenset(ctx.derivs)
         self._plan_ok = (ctx.plan_ok and bool(ctx.derivs)
                          and self.model.supports_taylor)
@@ -248,32 +324,100 @@ class Solver:
         return xs_concat
 
     # ------------------------------------------------------------------
+    # constraints
+    # ------------------------------------------------------------------
+    def _concat_points(self, vals):
+        """Counterpart of :meth:`reshape_and_concat` for the points a
+        constraint passes to its forward closure (``_forward``,
+        ``model_torch.py:451-457``): numbers are tiled to the batch (the
+        largest element count), arrays whose size mismatches it are tiled
+        from their first element, and tensors keep their autograd graph."""
+        dtype, device = self.model.dtype, self.device
+        batch = max((_numel(x) for x in vals if not _is_number(x)),
+                    default=1)
+        cols = []
+        for x in vals:
+            if _is_number(x):
+                col = torch.full((batch, 1), float(x), dtype=dtype,
+                                 device=device)
+            else:
+                x = torch.as_tensor(x, dtype=dtype, device=device)
+                col = (x.reshape(-1)[0].expand(batch, 1)
+                       if x.numel() != batch else x.reshape(batch, 1))
+            cols.append(col)
+        return torch.cat(cols, dim=1)
+
+    def _make_forward(self, params, ctx):
+        """Forward closure handed to constraints: evaluates the model at
+        arbitrary points.  If any argument is a coordinate expression, the
+        result is a differentiable :class:`Expr`, so ``D`` works inside
+        constraints too.  ``fwd.grad(*pts, wrt=k)`` evaluates the solution's
+        derivative w.r.t. coordinate column ``k`` at fixed points (Neumann
+        and Robin conditions); ``wrt`` also takes a multi-index tuple, e.g.
+        ``wrt=(0, 0)`` for the second derivative."""
+        model = self.model
+
+        def fwd(*pts):
+            if any(isinstance(p, Expr) for p in pts):
+                def fn():
+                    vals = [p.value if isinstance(p, Expr) else p
+                            for p in pts]
+                    return model.apply(params, self._concat_points(vals))
+                return Expr(fn, ctx)
+            return model.apply(params, self._concat_points(list(pts)))
+
+        def fwd_grad(*pts, wrt=0):
+            xs_c = self._concat_points(
+                [p.value if isinstance(p, Expr) else p for p in pts])
+            multi = ((wrt,) if isinstance(wrt, (int, np.integer))
+                     else tuple(wrt))
+            cols = [xs_c[:, k:k + 1].detach().requires_grad_(True)
+                    for k in range(xs_c.shape[1])]
+            with torch.enable_grad():
+                out = model.apply(params, torch.cat(cols, dim=1))
+                for k in multi:
+                    out = _batch_diagonal_grad(out, cols[k])
+            return out
+
+        fwd.grad = fwd_grad
+        return fwd
+
+    # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
     def _build_loss_fn(self, loss_terms, criterion, use_plan=False):
         """The total loss as a function of the flat parameter vector and a
-        ``(batch, total)`` batch of points.
+        ``(batch, total)`` batch of points: the equation term first, then
+        each requested constraint as ``criterion(c, zeros((1,)))``, each
+        times its weight.
 
         ``use_plan=True`` computes every pure field tap the equation takes
         in ONE Taylor traversal (``Model.full_taps``) and the equation reads
         them from the table; otherwise ``D`` takes nested gradients on
-        per-coordinate leaves that require grad.  Both are exact.
+        per-coordinate leaves that require grad.  Both are exact.  With
+        constraint terms the leaves require grad on the plan too, for ``D``
+        inside a constraint.
         """
         eq_weight = dict(loss_terms).get("equation")
+        nums = _constraint_terms(loss_terms, len(self.constraints))
+        weights = (([eq_weight] if eq_weight is not None else [])
+                   + [w for _, w in nums])
+        constraints = self.constraints
         model = self.model
         equation = self.equation
         total = model.total
         spec = _FlatSpec(model.params)
         plan_derivs = self._plan_derivs if use_plan else None
+        leaf_grad = plan_derivs is None or bool(nums)
 
         def loss_fn(theta, pts):
             params = spec.unflatten(theta)
-            if plan_derivs is not None:
-                leaves = [pts[:, k:k + 1] for k in range(total)]
-            else:
+            if leaf_grad:
                 leaves = [pts[:, k:k + 1].detach().requires_grad_(True)
                           for k in range(total)]
-            loss = theta.new_zeros(())
+            else:
+                leaves = [pts[:, k:k + 1] for k in range(total)]
+            terms = []
             with variable_scope("read", params["variables"]):
                 table = (model.full_taps(params, pts, plan_derivs)
                          if plan_derivs is not None else None)
@@ -282,67 +426,109 @@ class Solver:
                          deriv=())
                 coords = [Expr(_leaf_fn(ctx, k), ctx, leaf_index=k)
                           for k in range(total)]
-                for res in _as_residual_list(equation(f, *coords)):
-                    res = as_array(res)
-                    loss = loss + eq_weight * criterion(
-                        res, torch.zeros_like(leaves[0]))
+                if eq_weight is not None:
+                    acc = theta.new_zeros(())
+                    for res in _as_residual_list(equation(f, *coords)):
+                        acc = acc + criterion(as_array(res),
+                                              torch.zeros_like(leaves[0]))
+                    terms.append(acc)
+                if nums:
+                    fwd = self._make_forward(params, ctx)
+                    zero = theta.new_zeros((1,))
+                    for num, _ in nums:
+                        c = as_array(constraints[num](fwd, *coords))
+                        terms.append(criterion(c, zero))
+            if not terms:   # only unknown names: a zero loss
+                return theta[:0].sum()
+            loss = theta.new_zeros(())
+            for w, t in zip(weights, terms):
+                loss = loss + w * t
             return loss
 
         loss_fn.spec = spec
         return loss_fn
 
     def _sample(self, sampler, n, batch_size):
-        """``(n, batch_size, total)`` collocation points on the device."""
+        """``(n, batch_size, total)`` collocation points on the device: the
+        default U(0, 1) quirk and samplers with a device path draw from the
+        Solver's generator; the others on the host."""
         total = self.model.total
         if sampler is None:
             # Reference quirk: U(0, 1) per column, ignoring `domain`.
             return torch.rand((n, batch_size, total),
                               generator=self._generator, device=self.device,
                               dtype=self.model.dtype)
+        if getattr(sampler, "supports_device", False):
+            pts = sampler.sample_device(self._generator, n * batch_size)
+            return pts.to(self.model.dtype).reshape(n, batch_size, total)
         pts = np.asarray(sampler.sample(n * batch_size), np.float32)
         return torch.as_tensor(pts, dtype=self.model.dtype,
                                device=self.device).reshape(n, batch_size,
                                                            total)
 
+    def _flat_mask(self, spec):
+        """The trainable mask as a flat float vector in ``spec``'s order,
+        or None when everything trains."""
+        mask = self.model.trainable_mask(self.model.params)
+        leaves = _tree_leaves(mask)
+        if all(m for _, m in leaves):
+            return None
+        assert [p for p, _ in leaves] == spec.paths
+        return torch.cat([
+            torch.full((int(np.prod(shape)),), float(m),
+                       dtype=self.model.dtype, device=self.device)
+            for (_, m), shape in zip(leaves, spec.shapes)])
+
     def fit(self, niters, batch_size, sampler=None, loss_terms="equation",
             optimizer="Adam", criterion="MSELoss", lr=0.005, losses=None,
-            progress="auto", chunk_size=500, fast_taps="auto", **kwargs):
+            progress="auto", chunk_size=500, resample=True, fast_taps="auto",
+            stop_on_nan=True, until_loss=None, **kwargs):
         """Train for ``niters`` iterations of ``batch_size`` collocation
         points each (``model_torch.py:364-422``).
 
-        ``sampler`` is None (the default U(0, 1) quirk, on the device) or an
-        object with the host protocol ``sample(size) -> (size, total)``;
-        ``loss_terms`` (alias ``losses``) is ``'equation'`` or a
-        ``{'equation': weight}`` dict; ``optimizer`` is ``'Adam'`` or
-        ``None`` to reuse the previous fit's optimizer and its state;
-        ``criterion`` a name, a torch criterion instance or a callable;
-        extra kwargs go to the optimizer (``betas``, ``eps``).
-        ``fast_taps``: ``'auto'``/``True``/``'always'`` use the Taylor plan
-        whenever the equation's derivatives allow it, ``False``/``'never'``
-        force nested gradients.  ``chunk_size`` iterations run between host
-        reads of the loss buffer.
+        ``sampler`` is None (the default U(0, 1) quirk, on the device), a
+        sampler of :mod:`pydens_tpu_torch.samplers` (drawn on the device
+        when it has a device path) or any object with the host protocol
+        ``sample(size) -> (size, total)``; ``resample=False`` draws ONE
+        batch and trains on it every iteration.  ``loss_terms`` (alias
+        ``losses``) is ``'equation'`` and/or ``'constraint_k'`` names, or a
+        ``{term: weight}`` dict; ``optimizer`` is ``'Adam'`` or ``None`` to
+        reuse the previous fit's optimizer and its state; ``criterion`` a
+        name, a torch criterion instance or a callable; extra kwargs go to
+        the optimizer (``betas``, ``eps``).  ``fast_taps``:
+        ``'auto'``/``True``/``'always'`` use the Taylor plan whenever the
+        equation's derivatives allow it, ``False``/``'never'`` force nested
+        gradients.  ``chunk_size`` iterations run between host reads of the
+        loss buffer.  Frozen layers and variables
+        (``model.freeze_trainable``) have their gradient entries zeroed
+        before the optimizer.
+
+        ``stop_on_nan=True`` (the default) arms a divergence guard: at the
+        first non-finite loss the rest of the chunk's updates become no-ops
+        on the device (the offending iteration's own update is kept), the
+        fit stops with a warning naming the iteration, the partial loss
+        history (including the offending value) is kept, and
+        ``history[-1]['stopped_on_nan']`` records the index.
+        ``until_loss=tol`` stops the same way at the first loss at or below
+        ``tol`` (``history[-1]['converged_at']``); it implies the guard.
+        Every fit appends a record to :attr:`history`.
         """
+        fit_t0 = time.perf_counter()
+        not_ported = sorted(set(kwargs) & set(_FIT_NOT_PORTED))
+        if not_ported:
+            raise NotImplementedError(
+                f"fit options {not_ported} are not ported to "
+                "pydens_tpu_torch yet (ROADMAP.md, Queue 1 items "
+                f"{sorted({_FIT_NOT_PORTED[k] for k in not_ported})})")
         niters = int(niters)
         if niters <= 0:
             return self
+        if until_loss is not None:
+            until_loss = float(until_loss)
+            stop_on_nan = True
         if losses is not None:
             loss_terms = losses
-        if isinstance(loss_terms, dict):
-            loss_terms = tuple((str(k), float(v))
-                               for k, v in loss_terms.items())
-        else:
-            if not isinstance(loss_terms, (tuple, list)):
-                loss_terms = (loss_terms,)
-            loss_terms = tuple((str(t), 1.0) for t in loss_terms)
-        for term, _ in loss_terms:
-            if "constraint" in term:
-                raise NotImplementedError(
-                    "constraint loss terms are not ported to "
-                    "pydens_tpu_torch yet (ROADMAP.md, Queue 1 item 6)")
-        if "equation" not in dict(loss_terms):
-            raise ValueError(
-                f"loss_terms={loss_terms!r} has no 'equation' term, so there "
-                "is nothing to train")
+        loss_terms = _normalize_loss_terms(loss_terms)
         criterion_fn, _ = resolve_criterion(criterion)
         if optimizer is not None:
             self._opt = resolve_optimizer(optimizer, lr, kwargs)
@@ -359,13 +545,22 @@ class Solver:
 
         loss_fn = self._build_loss_fn(loss_terms, criterion_fn, use_plan)
         spec = loss_fn.spec
+        mask = self._flat_mask(spec)
         theta = spec.flatten(self.model.params).detach().clone()
         theta.requires_grad_(True)
         if self._opt_state is None:
             self._opt_state = self._opt.init(theta.detach())
+        batch_size = int(batch_size)
         chunk = max(1, min(niters, int(chunk_size)))
         loss_buf = torch.empty((chunk,), dtype=self.model.dtype,
                                device=self.device)
+        fixed = None if resample else self._sample(sampler, 1, batch_size)[0]
+        # The guard's predicate, the same on the device and on the host:
+        # a loss is good when finite and above tol (-inf without until_loss).
+        tol = np.float32(-np.inf if until_loss is None else until_loss)
+        armed = None
+        if stop_on_nan:
+            armed = torch.ones((), dtype=torch.bool, device=self.device)
 
         bounds = range(0, niters, chunk)
         if progress is True or (progress == "auto" and sys.stderr.isatty()):
@@ -375,20 +570,75 @@ class Solver:
             except ImportError:
                 pass
         fit_losses = []
+        iters_run = 0
+        nan_stop = converged_at = None
         try:
             for start in bounds:
                 n = min(chunk, niters - start)
-                pts_all = self._sample(sampler, n, int(batch_size))
+                pts_all = (self._sample(sampler, n, batch_size) if resample
+                           else None)
                 for i in range(n):
-                    loss = loss_fn(theta, pts_all[i])
+                    pts = pts_all[i] if resample else fixed
+                    loss = loss_fn(theta, pts)
                     grad, = torch.autograd.grad(loss, theta)
-                    self._opt.update(theta, grad, self._opt_state)
-                    loss_buf[i] = loss.detach()
+                    if mask is not None:
+                        grad = grad * mask
+                    loss = loss.detach()
+                    # The update of the iteration that trips the guard is
+                    # kept; every later one is a no-op.
+                    self._opt.update(theta, grad, self._opt_state, gate=armed)
+                    if armed is not None:
+                        # tol < loss < inf: finite and above tol, in fewer
+                        # device ops than isfinite's four.
+                        armed = armed & (loss > float(tol)) & (loss < np.inf)
+                    loss_buf[i] = loss
                 # The one host read of this chunk.
-                fit_losses.extend(loss_buf[:n].tolist())
+                chunk_losses = loss_buf[:n].tolist()
+                if stop_on_nan:
+                    arr = np.asarray(chunk_losses, np.float32)
+                    bad = ~(np.isfinite(arr) & (arr > tol))
+                    if bad.any():
+                        done = int(np.argmax(bad)) + 1
+                        fit_losses.extend(chunk_losses[:done])
+                        iters_run = start + done
+                        stop_at = self._step_counter + iters_run - 1
+                        if until_loss is not None and np.isfinite(
+                                arr[done - 1]):
+                            converged_at = stop_at
+                            break
+                        nan_stop = stop_at
+                        warnings.warn(
+                            f"fit stopped early: non-finite loss at "
+                            f"iteration {nan_stop} (of {niters}); the "
+                            "partial loss history is kept. Lower the "
+                            "learning rate or check the sampled "
+                            "domain. Pass stop_on_nan=False to "
+                            "disable this guard.")
+                        break
+                fit_losses.extend(chunk_losses)
+                iters_run = start + n
         finally:
+            self._step_counter += iters_run
             self.model.load_params(spec.unflatten(theta.detach()))
             self.losses.extend(fit_losses)
+
+        self.history.append({
+            "niters": iters_run, "batch_size": batch_size,
+            "optimizer": (optimizer if isinstance(optimizer, str)
+                          else "reused" if optimizer is None
+                          else type(optimizer).__name__),
+            "lr": (lr if isinstance(lr, (int, float))
+                   else getattr(lr, "__name__", "schedule")),
+            "loss_terms": list(loss_terms),
+            "resample": bool(resample),
+            "wall_time_s": time.perf_counter() - fit_t0,
+            "first_loss": float(fit_losses[0]),
+            "final_loss": float(fit_losses[-1]),
+        })
+        if nan_stop is not None:
+            self.history[-1]["stopped_on_nan"] = int(nan_stop)
+        if converged_at is not None:
+            self.history[-1]["converged_at"] = int(converged_at)
         return self
 
     # ------------------------------------------------------------------

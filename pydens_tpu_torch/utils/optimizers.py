@@ -31,15 +31,28 @@ class Adam:
                                      device=theta.device)}
 
     @torch.no_grad()
-    def update(self, theta, grad, state):
+    def update(self, theta, grad, state, gate=None):
+        """One step, in place.  ``gate``, a 0-d bool device tensor, makes
+        the step a no-op on ``theta`` and the state where it is False, with
+        no host read (the Solver's divergence guard)."""
         b1, b2 = self.b1, self.b2
-        mu, nu, count = state["mu"], state["nu"], state["count"]
-        count.add_(1.0)
-        mu.mul_(b1).add_(grad, alpha=1.0 - b1)
-        nu.mul_(b2).addcmul_(grad, grad, value=1.0 - b2)
+        if gate is None:
+            count = state["count"].add_(1.0)
+            mu = state["mu"].mul_(b1).add_(grad, alpha=1.0 - b1)
+            nu = state["nu"].mul_(b2).addcmul_(grad, grad, value=1.0 - b2)
+        else:
+            count = state["count"].add(1.0)
+            mu = state["mu"].mul(b1).add_(grad, alpha=1.0 - b1)
+            nu = state["nu"].mul(b2).addcmul_(grad, grad, value=1.0 - b2)
         mu_hat = mu / (1.0 - b1 ** count)
         nu_hat = nu / (1.0 - b2 ** count)
-        theta.sub_(self.lr * mu_hat / (torch.sqrt(nu_hat) + self.eps))
+        step = self.lr * mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        if gate is None:
+            theta.sub_(step)
+            return
+        for dst, new in ((theta, theta - step), (state["mu"], mu),
+                         (state["nu"], nu), (state["count"], count)):
+            torch.where(gate, new, dst, out=dst)
 
 
 def _adam_family(factory):
@@ -72,7 +85,8 @@ _NOT_PORTED = {"adamw", "adamax", "nadam", "radam", "sgd", "rmsprop",
 
 def resolve_optimizer(name, lr, kwargs):
     """Build an optimizer from a torch-style name (``'Adam'``), or pass an
-    object with ``init``/``update`` through."""
+    object with ``init(theta)`` and ``update(theta, grad, state,
+    gate=None)`` (as :class:`Adam`) through."""
     if not isinstance(name, str):
         if hasattr(name, "init") and hasattr(name, "update"):
             return name

@@ -49,6 +49,14 @@ def _points(n):
     (*WIDE_CHAIN, "grid"),
     (*WIDE_CHAIN, 262144),
     ("fa fa fa f", [64, 64, 64, 1], "Tanh", 3, HEAT_CLOSURE, 20000),
+    # The tutorials' Sigmoid shapes at the batches of their fits: w3 (heat
+    # 2D+t with a parameter column, 6 streams), w4 (first order with a
+    # parameter column, 2 streams) and w5 (first order, one input, 2
+    # streams; 500 points frozen, then 100 with the constraint).
+    ("fafaf", [30, 40, 1], "Sigmoid", 4, HEAT_CLOSURE, 1500),
+    ("fafaf", [20, 30, 1], "Sigmoid", 2, [(0,)], 700),
+    ("fafaf", [20, 30, 1], "Sigmoid", 1, [(0,)], 500),
+    ("fafaf", [20, 30, 1], "Sigmoid", 1, [(0,)], 100),
 ])
 def test_taylor_kernels_match_plain_on_cuda(layout, features, act, in_dim,
                                             closure, n):
@@ -158,19 +166,28 @@ def test_solver_loss_through_kernels_matches_nested_gradients_on_cuda(ic):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("layout,features", [
-    ("fa fa f", [32, 32, 1]),
-    ("fa fa fa f", [10, 12, 15, 1]),
-    ("faR fa fa+ f", [16, 16, 16, 1]),
+@pytest.mark.parametrize("layout,features,act,in_dim,n", [
+    ("fa fa f", [32, 32, 1], "Tanh", 3, 2000),
+    ("fa fa fa f", [10, 12, 15, 1], "Tanh", 3, 2000),
+    ("faR fa fa+ f", [16, 16, 16, 1], "Tanh", 3, 2000),
+    ("fafaf", [30, 40, 1], "Sigmoid", 4, 2000),     # w3's layout
+    ("fafaf", [20, 30, 1], "Sigmoid", 2, 2000),     # w4's layout
+    # The tutorials' predict calls, at their own points.
+    ("fafaf", [12, 10, 1], "Tanh", 1, 100),         # w2
+    ("fafaf", [30, 40, 1], "Sigmoid", 4, 8),        # w3
+    ("fafaf", [20, 30, 1], "Sigmoid", 2, 60),       # w4
+    ("fafaf", [20, 30, 1], "Sigmoid", 1, 8),        # w5
 ])
-def test_mlp_kernel_matches_plain_on_cuda(layout, features):
+def test_mlp_kernel_matches_plain_on_cuda(layout, features, act, in_dim, n):
     # rtol/atol 2e-5 against the plain version on the card.
     _require_cuda()
     dev = torch.device("cuda")
-    net = make_layout_network(layout, features, "Tanh", in_dim=3, device=dev)
+    net = make_layout_network(layout, features, act, in_dim=in_dim,
+                              device=dev)
     net.reset_parameters(torch.Generator().manual_seed(0))
-    plan = fused_mlp.MlpPlan(net.tokens, net.activations, net.layer_shapes, 3)
-    x = torch.randn(2000, 3, device=dev)
+    plan = fused_mlp.MlpPlan(net.tokens, net.activations, net.layer_shapes,
+                             in_dim)
+    x = torch.randn(n, in_dim, device=dev)
     with torch.no_grad():
         packed = fused_taylor.pack_weights(net.params(), net.layer_names)
         out = fused_mlp.fused_mlp_forward(packed, x, plan)

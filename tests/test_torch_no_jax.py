@@ -2,8 +2,9 @@
 
 A plain ``import`` check proves nothing in a process where jax is already
 loaded (this image's interpreter imports it at startup), so the package is
-imported and trained in a subprocess where ``import jax`` fails, and every
-file of the package is scanned for a jax import."""
+imported and trained in a subprocess where ``import jax`` fails (the README
+fit, and a w5-like fit with a sampler product, a constraint and a freeze),
+and every file of the package is scanned for a jax import."""
 
 import ast
 import os
@@ -37,6 +38,23 @@ s = Solver(pde, ndims=2, boundary_condition=1, layout="fa fa fa f",
 s.fit(batch_size=100, niters=10, progress=False)
 assert len(s.losses) == 10 and np.isfinite(s.losses).all()
 assert s.predict(np.zeros(3), np.linspace(0, 1, 3)).shape == (3, 1)
+
+# A w5-like fit: a product NS sampler, a V variable frozen in the first
+# phase, then a constraint term.
+def ode(f, x, e):
+    return D(f, x) - e * torch.cos(e * x) + pdt.V("k", data=[1.0])
+
+s = Solver(ode, ndims=1, nparams=1, initial_condition=1.0, device="cpu",
+           constraints=lambda f, x, e: f(np.array([0.5]), 1.0))
+s.model.freeze_layers(variables=["k"])
+s.fit(batch_size=50, niters=5, lr=0.1, progress=False,
+      sampler=pdt.NS("u") & pdt.NS("u", low=.5, high=2))
+assert s.model.params["variables"]["k"].item() == 1.0
+s.model.unfreeze_layers(variables=["k"])
+s.fit(batch_size=50, niters=5, lr=0.1, progress=False,
+      loss_terms=["equation", "constraint_0"])
+assert s.model.params["variables"]["k"].item() != 1.0
+assert np.isfinite(s.losses).all() and len(s.history) == 2
 loaded = sorted(n for n in sys.modules
                 if n.split(".")[0] == "jax" and sys.modules[n] is not None)
 assert not loaded, loaded
