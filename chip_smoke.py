@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py              # the smoke run below
     python3 chip_smoke.py --profile    # per-step profile of w1-w5 only
+    python3 chip_smoke.py --mlp-turns OLD.cu   # MLP kernel: OLD.cu vs this
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -10,13 +11,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compiles the CUDA kernels of pydens_tpu_torch/csrc (timed);
 3. kernels vs plain: every kernel against its plain PyTorch version on the
    card, at the README workload's shapes and at large ones (the 64-wide
-   chain at 65,537 and 262,144 points, and a 6-stream heat closure), with
-   timings and the backward's peak device memory at width 64;
+   chain at 65,537 and 262,144 points, and a 6-stream heat closure; the
+   MLP at 1,048,576 points on four layouts, at a ragged n and at an n that
+   takes the persistent blocks around more than once), with timings, each
+   shape's bound and share of it, and the backward's peak device memory at
+   width 64;
 4. the README 2D Poisson fit (1500 Adam steps, batch 100) and predict on a
    100 x 100 grid through the public Solver, with the launch counters
    showing that every step ran the fused Taylor kernels and predict the
-   fused MLP kernel; the same fit with ``stop_on_nan=False``, in turns
-   with the guarded one, for the divergence guard's cost; then the same fit
+   fused MLP kernel; a dense predict on a 1024 x 1024 grid, split into its
+   parts (``Solver.predict``, ``predict_apply`` on a device tensor, the
+   kernel alone); the same fit with ``stop_on_nan=False``, in turns with
+   the guarded one, for the divergence guard's cost; then the same fit
    with the kernels routed to their plain versions, for the comparison of
    iterations/s;
 5. the wide fit: 2D Poisson, ``fa fa fa f`` [64, 64, 64, 1] Tanh, 200 Adam
@@ -31,7 +37,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    iteration counts, with the device samplers; each holds its accuracy
    band (3x the worse of the two figures in ``BENCHMARKS.md:165-171``) and
    launches the Taylor kernels on every step and the MLP kernel in
-   predict.
+   predict; ``w3`` then predicts on a 1024 x 1024 (x, y) grid as in
+   phase 4.
 
 Phase 3 also checks every tutorial's Taylor chain at the batches of its
 fits and the MLP kernel at the points of its predict calls
@@ -44,6 +51,20 @@ limit, and as its last line ``{"ok": true, "device": {...}}``.
 ``--profile`` runs phases 1 and 2, then ``profile_steps``: one JSON line per
 workload and guard setting (host ms per step, device ops and device busy
 ms per step), and the card's name and power limit.
+
+``--mlp-turns OLD.cu`` runs phases 1 and 2, then ``mlp_turns``: the fused
+MLP kernel of an earlier ``csrc/fused_mlp.cu`` (the one-thread-per-point
+design, whose C entry and op table it knows) built from ``OLD.cu`` into
+``build/mlp_turns/``, timed in turns with this tree's kernel, and this
+tree's kernel's SASS instruction counts (``cuobjdump``).  To take the
+earlier source from git: ``git show <commit>:pydens_tpu_torch/csrc/fused_mlp.cu
+> build/fused_mlp_old.cu``.
+
+Bounds: the least time the card could take for a kernel's work, the larger
+of its FMAs (2 FLOPs each) over the H100 SXM's 67 TFLOP/s f32 peak and its
+bytes (each input read once, each output written once) over 3.35 TB/s; the
+Taylor forward counts the products of all its streams, the backward twice
+that (its recompute is the kernel's own choice and not counted).
 """
 
 import json
@@ -64,6 +85,15 @@ WIDE = dict(ndims=2, boundary_condition=1, layout="fa fa fa f",
             activation="Tanh", units=[64, 64, 64, 1])
 WIDE_BATCH = 65536
 WIDE_STEPS = 200
+DENSE_GRID = 1024           # dense predicts: DENSE_GRID ** 2 points
+# The MLP layouts timed at 1,048,576 points, 3 inputs, Tanh: those of
+# tests/test_pallas_mlp.py and the 64-wide chain.
+MLP_LAYOUTS = [("l32x32", "fa fa f", [32, 32, 1]),
+               ("l10x12x15", "fa fa fa f", [10, 12, 15, 1]),
+               ("skip16", "faR fa fa+ f", [16, 16, 16, 1]),
+               ("wide64", "fa fa fa f", [64, 64, 64, 1])]
+F32_FLOPS = 67e12           # H100 SXM f32 peak outside the tensor cores
+HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
 # Each tutorial's Taylor chain (network and closure of its equation), the
 # batch sizes of its fits, and the points of its predict calls in phase 6.
 TUTORIAL_CHAINS = {
@@ -110,6 +140,65 @@ def timed_pair(name, kernel, plain, reps):
 
 def max_err(a, b):
     return float((a - b).abs().max())
+
+
+def _tol_used(out, ref):
+    """The largest ``|out - ref| / (atol + rtol |ref|)`` at VALUE_TOL."""
+    return float(((out - ref).abs() / (VALUE_TOL["atol"] + VALUE_TOL["rtol"]
+                                        * ref.abs())).max())
+
+
+def bound(fmas, nbytes):
+    """``(ms, "operations" or "bytes", work)``: the least time the card
+    could take for ``fmas`` f32 FMAs and ``nbytes`` of device memory
+    traffic, and the two counts as text."""
+    ops_ms = 2 * fmas / F32_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    work = f"{fmas / 1e6:.3f} M FMAs, {nbytes / 1e6:.3f} MB"
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", work
+    return bytes_ms, "bytes", work
+
+
+def _products(ops):
+    return sum(op[1] * op[2] for op in ops if op[0] == "dense")
+
+
+def taylor_bounds(plan, n):
+    """Bounds of the Taylor forward (the products of all streams; x and the
+    weights in, the streams out) and backward (twice the products; x, the
+    weights and the cotangent in, dW and dx out)."""
+    fmas = n * plan.n_streams * _products(plan.ops)
+    fwd_bytes = 4 * (n * plan.in_dim + plan.n_params
+                     + n * plan.n_streams * plan.out_dim)
+    bwd_bytes = fwd_bytes + 4 * (plan.n_params + n * plan.in_dim)
+    return {"fwd": bound(fmas, fwd_bytes), "bwd": bound(2 * fmas, bwd_bytes)}
+
+
+def mlp_bound(plan, n):
+    """Bound of the MLP forward: its products; x and the weights in, the
+    output out."""
+    return bound(n * _products(plan.ops),
+                 4 * (n * (plan.in_dim + plan.out_dim) + plan.n_params))
+
+
+def mlp_threads_busy(plan):
+    """Share of the thread slots of the dense layers' register tiles that do
+    work, weighted by each layer's FMAs (csrc/fused_mlp.cu: a thread owns
+    4 points x 4 features; THREADS threads walk a tile's items)."""
+    from pydens_tpu_torch.ops.fused_mlp import THREADS
+    busy = total = 0
+    for op in plan.ops:
+        if op[0] == "dense":
+            items = -(-op[2] // 4) * (plan.tile // 4)
+            rounds = -(-items // THREADS)
+            busy += op[1] * op[2] * items / (rounds * THREADS)
+            total += op[1] * op[2]
+    return busy / total
+
+
+def _share(ms, bound_ms):
+    return f"bound {bound_ms * 1e3:.2f} us, {100 * bound_ms / ms:.1f}% of it"
 
 
 def phase_device():
@@ -184,6 +273,7 @@ def check_taylor(features, n, seed=0, reps=0, closure=POISSON_CLOSURE,
     assert torch.equal(dp, dp2) and torch.equal(dx, dx2), \
         "backward not bitwise repeatable"
     errs = {"fwd": fwd_err, "bwd": max(max_err(dp, rdp), max_err(dx, rdx))}
+    bounds = taylor_bounds(plan, n)
     times = {}
     if reps:
         times = timed_pair(
@@ -203,11 +293,16 @@ def check_taylor(features, n, seed=0, reps=0, closure=POISSON_CLOSURE,
         f"{len(closure)} n={n}: "
         f"max|err| fwd {errs['fwd']:.3e} bwd {errs['bwd']:.3e}, "
         "bitwise-repeatable"
-        + "".join(f", {k} {v:.4f} ms" for k, v in times.items()) + mem)
+        + "".join(f", {k} {v:.4f} ms" for k, v in times.items())
+        + "".join(f"; {k} {work}, {_share(times[k], b)} ({by})"
+                  for k, (b, by, work) in bounds.items() if k in times)
+        + mem)
+    for k, (b, by, _) in bounds.items():
+        times[f"{k}_bound"], times[f"{k}_bound_by"] = b, by
     return errs, times
 
 
-def check_mlp(layout, features, in_dim, n, reps=0, act="Tanh"):
+def _mlp_case(layout, features, in_dim, n, act="Tanh"):
     from pydens_tpu_torch.models.layout import make_layout_network
     from pydens_tpu_torch.ops import fused_mlp as fm
     from pydens_tpu_torch.ops.fused_taylor import pack_weights
@@ -220,21 +315,51 @@ def check_mlp(layout, features, in_dim, n, reps=0, act="Tanh"):
                     generator=torch.Generator(dev).manual_seed(1))
     with torch.no_grad():
         packed = pack_weights(net.params(), net.layer_names)
+    return plan, packed, x
+
+
+def mlp_grid(plan):
+    """``(grid, tile)`` of the MLP kernel's persistent launch at large n."""
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    from pydens_tpu_torch.ops._build import load_library
+    dev = torch.device("cuda", 0)
+    per_sm = fm._blocks_per_sm(load_library(), plan, dev)
+    return (torch.cuda.get_device_properties(0).multi_processor_count
+            * per_sm, plan.tile)
+
+
+def check_mlp(layout, features, in_dim, n, reps=0, act="Tanh"):
+    """The MLP kernel against its plain version; with ``reps``, both timed
+    in turns.  Returns ``(max error, times)``; ``times`` holds the bound."""
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    if n == "passes":
+        plan, _, _ = _mlp_case(layout, features, in_dim, 1, act)
+        grid, tile = mlp_grid(plan)
+        n = 3 * grid * tile + 77
+    plan, packed, x = _mlp_case(layout, features, in_dim, n, act)
+    with torch.no_grad():
         out = fm.fused_mlp_forward(packed, x, plan)
         ref = fm.fused_mlp_forward_plain(packed, x, plan)
         sync()
         torch.testing.assert_close(out, ref, **VALUE_TOL)
         times = {}
         if reps:
-            times = {
-                "fwd": time_ms(lambda: fm.fused_mlp_forward(packed, x, plan),
-                               reps),
-                "fwd_plain": time_ms(
-                    lambda: fm.fused_mlp_forward_plain(packed, x, plan),
-                    reps)}
+            times = timed_pair(
+                "fwd", lambda: fm.fused_mlp_forward(packed, x, plan),
+                lambda: fm.fused_mlp_forward_plain(packed, x, plan), reps)
     err = max_err(out, ref)
-    log(f"mlp {layout!r} {act} {features} n={n}: max|err| {err:.3e}"
-        + "".join(f", {k} {v:.4f} ms" for k, v in times.items()))
+    bound_ms, by, work = mlp_bound(plan, n)
+    grid, tile = mlp_grid(plan)
+    log(f"mlp {layout!r} {act} {features} in_dim {in_dim} n={n}: max|err| "
+        f"{err:.3e} ({100 * _tol_used(out, ref):.1f}% of VALUE_TOL)"
+        + "".join(f", {k} {v:.4f} ms" for k, v in times.items())
+        + f"; {work}"
+        + (f", {_share(times['fwd'], bound_ms)} ({by})" if times else
+           f", bound {bound_ms * 1e3:.2f} us ({by})")
+        + f"; tile {tile}, {grid} resident blocks, the persistent loop turns "
+        f"{-(-n // tile) / grid:.2f} times; threads busy "
+        f"{100 * mlp_threads_busy(plan):.0f}%")
+    times["fwd_bound"], times["fwd_bound_by"] = bound_ms, by
     return err, times
 
 
@@ -251,18 +376,27 @@ def phase_kernels():
                   for w, (chain, batches, _) in TUTORIAL_CHAINS.items()
                   for n in batches}
     sync()
-    mlp = [check_mlp("fa fa fa f", [10, 12, 15, 1], 2, 10000, reps=200),
-           check_mlp("fafaf", [30, 40, 1], 4, 1024, reps=200,
-                     act="Sigmoid")]
+    # The MLP shapes, keyed by tag; "readme_n10000" is the README predict.
+    mlp = {"readme_n10000": check_mlp("fa fa fa f", [10, 12, 15, 1], 2,
+                                      10000, reps=200),
+           "w3_layout_n1024": check_mlp("fafaf", [30, 40, 1], 4, 1024,
+                                        reps=200, act="Sigmoid")}
     tut_mlp = {f"{w}_n{n}": check_mlp(chain["layout"], chain["features"],
                                       chain["in_dim"], n, reps=200,
                                       act=chain["act"])
                for w, (chain, _, n) in TUTORIAL_CHAINS.items()}
-    for layout, features in [("fa fa f", [32, 32, 1]),
-                             ("fa fa fa f", [10, 12, 15, 1]),
-                             ("faR fa fa+ f", [16, 16, 16, 1])]:
-        mlp.append(check_mlp(layout, features, 3, 2000))
-        mlp.append(check_mlp(layout, features, 3, 1_048_576, reps=10))
+    for tag, layout, features in MLP_LAYOUTS:
+        check_mlp(layout, features, 3, 2000)
+        mlp[f"{tag}_n1048576"] = check_mlp(layout, features, 3, 1_048_576,
+                                           reps=10)
+    # A ragged n (not a multiple of the tile), and an n that takes every
+    # persistent block around its loop three times and more.
+    mlp["readme_layout_ragged"] = check_mlp("fa fa fa f", [10, 12, 15, 1], 3,
+                                            1_000_003, reps=10)
+    mlp["readme_layout_passes"] = check_mlp("fa fa fa f", [10, 12, 15, 1], 3,
+                                            "passes", reps=10)
+    mlp["wide64_passes"] = check_mlp("fa fa fa f", [64, 64, 64, 1], 3,
+                                     "passes", reps=10)
     sync()
     return taylor, tut_taylor, mlp, tut_mlp
 
@@ -288,6 +422,81 @@ def _route_plain(model):
             ft.fused_taylor_forward_plain(packed, xs, plan), plan)
 
     model.network_apply_taylor = taylor
+
+
+def dense_predict(solver, grid, tag, reps=5):
+    """A dense predict of a trained solver on ``grid`` (numpy, ``(N,
+    total)``), split into its parts: ``Solver.predict`` (host clock ending in
+    a synchronize, mean of ``reps`` after a warm-up), and within it the
+    input normalisation, the copy to the card, ``predict_apply`` and the
+    copy back (host clock, one call each); ``Model.predict_apply`` on a
+    device tensor and the kernel alone (CUDA events).  Asserts one MLP
+    launch per ``Solver.predict`` and the kernel within VALUE_TOL of its
+    plain version."""
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    from pydens_tpu_torch.ops.fused_taylor import pack_weights
+    model = solver.model
+    before = fm.fused_mlp_forward.launches
+    u = solver.predict(grid)
+    assert fm.fused_mlp_forward.launches - before == 1
+    assert u.shape == (grid.shape[0], 1) and np.isfinite(u).all()
+    walls = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        solver.predict(grid)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    split = {}
+    t0 = time.perf_counter()
+    xn = solver._normalize_inputs((grid,))
+    split["normalize"] = (time.perf_counter() - t0) * 1e3
+    sync()
+    t0 = time.perf_counter()
+    x = torch.as_tensor(xn, dtype=model.dtype, device=solver.device)
+    sync()
+    split["to_card"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out = model.predict_apply(model.params, x)
+    sync()
+    split["predict_apply"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out.cpu().numpy()
+    split["to_host"] = (time.perf_counter() - t0) * 1e3
+    plan = model._mlp_plan
+    with torch.no_grad():
+        packed = pack_weights(model.params["net"], model.layer_names)
+        kernel = fm.fused_mlp_forward(packed, x, plan)
+        plain = fm.fused_mlp_forward_plain(packed, x, plan)
+        sync()
+        torch.testing.assert_close(kernel, plain, **VALUE_TOL)
+        apply_ms = time_ms(lambda: model.predict_apply(model.params, x), 20)
+        times = timed_pair(
+            "kernel", lambda: fm.fused_mlp_forward(packed, x, plan),
+            lambda: fm.fused_mlp_forward_plain(packed, x, plan), 20)
+    bound_ms, by, _ = mlp_bound(plan, x.shape[0])
+    log(f"dense predict {tag}, {grid.shape[0]} points: Solver.predict "
+        f"{np.mean(walls):.3f} ms (host clock, mean of {reps}; min "
+        f"{min(walls):.3f}), one call split: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+        + f"; predict_apply on the card {apply_ms:.4f} ms, kernel "
+        f"{times['kernel']:.4f} ms (plain {times['kernel_plain']:.4f} ms; "
+        f"{_share(times['kernel'], bound_ms)} ({by})); MLP launches per "
+        f"Solver.predict 1; max|kernel - plain| "
+        f"{max_err(kernel, plain):.3e} (max|plain| "
+        f"{float(plain.abs().max()):.3e}; the worst point uses "
+        f"{100 * _tol_used(kernel, plain):.1f}% of VALUE_TOL)")
+    return dict(predict_ms=float(np.mean(walls)), apply_ms=apply_ms,
+                kernel_ms=times["kernel"], **split)
+
+
+def _grid(*fixed):
+    """A DENSE_GRID x DENSE_GRID grid over (x, y) in [0, 1]^2, with the
+    columns ``fixed`` appended at constant values."""
+    xs = np.linspace(0, 1, DENSE_GRID, dtype=np.float32)
+    cols = [c.reshape(-1) for c in np.meshgrid(xs, xs, indexing="ij")]
+    cols += [np.full(DENSE_GRID ** 2, v, np.float32) for v in fixed]
+    return np.stack(cols, -1)
 
 
 def timed_fit(solver, **kwargs):
@@ -333,6 +542,7 @@ def phase_poisson():
     np.testing.assert_allclose(u, plain_u, **VALUE_TOL)
     log(f"predict 100x100: finite, boundary exact, max|kernel - plain| "
         f"{float(np.abs(u - plain_u).max()):.3e}")
+    dense_predict(solver, _grid(), "README")
 
     # The divergence guard's cost: the same fit with stop_on_nan=False, in
     # turns with the guarded one (guarded above, off, off, guarded).
@@ -530,6 +740,8 @@ def phase_tutorials():
         assert launches["fused_mlp_forward"] >= 1, launches
         assert metric < TUTORIAL_BANDS[name], (name, metric)
         results[name] = launches
+        if name == "w3":   # (x, y) at t = 0.25, a = 1
+            dense_predict(solver, _grid(0.25, 1.0), "w3")
         del solver
         torch.cuda.empty_cache()
     return results
@@ -580,12 +792,181 @@ def profile_steps(steps=50, warmup=20):
     return rows
 
 
+def _load_old_mlp(source):
+    """The earlier MLP kernel built from ``source`` into build/mlp_turns/,
+    with the C entry it has: pdt_mlp_forward(x, w, tab, out, n, P, wmax,
+    max_stack, out_dim, stream)."""
+    import ctypes
+    from pathlib import Path
+    from pydens_tpu_torch.ops._build import _NVCC_FLAGS, _nvcc
+    out_dir = Path(__file__).resolve().parent / "build" / "mlp_turns"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    target = out_dir / "libmlp_old.so"
+    subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(target), str(source)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(target))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.pdt_mlp_forward.argtypes = [P, P, P, P, I, I, I, I, I, P]
+    lib.pdt_mlp_forward.restype = ctypes.c_int
+    return lib
+
+
+def _raw_mlp_calls(old, packed, x, plan):
+    """``(old, new)``: calls of the earlier and of this tree's C entry on
+    the same inputs, each into an output of its own allocated once, with no
+    wrapper around them."""
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    from pydens_tpu_torch.ops._build import load_library
+    kinds = {"dense": 0, "act": 1, "push": 2, "add": 3}
+    table = torch.tensor(
+        [len(plan.ops), plan.in_dim, plan.wmax, plan.max_stack]
+        + [v for op in plan.ops for v in (kinds[op[0]], *op[1:])],
+        dtype=torch.int32, device=x.device)
+    lib, n = load_library(), x.shape[0]
+    grid = plan.launch_shape(
+        n, torch.cuda.get_device_properties(0).multi_processor_count,
+        fm._blocks_per_sm(lib, plan, x.device))
+    outs = [torch.empty((n, plan.out_dim), device=x.device) for _ in "on"]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def old_call():
+        assert old.pdt_mlp_forward(
+            x.data_ptr(), packed.data_ptr(), table.data_ptr(),
+            outs[0].data_ptr(), n, plan.n_params, plan.wmax, plan.max_stack,
+            plan.out_dim, stream) == 0
+        return outs[0]
+
+    def new_call():
+        assert lib.pdt_mlp_forward(
+            x.data_ptr(), packed.data_ptr(),
+            plan.device_table(x.device).data_ptr(), outs[1].data_ptr(), n,
+            *plan.kernel_args(), plan.out_dim, grid, stream) == 0
+        return outs[1]
+    return old_call, new_call
+
+
+def sass_counts(lib_path, kernel="mlp_fwd_kernelILi128E"):
+    """Per basic block of ``kernel``'s SASS (``cuobjdump -sass``) that runs
+    FFMA or MUFU: its opcode counts.  A block starts at a label or a branch
+    target and ends after a branch."""
+    import re
+    import shutil
+    from pathlib import Path
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        raise RuntimeError("cuobjdump not found")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    body = text[text.index(kernel):]
+    nxt = body.find("Function :", 10)
+    body = body[:nxt if nxt > 0 else len(body)]
+    instr = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)([^;]*);")
+    rows, targets = [], set()
+    for line in body.splitlines():
+        if re.match(r"\s*\.L\w*:", line):
+            rows.append(("label", None, ""))
+            continue
+        m = instr.match(line)
+        if m:
+            rows.append((int(m.group(1), 16), m.group(3), m.group(4)))
+            if m.group(3).startswith(("BRA", "BRX", "CALL")):
+                targets.update(int(t, 16) for t in
+                               re.findall(r"0x([0-9a-f]+)", m.group(4)))
+    blocks, cur = [], {}
+    for addr, op, _ in rows:
+        if addr == "label" or addr in targets:
+            blocks.append(cur)
+            cur = {}
+            if addr == "label":
+                continue
+        cur[op] = cur.get(op, 0) + 1
+        if op.startswith(("BRA", "EXIT", "RET")):
+            blocks.append(cur)
+            cur = {}
+    blocks.append(cur)
+    return [b for b in blocks
+            if any(k.startswith(("FFMA", "MUFU")) for k in b)]
+
+
+def mlp_turns(old_source, reps=20):
+    """The MLP kernel of an earlier csrc/fused_mlp.cu (``old_source``)
+    against this tree's, in turns (old, new, new, old; CUDA events, ``reps``
+    calls each of the bare C entries) at the three layouts of
+    tests/test_pallas_mlp.py on 1,048,576 points and at the README predict
+    (10,000 points), and this tree's kernel through its wrapper; then this
+    tree's kernel's SASS: for each block that runs FFMA or MUFU, its opcode
+    counts, and from the dense loops and the fused activations the
+    instructions per point of each layout."""
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    from pydens_tpu_torch.ops._build import load_library
+    old = _load_old_mlp(old_source)
+    cases = [(tag, layout, features, 3, 1_048_576)
+             for tag, layout, features in MLP_LAYOUTS[:3]]
+    cases.append(("readme_predict", "fa fa fa f", [10, 12, 15, 1], 2, 10000))
+    rows = {}
+    for tag, layout, features, in_dim, n in cases:
+        plan, packed, x = _mlp_case(layout, features, in_dim, n)
+        old_call, new_call = _raw_mlp_calls(old, packed, x, plan)
+        with torch.no_grad():
+            ref = fm.fused_mlp_forward_plain(packed, x, plan)
+            for fn in (old_call, new_call):
+                torch.testing.assert_close(fn(), ref, **VALUE_TOL)
+            o1, n1, n2, o2 = (time_ms(f, reps) for f in (
+                old_call, new_call, new_call, old_call))
+            wrapped = time_ms(lambda: fm.fused_mlp_forward(packed, x, plan),
+                              reps)
+        bound_ms, by, _ = mlp_bound(plan, n)
+        rows[tag] = dict(old=[o1, o2], new=[n1, n2], wrapper=wrapped,
+                         bound_ms=bound_ms, bound_by=by)
+        log(f"mlp turns {tag} {features} n={n}: old {o1:.4f} / {o2:.4f} ms, "
+            f"new {n1:.4f} / {n2:.4f} ms (C entries, old, new, new, old), "
+            f"speed-up {(o1 + o2) / (n1 + n2):.2f}x; new "
+            f"{_share((n1 + n2) / 2, bound_ms)} ({by}); through "
+            f"fused_mlp_forward {wrapped:.4f} ms")
+    blocks = sass_counts(load_library().path)
+    for i, b in enumerate(blocks):
+        log(f"sass block {i}: {sum(b.values())} instructions, "
+            + ", ".join(f"{k} {v}" for k, v in sorted(b.items())))
+    # The dense loop (unrolled 4 times: 64 FFMA) and the fused activations
+    # (the blocks with MUFU.EX2).
+    loop = next(b for b in blocks if b.get("FFMA") == 64 and b.get("LDS.128"))
+    per_fma = sum(loop.values()) / 64
+    acts = [b for b in blocks if b.get("MUFU.EX2")]
+    per_act = (sum(sum(b.values()) for b in acts)
+               / sum(b["MUFU.EX2"] for b in acts))
+    clock = F32_FLOPS / 2 / (132 * 128)   # lanes x clock = FMA rate
+    for tag, layout, features, in_dim, n in cases:
+        plan, _, _ = _mlp_case(layout, features, in_dim, 1)
+        fmas = sum(op[1] * -(-op[2] // 4) * 4 for op in plan.ops
+                   if op[0] == "dense")
+        n_act = sum(op[1] for op in plan.ops if op[0] == "act")
+        instr = fmas * per_fma + n_act * per_act
+        issue_ms = n * instr / (132 * 128 * clock) * 1e3
+        mufu_ms = n * 2 * n_act / (132 * 16 * clock) * 1e3
+        mean_new = sum(rows[tag]["new"]) / 2
+        rows[tag].update(instr_per_point=instr, issue_bound_ms=issue_ms,
+                         mufu_bound_ms=mufu_ms)
+        log(f"sass estimate {tag}: {fmas} FFMA issued + {n_act} activations"
+            f" per point, {per_fma:.3f} instructions per FFMA in the dense "
+            f"loop and {per_act:.2f} per activation: {instr:.0f} instructions "
+            f"per point in the dense loops and activations; issue-bound "
+            f"{issue_ms * 1e3:.2f} us ({100 * issue_ms / mean_new:.0f}% of "
+            f"the time), MUFU-bound {mufu_ms * 1e3:.2f} us, FMA bound "
+            f"{rows[tag]['bound_ms'] * 1e3:.2f} us at n={n}")
+    print(json.dumps({"mlp_turns": rows}), flush=True)
+
+
 def main():
     name, smi = phase_device()
     phase_build()
     sync()
     if sys.argv[1:] == ["--profile"]:
         profile_steps()
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:2] == ["--mlp-turns"]:
+        mlp_turns(sys.argv[2])
         print(smi, flush=True)
         return 0
     taylor, tut_taylor, mlp, tut_mlp = phase_kernels()
@@ -598,43 +979,46 @@ def main():
     all_taylor = taylor + list(tut_taylor.values())
     fwd_err = max(e["fwd"] for e, _ in all_taylor)
     bwd_err = max(e["bwd"] for e, _ in all_taylor)
-    main_taylor = taylor[0][1]   # README shapes: n = 100
-    main_mlp = mlp[0][1]         # README predict: 10,000 points
-    shapes = {"wide": taylor[2][1],   # 64-wide chain, n = 65,537
+    main_taylor = taylor[0][1]          # README shapes: n = 100
+    main_mlp = mlp["readme_n10000"][1]  # README predict: 10,000 points
+    shapes = {"readme_n1000": taylor[1][1],
+              "wide": taylor[2][1],     # 64-wide chain, n = 65,537
+              "wide_n262144": taylor[3][1],
+              "wide_heat": taylor[4][1],
               **{key: times for key, (_, times) in tut_taylor.items()}}
-    mlp_shapes = {"w3_layout_n1024": mlp[1][1],
-                  **{key: times for key, (_, times) in tut_mlp.items()}}
+    mlp_shapes = {key: times for key, (_, times)
+                  in list(mlp.items())[1:] + list(tut_mlp.items())}
 
-    def shape_times(key):
+    def shape_times(key, table):
         return {f"{tag}_{kind}ms": times[key + suffix]
-                for tag, times in shapes.items()
-                for kind, suffix in (("", ""), ("plain_", "_plain"))}
+                for tag, times in table.items()
+                for kind, suffix in (("", ""), ("plain_", "_plain"),
+                                     ("bound_", "_bound"))}
+
+    def entry(name, src, replaces, times, key, err, table):
+        # No single PyTorch call computes a Taylor traversal or a layout
+        # chain with its skip stack: library_ms is null.
+        return {"name": name, "route": "cuda",
+                "source": f"pydens_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": err, "ms": times[key],
+                "plain_ms": times[f"{key}_plain"],
+                "bound_ms": times[f"{key}_bound"],
+                "bound_by": times[f"{key}_bound_by"], "library_ms": None,
+                **shape_times(key, table),
+                "path_launches": path_launches[name]}
 
     kernels = [
-        {"name": "fused_taylor_forward", "route": "cuda",
-         "source": "pydens_tpu_torch/csrc/fused_taylor.cu",
-         "replaces": "pydens_tpu/ops/pallas_taylor.py:386",
-         "launches": launches["fused_taylor_forward"],
-         "max_abs_err": fwd_err, "ms": main_taylor["fwd"],
-         "plain_ms": main_taylor["fwd_plain"], **shape_times("fwd"),
-         "path_launches": path_launches["fused_taylor_forward"]},
-        {"name": "fused_taylor_backward", "route": "cuda",
-         "source": "pydens_tpu_torch/csrc/fused_taylor.cu",
-         "replaces": "pydens_tpu/ops/pallas_taylor.py:428",
-         "launches": launches["fused_taylor_backward"],
-         "max_abs_err": bwd_err, "ms": main_taylor["bwd"],
-         "plain_ms": main_taylor["bwd_plain"], **shape_times("bwd"),
-         "path_launches": path_launches["fused_taylor_backward"]},
-        {"name": "fused_mlp_forward", "route": "cuda",
-         "source": "pydens_tpu_torch/csrc/fused_mlp.cu",
-         "replaces": "pydens_tpu/ops/pallas_mlp.py:92",
-         "launches": launches["fused_mlp_forward"],
-         "max_abs_err": max(e for e, _ in mlp + list(tut_mlp.values())),
-         "ms": main_mlp["fwd"], "plain_ms": main_mlp["fwd_plain"],
-         **{f"{tag}_{kind}ms": times[f"fwd{suffix}"]
-            for tag, times in mlp_shapes.items()
-            for kind, suffix in (("", ""), ("plain_", "_plain"))},
-         "path_launches": path_launches["fused_mlp_forward"]},
+        entry("fused_taylor_forward", "fused_taylor.cu",
+              "pydens_tpu/ops/pallas_taylor.py:386", main_taylor, "fwd",
+              fwd_err, shapes),
+        entry("fused_taylor_backward", "fused_taylor.cu",
+              "pydens_tpu/ops/pallas_taylor.py:428", main_taylor, "bwd",
+              bwd_err, shapes),
+        entry("fused_mlp_forward", "fused_mlp.cu",
+              "pydens_tpu/ops/pallas_mlp.py:92", main_mlp, "fwd",
+              max(e for e, _ in list(mlp.values()) + list(tut_mlp.values())),
+              mlp_shapes),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -35,10 +35,14 @@ _NOT_PORTED = ("periodic", "fourier_features", "arch", "branches",
 
 
 def resolve_device(device=None):
-    """``device`` as a ``torch.device``; None means CUDA when available,
-    else the CPU."""
+    """``device`` as a ``torch.device``.  None means the CUDA card: without
+    one it raises, and the CPU is taken only when asked for by name."""
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pydens_tpu_torch runs on the card by "
+                "default; pass device='cpu' to run on the CPU")
+        device = "cuda"
     return torch.device(device)
 
 

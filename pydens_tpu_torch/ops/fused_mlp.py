@@ -18,14 +18,19 @@ import torch
 
 from ._build import (MAX_SHARED_BYTES, check_operand, launch_checked,
                      load_library)
-from .fused_taylor import SIGMOID, SIN, TANH, act_kind
+from .fused_taylor import SIGMOID, SIN, TANH, _sm_count, act_kind
 
-__all__ = ["supports", "MlpPlan", "fused_mlp_forward",
+__all__ = ["supports", "refusal", "MlpPlan", "fused_mlp_forward",
            "fused_mlp_forward_plain"]
 
-_POINTS_PER_BLOCK = 64  # csrc/fused_mlp.cu POINTS_PER_BLOCK
+# csrc/fused_mlp.cu: the tiles it is built for (largest first), THREADS,
+# ROW_PAD.
+TILES = (128, 64, 32)
+THREADS = 128
+_ROW_PAD = 4
 _KINDS = {"dense": 0, "act": 1, "push": 2, "add": 3}
 _SIGMA = {TANH: torch.tanh, SIGMOID: torch.sigmoid, SIN: torch.sin}
+_BLOCKS_PER_SM = {}
 
 
 def _mlp_ops(tokens, acts, layer_shapes, in_dim):
@@ -54,45 +59,123 @@ def _mlp_ops(tokens, acts, layer_shapes, in_dim):
     return ops, off, wmax, max_depth
 
 
-def _mlp_smem_bytes(n_params, wmax, max_stack):
-    return 4 * (n_params + (2 + max_stack) * wmax * _POINTS_PER_BLOCK)
+def _kernel_records(ops):
+    """The kernel's op records (``csrc/fused_mlp.cu``, OP_INTS each) and the
+    floats of its staged weights: a tanh or sigmoid right after a dense
+    layer joins that layer's record, and each dense layer's weights are
+    staged as ``K + 1`` rows of ``4 * ceil(N / 4)`` floats."""
+    records, staged, i = [], 0, 0
+    while i < len(ops):
+        kind, a, b, w_off, _ = ops[i]
+        if kind == "dense":
+            act = -1
+            if (i + 1 < len(ops) and ops[i + 1][0] == "act"
+                    and ops[i + 1][2] in (TANH, SIGMOID)):
+                act = ops[i + 1][2]
+                i += 1
+            records.append((0, a, b, w_off, staged, act))
+            staged += (a + 1) * (-(-b // 4) * 4)
+        else:
+            records.append((_KINDS[kind], a, b, 0, 0, 0))
+        i += 1
+    return records, staged
+
+
+def _mlp_smem_bytes(staged, in_dim, wmax, max_stack, tile):
+    """Shared memory of one block — ``mlp_smem_floats`` of the CUDA source:
+    the staged weights, a staging buffer of the tile's points and
+    ``2 + max_stack`` state planes of ``wmax`` features x ``tile + 4``
+    floats."""
+    return 4 * (staged + -(-tile * in_dim // 4) * 4
+                + (2 + max_stack) * wmax * (tile + _ROW_PAD))
+
+
+def _tile_for(staged, in_dim, wmax, max_stack):
+    """The largest tile whose block fits the shared memory, or None."""
+    for tile in TILES:
+        if _mlp_smem_bytes(staged, in_dim, wmax, max_stack,
+                           tile) <= MAX_SHARED_BYTES:
+            return tile
+    return None
+
+
+def refusal(tokens, acts, layer_shapes, in_dim, dtype=torch.float32):
+    """Why the fused MLP kernel does not cover this chain, or None if it
+    does: tokens ``f c a R +``, activations tanh, sigmoid or sin, float32,
+    and staged weights plus a 32-point tile's state that fit one block's
+    shared memory."""
+    if dtype != torch.float32:
+        return f"dtype {dtype}: the kernel computes in float32"
+    bad = sorted({t for t in tokens if t not in ("f", "c", "a", "R", "+")})
+    if bad:
+        return f"tokens {bad}: the kernel runs f, c, a, R and + only"
+    if any(act_kind(a) is None for a in acts):
+        return "an activation other than tanh, sigmoid or sin"
+    ops, _, wmax, max_stack = _mlp_ops(tokens, acts, layer_shapes, in_dim)
+    _, staged = _kernel_records(ops)
+    if _tile_for(staged, in_dim, wmax, max_stack) is None:
+        need = _mlp_smem_bytes(staged, in_dim, wmax, max_stack, TILES[-1])
+        return (f"weights and state need {need} bytes of shared memory at a "
+                f"{TILES[-1]}-point tile; one block has {MAX_SHARED_BYTES}")
+    return None
 
 
 def supports(tokens, acts, layer_shapes, in_dim, dtype=torch.float32):
-    """Whether the fused MLP kernel covers this chain: tokens ``f c a R +``,
-    activations tanh, sigmoid or sin, float32, and weights plus state that
-    fit one block's shared memory."""
-    if dtype != torch.float32:
-        return False
-    if any(t not in ("f", "c", "a", "R", "+") for t in tokens):
-        return False
-    if any(act_kind(a) is None for a in acts):
-        return False
-    _, n_params, wmax, max_stack = _mlp_ops(tokens, acts, layer_shapes,
-                                            in_dim)
-    return _mlp_smem_bytes(n_params, wmax, max_stack) <= MAX_SHARED_BYTES
+    """Whether the fused MLP kernel covers this chain (:func:`refusal`)."""
+    return refusal(tokens, acts, layer_shapes, in_dim, dtype) is None
 
 
 class MlpPlan:
     """The op table and sizes of one chain for the MLP kernel."""
 
     def __init__(self, tokens, acts, layer_shapes, in_dim):
-        if not supports(tokens, acts, layer_shapes, in_dim):
-            raise ValueError("fused MLP kernel: unsupported layout")
+        reason = refusal(tokens, acts, layer_shapes, in_dim)
+        if reason is not None:
+            raise ValueError(f"fused MLP kernel: unsupported layout: {reason}")
         self.ops, self.n_params, self.wmax, self.max_stack = _mlp_ops(
             tokens, acts, layer_shapes, in_dim)
+        records, self.staged = _kernel_records(self.ops)
         self.in_dim = in_dim
         self.out_dim = layer_shapes[-1][1]
-        self.table = [len(self.ops), in_dim, self.wmax, self.max_stack]
-        for op in self.ops:
-            self.table += [_KINDS[op[0]], *op[1:]]
+        self.tile = _tile_for(self.staged, in_dim, self.wmax, self.max_stack)
+        self.smem_bytes = _mlp_smem_bytes(self.staged, in_dim, self.wmax,
+                                          self.max_stack, self.tile)
+        self.table = [len(records), in_dim, self.wmax, self.max_stack,
+                      self.staged]
+        for rec in records:
+            self.table += rec
         self._device_tables = {}
+
+    def launch_shape(self, n, sm_count, blocks_per_sm):
+        """The grid of a launch over ``n`` points: persistent blocks, at
+        most ``blocks_per_sm`` on each of ``sm_count`` SMs and at most one
+        per tile."""
+        return min(-(-n // self.tile), sm_count * blocks_per_sm)
+
+    def kernel_args(self):
+        """``(staged, in_dim, wmax, max_stack, tile)``: the sizes the C
+        entries take."""
+        return (self.staged, self.in_dim, self.wmax, self.max_stack,
+                self.tile)
 
     def device_table(self, device):
         if device not in self._device_tables:
             self._device_tables[device] = torch.tensor(
                 self.table, dtype=torch.int32, device=device)
         return self._device_tables[device]
+
+
+def _blocks_per_sm(lib, plan, device):
+    """Blocks of this plan's launch that one SM holds at once (the CUDA
+    occupancy calculator, cached per device and sizes)."""
+    key = (device, plan.kernel_args())
+    if key not in _BLOCKS_PER_SM:
+        blocks = lib.pdt_mlp_blocks_per_sm(*plan.kernel_args())
+        if blocks <= 0:
+            raise RuntimeError("pdt_mlp_blocks_per_sm: no block of the MLP "
+                               f"kernel fits an SM (code {blocks})")
+        _BLOCKS_PER_SM[key] = blocks
+    return _BLOCKS_PER_SM[key]
 
 
 def fused_mlp_forward(packed, x, plan):
@@ -113,13 +196,12 @@ def fused_mlp_forward(packed, x, plan):
     if n == 0:
         return out
     lib = load_library()
-    if lib.pdt_mlp_points_per_block() != _POINTS_PER_BLOCK:
-        raise RuntimeError("csrc/fused_mlp.cu and fused_mlp.py disagree on "
-                           "the points per block")
+    grid = plan.launch_shape(n, _sm_count(x.device),
+                             _blocks_per_sm(lib, plan, x.device))
     err = lib.pdt_mlp_forward(
         x.data_ptr(), packed.data_ptr(), plan.device_table(x.device).data_ptr(),
-        out.data_ptr(), n, plan.n_params, plan.wmax, plan.max_stack,
-        plan.out_dim, torch.cuda.current_stream(x.device).cuda_stream)
+        out.data_ptr(), n, *plan.kernel_args(), plan.out_dim, grid,
+        torch.cuda.current_stream(x.device).cuda_stream)
     launch_checked("pdt_mlp_forward", err)
     fused_mlp_forward.launches += 1
     return out

@@ -183,8 +183,8 @@ class Solver:
         Seed of the parameter-init generator (CPU) and of the sampling
         generator (on ``device``).
     device : str or torch.device, optional
-        Where parameters live and training runs; default CUDA when
-        available, else the CPU.
+        Where parameters live and training runs; default the CUDA card
+        (an error without one: pass ``device="cpu"`` for the CPU).
     """
 
     def __init__(self, equation, ndims, initial_condition=None,

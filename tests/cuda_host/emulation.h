@@ -1,7 +1,7 @@
 // Host emulation of the CUDA features pydens_tpu_torch/csrc/fused_taylor.cu
-// uses, for running its kernels on the CPU in tests: one OS thread per CUDA
-// thread, a std::barrier for __syncthreads, a per-block buffer for dynamic
-// shared memory.  Blocks run one after another.
+// and fused_mlp.cu use, for running their kernels on the CPU in tests: one
+// OS thread per CUDA thread, a std::barrier for __syncthreads, a per-block
+// buffer for dynamic shared memory.  Blocks run one after another.
 #include <algorithm>
 #include <barrier>
 #include <cmath>

@@ -11,10 +11,12 @@ import torch
 
 from pydens_tpu_torch.models.layout import make_layout_network
 from pydens_tpu_torch.ops import fused_mlp, fused_taylor
+from pydens_tpu_torch.ops._build import load_library
 
 POISSON_CLOSURE = [(0,), (1,), (0, 0), (1, 1)]
 HEAT_CLOSURE = [(0,), (1,), (2,), (0, 0), (1, 1)]   # 2D + t: 6 streams
 M = fused_taylor._TILE_POINTS
+MLP_TILE = fused_mlp.TILES[0]
 README_CHAIN = ("fa fa fa f", [10, 12, 15, 1], "Tanh", 2, POISSON_CLOSURE)
 WIDE_CHAIN = ("fa fa fa f", [64, 64, 64, 1], "Tanh", 2, POISSON_CLOSURE)
 
@@ -177,6 +179,17 @@ def test_solver_loss_through_kernels_matches_nested_gradients_on_cuda(ic):
     ("fafaf", [30, 40, 1], "Sigmoid", 4, 8),        # w3
     ("fafaf", [20, 30, 1], "Sigmoid", 2, 60),       # w4
     ("fafaf", [20, 30, 1], "Sigmoid", 1, 8),        # w5
+    # The 64-wide chain; ragged n around the tile; an n that takes every
+    # persistent block around its loop three times and more; a chain whose
+    # state needs the 64-point tile.
+    ("fa fa fa f", [64, 64, 64, 1], "Tanh", 3, 100000),
+    ("fa fa fa f", [10, 12, 15, 1], "Tanh", 2, 1),
+    ("fa fa fa f", [10, 12, 15, 1], "Tanh", 2, MLP_TILE - 1),
+    ("fa fa fa f", [10, 12, 15, 1], "Tanh", 2, MLP_TILE + 1),
+    ("fa fa fa f", [10, 12, 15, 1], "Tanh", 3, "passes"),
+    ("fa fa fa f", [64, 64, 64, 1], "Tanh", 3, "passes"),
+    ("faR fa fa+ f", [16, 16, 16, 1], "Sigmoid", 3, "passes"),
+    ("fa fa fa f", [128, 128, 128, 1], "Tanh", 3, 5000),
 ])
 def test_mlp_kernel_matches_plain_on_cuda(layout, features, act, in_dim, n):
     # rtol/atol 2e-5 against the plain version on the card.
@@ -187,9 +200,35 @@ def test_mlp_kernel_matches_plain_on_cuda(layout, features, act, in_dim, n):
     net.reset_parameters(torch.Generator().manual_seed(0))
     plan = fused_mlp.MlpPlan(net.tokens, net.activations, net.layer_shapes,
                              in_dim)
+    if n == "passes":
+        per_sm = fused_mlp._blocks_per_sm(load_library(), plan,
+                                          torch.device("cuda", 0))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        n = 3 * sms * per_sm * plan.tile + 77
     x = torch.randn(n, in_dim, device=dev)
     with torch.no_grad():
         packed = fused_taylor.pack_weights(net.params(), net.layer_names)
         out = fused_mlp.fused_mlp_forward(packed, x, plan)
         ref = fused_mlp.fused_mlp_forward_plain(packed, x, plan)
     torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_solver_predict_launches_the_mlp_kernel_once():
+    # Each Solver.predict on the card runs the network through one launch
+    # of the fused MLP kernel, at 10 points and at 300,000.
+    _require_cuda()
+    import numpy as np
+    from pydens_tpu_torch import D, Solver
+
+    def eq(f, x, y):
+        return D(D(f, x), x) + D(D(f, y), y)
+    solver = Solver(eq, ndims=2, boundary_condition=1, layout="fa fa fa f",
+                    activation="Tanh", units=[10, 12, 15, 1], device="cuda")
+    for n in (10, 300000):
+        pts = np.random.default_rng(0).uniform(size=(n, 2)).astype(
+            np.float32)
+        before = fused_mlp.fused_mlp_forward.launches
+        u = solver.predict(pts)
+        assert fused_mlp.fused_mlp_forward.launches == before + 1
+        assert u.shape == (n, 1) and np.isfinite(u).all()

@@ -276,3 +276,18 @@ def test_numpy_ufuncs_stay_symbolic():
         np.testing.assert_allclose(
             _torch_value_and_grad(b, pts, use_plan)[0],
             _torch_value_and_grad(a, pts, use_plan)[0], rtol=1e-6)
+
+
+def test_device_none_means_the_card(monkeypatch):
+    # Without a device the port runs on the CUDA card: on a machine without
+    # one, Solver and ConvBlockModel raise and say how to ask for the CPU;
+    # with device="cpu" they build there.
+    from pydens_tpu_torch.models import ConvBlockModel
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pde, kw = _poisson(tpdt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpdt.Solver(pde, **kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ConvBlockModel(ndims=1)
+    assert tpdt.Solver(pde, device="cpu", **kw).device.type == "cpu"
+    assert ConvBlockModel(ndims=1, device="cpu").device.type == "cpu"
