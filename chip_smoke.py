@@ -40,6 +40,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    predict; ``w3`` then predicts on a 1024 x 1024 (x, y) grid as in
    phase 4.
 
+7. graph vs eager: ``w1``, ``w3`` and the wide fit, guard on, each fit
+   once through its captured CUDA graphs (the package's path) and once
+   eagerly (``Solver._capture_steps = False``), in turns (graph, eager,
+   eager, graph): iterations/s, host ms and device busy ms per step
+   (``torch.profiler`` over a replayed window, which also counts both Taylor
+   kernels once per step), ``torch.cuda.max_memory_allocated``, and the
+   per-step losses of the two held together (bitwise equality reported);
+   the guard's ``stopped_on_nan`` index and the ``until_loss`` index of a
+   ``w5`` fit on a fixed batch are the same in both;
+8. the loop features on the card: a ``w1`` fit with a cosine-decay
+   schedule, a callback that stops at the second chunk, ``save`` after a
+   fit and ``load`` into a fresh Solver whose next fit equals the saving
+   one's, ``w5`` with SGD (momentum 0.9) and with AdamW, and a
+   ``profile_dir`` trace, all through graphs.
+
+Every fit of phases 4-8 runs the package's path: on the card a fit step
+is captured as a CUDA graph once per configuration and replayed.  A
+kernel wrapper counts one launch per eager step and one per capture, so
+each phase asserts, from the fit steps' own tallies, that every step ran
+once (eagerly or as a replay) and that each capture recorded both Taylor
+kernels once; ``torch.profiler`` over a replayed window counts the kernels
+on the device.
+
 Phase 3 also checks every tutorial's Taylor chain at the batches of its
 fits and the MLP kernel at the points of its predict calls
 (``TUTORIAL_CHAINS``), and the MLP kernel at ``w3``'s layout on 1,024
@@ -49,8 +72,8 @@ Prints one JSON line of per-kernel results, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` runs phases 1 and 2, then ``profile_steps``: one JSON line per
-workload and guard setting (host ms per step, device ops and device busy
-ms per step), and the card's name and power limit.
+workload and guard setting, fits through graphs (host ms per step, device
+ops and device busy ms per step), and the card's name and power limit.
 
 ``--mlp-turns OLD.cu`` runs phases 1 and 2, then ``mlp_turns``: the fused
 MLP kernel of an earlier ``csrc/fused_mlp.cu`` (the one-thread-per-point
@@ -67,6 +90,7 @@ Taylor forward counts the products of all its streams, the backward twice
 that (its recompute is the kernel's own choice and not counted).
 """
 
+import gc
 import json
 import subprocess
 import sys
@@ -508,6 +532,86 @@ def timed_fit(solver, **kwargs):
     return wall, 1500 / wall
 
 
+TAYLOR_KERNELS = ("taylor_fwd_kernel", "taylor_bwd_kernel")
+
+
+def fit_tally(solver):
+    """``(eager steps, replays, captured graphs)`` over the solver's cached
+    fit steps."""
+    steps = list(solver._step_cache.values())
+    return (sum(s.eager_steps for s in steps), sum(s.replays for s in steps),
+            sum(s.graph is not None for s in steps))
+
+
+def assert_taylor_every_step(solver, steps, launches):
+    """Each of the solver's ``steps`` steps ran once on the card, eagerly or
+    as a replay of a captured graph, and each eager step and each capture
+    launched both Taylor kernels once (the wrappers count both), so both
+    ran on every step.  Returns the kernels' launches on the device (eager
+    steps plus replays) and the tally."""
+    eager, replays, graphs = fit_tally(solver)
+    assert eager + replays == steps, (eager, replays, steps)
+    assert replays > 0 and graphs > 0, (eager, replays, graphs)
+    for name in ("fused_taylor_forward", "fused_taylor_backward"):
+        assert launches[name] == eager + graphs, (name, launches, eager,
+                                                  graphs)
+    return eager + replays, dict(eager=eager, replays=replays, graphs=graphs)
+
+
+def step_profile(solver, fit, steps=50, windows=3):
+    """The steady step of ``fit`` (its kwargs) in chunks of ``steps``: a
+    first fit of that configuration warms it up (on the card: its eager
+    step and its capture) outside both windows; then host ms per step (host
+    clock over ``steps`` steps ending in a synchronize) and, from
+    ``torch.profiler`` over ``steps`` more, device ops and busy ms per step
+    (kernels, copies and fills) and each Taylor kernel's launches per step
+    on the device.  The profiler records a fit of its own before the
+    measured one and drops it (its ``warmup``): without it, the first
+    records of a window were lost (the 64-wide fit: 18 of 26,626, one of
+    them a forward kernel).  A window whose Taylor kernel counts are not
+    one per step is taken again, up to ``windows`` times
+    (``windows_taken``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fit = dict(fit, niters=steps, chunk_size=steps, progress=False)
+    solver.fit(**fit)
+    sync()
+    t0 = time.perf_counter()
+    solver.fit(**fit)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    for taken in range(1, windows + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                solver.fit(**fit)
+                sync()
+                prof.step()
+        # Under a schedule the step's own annotation shows as a device
+        # record spanning the step: not device work.
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]
+        counts = {k: sum(k in e.name for e in dev) for k in TAYLOR_KERNELS}
+        if all(c == steps for c in counts.values()):
+            break
+        log(f"profiler window {taken}: {len(dev)} device records, Taylor "
+            f"kernels {counts} in {steps} steps; taking another")
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / steps
+    row = dict(step_ms=step_ms, device_busy_ms=busy_ms,
+               busy_share=busy_ms / step_ms, device_ops=len(dev) / steps,
+               windows_taken=taken)
+    for k in TAYLOR_KERNELS:
+        row[f"{k}_per_step"] = counts[k] / steps
+    return row
+
+
+def assert_profiled_taylor(row, tag):
+    per_step = [row[f"{k}_per_step"] for k in TAYLOR_KERNELS]
+    assert per_step == [1.0, 1.0], (tag, row)
+
+
 def phase_poisson():
     from pydens_tpu_torch import Solver
     from pydens_tpu_torch.ops import fused_mlp as fm
@@ -526,12 +630,13 @@ def phase_poisson():
     edge = solver.predict(np.zeros(100, np.float32), xs)
     launches = {c.__name__: c.launches for c in counters}
     losses = np.asarray(solver.losses)
-    log(f"poisson fit (kernels): {wall:.3f} s, {rate:.1f} it/s, loss "
-        f"{losses[0]:.5f} -> {losses[-1]:.6f}; launches {launches}")
+    device_launches, tally = assert_taylor_every_step(solver, 1500, launches)
+    log(f"poisson fit (kernels, CUDA graphs): {wall:.3f} s, {rate:.1f} it/s, "
+        f"loss {losses[0]:.5f} -> {losses[-1]:.6f}; wrapper launches "
+        f"{launches}; steps {tally}: each Taylor kernel launched "
+        f"{device_launches} times on the card")
     assert losses.shape == (1500,) and np.isfinite(losses).all()
     assert losses[-1] < 0.01, losses[-1]
-    assert launches["fused_taylor_forward"] >= 1500
-    assert launches["fused_taylor_backward"] >= 1500
     assert launches["fused_mlp_forward"] >= 1
     assert u.shape == (10000, 1) and np.isfinite(u).all()
     np.testing.assert_allclose(edge, 1.0, atol=1e-5)
@@ -543,6 +648,9 @@ def phase_poisson():
     log(f"predict 100x100: finite, boundary exact, max|kernel - plain| "
         f"{float(np.abs(u - plain_u).max()):.3e}")
     dense_predict(solver, _grid(), "README")
+    prof = step_profile(solver, dict(batch_size=100))
+    assert_profiled_taylor(prof, "w1")
+    log(f"poisson steady step (graph replays, 50 steps): {json.dumps(prof)}")
 
     # The divergence guard's cost: the same fit with stop_on_nan=False, in
     # turns with the guarded one (guarded above, off, off, guarded).
@@ -568,10 +676,10 @@ def phase_poisson():
     assert {c.__name__: c.launches for c in counters} == before
     p_losses = np.asarray(plain.losses)
     assert np.isfinite(p_losses).all() and p_losses[-1] < 0.01
-    log(f"poisson fit (plain path): {p_wall:.3f} s, {p_rate:.1f} it/s, loss "
-        f"{p_losses[0]:.5f} -> {p_losses[-1]:.6f}")
+    log(f"poisson fit (plain path, CUDA graphs): {p_wall:.3f} s, "
+        f"{p_rate:.1f} it/s, loss {p_losses[0]:.5f} -> {p_losses[-1]:.6f}")
     sync()
-    return launches, (wall, rate), (p_wall, p_rate)
+    return launches, device_launches, prof
 
 
 def _falling(losses):
@@ -580,12 +688,20 @@ def _falling(losses):
             and losses[-k:].mean() < losses[:k].mean())
 
 
+def free_card():
+    """Drop what the last solver left: its fit steps hold CUDA graphs and
+    their pools, and their closures reach back to the solver (a cycle)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_wide_fit():
     """The 64-wide Poisson fit in four arms: kernels; kernels with
     ``stop_on_nan=False`` (the guard's cost, in turns with the first arm:
     kernels, off, off, kernels); the Taylor traversal on its plain version;
-    nested gradients (``fast_taps=False``).  Each arm warms up for 5 steps,
-    then runs WIDE_STEPS timed steps."""
+    nested gradients (``fast_taps=False``).  Each arm runs WIDE_STEPS
+    steps (its eager warm-up step and its capture included), then
+    WIDE_STEPS timed steps, which replay that graph."""
     from pydens_tpu_torch import Solver
     from pydens_tpu_torch.ops import fused_taylor as ft
     counters = (ft.fused_taylor_forward, ft.fused_taylor_backward)
@@ -598,10 +714,13 @@ def phase_wide_fit():
             _route_plain(solver.model)
         kw = dict(batch_size=WIDE_BATCH, progress=False,
                   fast_taps=arm != "nested", stop_on_nan=arm != "unguarded")
-        solver.fit(niters=5, **kw)
         for c in counters:
             c.launches = 0
         sync()
+        t0 = time.perf_counter()
+        solver.fit(niters=WIDE_STEPS, **kw)
+        sync()
+        first = time.perf_counter() - t0
         t0 = time.perf_counter()
         solver.fit(niters=WIDE_STEPS, **kw)
         sync()
@@ -612,15 +731,17 @@ def phase_wide_fit():
         rates.setdefault(arm, []).append(rate)
         log(f"wide fit ({arm}): {WIDE_STEPS} steps at batch {WIDE_BATCH} in "
             f"{wall:.3f} s, {rate:.2f} it/s, {rate * WIDE_BATCH:.0f} "
-            f"points/s, loss {losses[0]:.5f} -> {losses[-1]:.5f}; launches "
-            f"{launches}")
+            f"points/s, loss {losses[0]:.5f} -> {losses[-1]:.5f} (the first "
+            f"{WIDE_STEPS}, with the warm-up step and the capture, "
+            f"{first:.3f} s); wrapper launches {launches}, steps "
+            f"{fit_tally(solver)}")
         assert losses.shape == (WIDE_STEPS,) and _falling(losses), arm
         if arm in ("kernels", "unguarded"):
-            assert min(launches.values()) >= WIDE_STEPS, launches
+            assert_taylor_every_step(solver, 2 * WIDE_STEPS, launches)
         else:
             assert max(launches.values()) == 0, launches
         del solver
-        torch.cuda.empty_cache()
+        free_card()
     log(f"wide fit guard cost: {np.mean(rates['kernels']):.2f} it/s "
         f"guarded, {np.mean(rates['unguarded']):.2f} it/s unguarded (mean of "
         "two each, in turns)")
@@ -716,7 +837,8 @@ def run_tutorial(name, device):
 
 def phase_tutorials():
     """w2-w5 on the card, each with the launch counters set to 0 just
-    before it and read just after its predict."""
+    before it and read just after its predict; then a replayed window of
+    its last fit under the profiler."""
     from pydens_tpu_torch.ops import fused_mlp as fm
     from pydens_tpu_torch.ops import fused_taylor as ft
     counters = (ft.fused_taylor_forward, ft.fused_taylor_backward,
@@ -730,32 +852,237 @@ def phase_tutorials():
         metric = tutorial_metric(name, solver)
         launches = {c.__name__: c.launches for c in counters}
         losses = np.asarray(solver.losses)
+        device_launches, tally = assert_taylor_every_step(solver, steps,
+                                                          launches)
         log(f"tutorial {name}: {steps} steps in {wall:.3f} s, "
             f"{steps / wall:.1f} it/s, loss {losses[0]:.5f} -> "
             f"{losses[-1]:.6f}, metric {metric:.6f} (band "
-            f"{TUTORIAL_BANDS[name]}); launches {launches}")
+            f"{TUTORIAL_BANDS[name]}); wrapper launches {launches}; steps "
+            f"{tally}: each Taylor kernel launched {device_launches} times "
+            "on the card")
         assert losses.shape == (steps,) and _falling(losses), name
-        assert launches["fused_taylor_forward"] >= steps, launches
-        assert launches["fused_taylor_backward"] >= steps, launches
         assert launches["fused_mlp_forward"] >= 1, launches
         assert metric < TUTORIAL_BANDS[name], (name, metric)
-        results[name] = launches
+        results[name] = (launches, device_launches)
+        prof = step_profile(solver, _tutorial(name)[2][-1][1])
+        assert_profiled_taylor(prof, name)
+        log(f"tutorial {name} steady step (graph replays, 50 steps): "
+            f"{json.dumps(prof)}")
         if name == "w3":   # (x, y) at t = 0.25, a = 1
             dense_predict(solver, _grid(0.25, 1.0), "w3")
         del solver
-        torch.cuda.empty_cache()
+        free_card()
     return results
 
 
-def profile_steps(steps=50, warmup=20):
-    """Per-step cost of the last fit of ``w1``-``w5``, with the guard on and
-    off: host ms per step (host clock over ``steps`` unprofiled steps ending
-    in a synchronize) and, from ``torch.profiler`` over ``steps`` more, the
-    device ops per step and their summed device time (kernels, copies and
-    fills).  Each fit warms up for ``warmup`` steps; a tutorial's earlier
+def _gve_workload(name):
+    """``(equation, Solver kwargs, fits)`` of a graph-vs-eager workload."""
+    if name == "wide":
+        return _pde(), dict(WIDE), [
+            (None, dict(niters=WIDE_STEPS, batch_size=WIDE_BATCH))]
+    return _tutorial(name)
+
+
+class _FixedPoints:
+    """Host-protocol sampler returning seeded fixed points (no device
+    path): the same batch for the graph and the eager fit."""
+
+    def __init__(self, n, total, seed=0):
+        self.pts = np.random.default_rng(seed).uniform(
+            size=(n, total)).astype(np.float32)
+
+    def sample(self, size):
+        return self.pts[:size]
+
+
+def _stop_indices():
+    """The guard's ``stopped_on_nan`` index (``w5`` at lr 30 on a fixed
+    batch) and the ``until_loss`` index (``w5`` at lr 0.05, tol in the
+    widest gap between a loss and the lowest before it, from the eager
+    run), each through graphs and eagerly."""
+    import warnings
+    from pydens_tpu_torch import Solver
+    eq, kw, _ = _tutorial("w5")
+    sampler = _FixedPoints(64, 1)
+
+    def run(capture, **fit):
+        solver = Solver(eq, seed=0, device="cuda", **kw)
+        solver._capture_steps = capture
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            solver.fit(batch_size=64, sampler=sampler, resample=False,
+                       progress=False, **fit)
+        return solver
+
+    nan = {c: run(c, niters=30, lr=30.0, chunk_size=10).history[-1].get(
+        "stopped_on_nan") for c in (True, False)}
+    probe = np.asarray(run(False, niters=60, lr=0.05, chunk_size=7).losses)
+    run_min = np.minimum.accumulate(probe)
+    gaps = run_min[:-1] / probe[1:]
+    k = 5 + int(np.argmax(gaps[5:])) + 1
+    tol = float(np.sqrt(run_min[k - 1] * probe[k]))
+    conv = {c: run(c, niters=60, lr=0.05, chunk_size=7,
+                   until_loss=tol).history[-1].get("converged_at")
+            for c in (True, False)}
+    log(f"guard under graphs: stopped_on_nan graph {nan[True]}, eager "
+        f"{nan[False]}; until_loss={tol:.6g}: converged_at graph "
+        f"{conv[True]}, eager {conv[False]} (expected {k})")
+    assert nan[True] is not None and nan[True] == nan[False]
+    assert conv[True] == conv[False] == k
+    free_card()
+    return dict(stopped_on_nan=nan[True], converged_at=conv[True])
+
+
+def phase_graph_vs_eager():
+    """``w1``, ``w3`` and the wide fit, guard on, through graphs and eagerly
+    in turns (graph, eager, eager, graph), each on a fresh solver of seed 0:
+    the whole fit's iterations/s (graph: its warm-up step and capture
+    included) and peak device memory, the steady step (``step_profile``),
+    and the per-step losses of the first graph and first eager fit held
+    together (rtol 1e-5 over the first 20 steps and 1e-3 at the end, the
+    tolerance of tests/test_torch_graphs_gpu.py; bitwise equality
+    reported)."""
+    from pydens_tpu_torch import Solver
+    rows = {}
+    for name in ("w1", "w3", "wide"):
+        runs = {True: [], False: []}
+        for capture in (True, False, False, True):
+            eq, kw, fits = _gve_workload(name)
+            free_card()
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            solver = Solver(eq, seed=0, device="cuda", **kw)
+            solver._capture_steps = capture
+            steps = sum(fit["niters"] for _, fit in fits)
+            sync()
+            t0 = time.perf_counter()
+            for hook, fit in fits:
+                if hook is not None:
+                    hook(solver.model)
+                solver.fit(progress=False, **fit)
+            sync()
+            wall = time.perf_counter() - t0
+            mem = torch.cuda.max_memory_allocated()
+            losses = np.asarray(solver.losses[:steps])
+            tally = fit_tally(solver)
+            assert (tally[1] > 0) == capture, (capture, tally)
+            prof = step_profile(solver, fits[-1][1])
+            assert_profiled_taylor(prof, f"{name} capture={capture}")
+            runs[capture].append(dict(it_s=steps / wall, peak_mib=mem / 2**20,
+                                      losses=losses, **prof))
+            log(f"{name} {'graph' if capture else 'eager'}: {steps} steps "
+                f"{steps / wall:.1f} it/s, peak memory {mem / 2**20:.1f} "
+                f"MiB, steps {tally}; steady {json.dumps(prof)}")
+            del solver
+        g, e = runs[True][0]["losses"], runs[False][0]["losses"]
+        assert g.shape == e.shape and np.isfinite(g).all()
+        np.testing.assert_allclose(g[:20], e[:20], rtol=1e-5)
+        np.testing.assert_allclose(g[-1], e[-1], rtol=1e-3)
+        same = {arm: np.array_equal(runs[c][0]["losses"],
+                                    runs[c][1]["losses"])
+                for c, arm in ((True, "graph"), (False, "eager"))}
+        rel = float(np.max(np.abs(g - e) / np.abs(e)))
+        row = {"bitwise_equal": bool(np.array_equal(g, e)),
+               "graph_repeat_bitwise": same["graph"],
+               "eager_repeat_bitwise": same["eager"], "max_rel_diff": rel}
+        for capture, arm in ((True, "graph"), (False, "eager")):
+            for key in ("it_s", "peak_mib", "step_ms", "device_busy_ms",
+                        "busy_share", "device_ops"):
+                row[f"{arm}_{key}"] = [r[key] for r in runs[capture]]
+        row["graph_taylor_launches_per_step"] = runs[True][0][
+            "taylor_fwd_kernel_per_step"]
+        rows[name] = row
+        log(f"graph vs eager {name}: {json.dumps(row)}")
+    rows["stops"] = _stop_indices()
+    return rows
+
+
+def _w5_fits(solver, **opt):
+    """w5's two phases with the optimizer ``opt`` (kwargs of fit)."""
+    eq_fits = _tutorial("w5")[2]
+    for hook, fit in eq_fits:
+        hook(solver.model)
+        solver.fit(progress=False, **dict(fit, **opt))
+    return sum(fit["niters"] for _, fit in eq_fits)
+
+
+def phase_loop_features():
+    """The loop features through graphs on the card: a cosine-decay
+    schedule, a callback stop, save / load / resume, SGD and AdamW on
+    ``w5``, and a ``profile_dir`` trace."""
+    import os
+    from pathlib import Path
+    from pydens_tpu_torch import Solver
+    from pydens_tpu_torch.utils.schedules import cosine_decay_schedule
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    results = {}
+
+    s = Solver(_pde(), seed=0, **README)
+    wall, rate = timed_fit(s, lr=cosine_decay_schedule(0.005, 1500))
+    losses = np.asarray(s.losses)
+    assert fit_tally(s) == (1, len(losses) - 1, 1) and _falling(losses)
+    results["cosine_final_loss"] = float(losses[-1])
+    log(f"w1 with cosine_decay_schedule(0.005, 1500): {rate:.1f} it/s, "
+        f"loss {losses[0]:.5f} -> {losses[-1]:.6f}, steps {fit_tally(s)}")
+
+    seen = []
+    s = Solver(_pde(), seed=0, **README)
+    s.fit(niters=1500, batch_size=100, chunk_size=100, progress=False,
+          callback=lambda it, chunk: seen.append((it, len(chunk))) or it >= 200)
+    assert seen == [(100, 100), (200, 100)] and len(s.losses) == 200
+    log(f"callback stop at the second chunk: calls {seen}, "
+        f"{len(s.losses)} losses, steps {fit_tally(s)}")
+
+    path = str(out / "w1.npz")
+    a = Solver(_pde(), seed=0, **README)
+    a.fit(niters=500, batch_size=100, progress=False)
+    a.save(path)
+    a.fit(niters=500, batch_size=100, progress=False, optimizer=None)
+    b = Solver(_pde(), seed=1, **README)
+    b.load(path)
+    b.fit(niters=500, batch_size=100, progress=False)
+    np.testing.assert_allclose(b.losses, a.losses, rtol=1e-6)
+    results["resume_bitwise"] = a.losses == b.losses
+    log(f"save / load / resume: the loaded solver's next 500 losses equal "
+        f"the saver's (bitwise: {results['resume_bitwise']}), final "
+        f"{b.losses[-1]:.6f}")
+
+    for tag, opt in (("sgd", dict(optimizer="SGD", momentum=0.9)),
+                     ("adamw", dict(optimizer="AdamW"))):
+        s = Solver(_tutorial("w5")[0], seed=0, **_tutorial("w5")[1])
+        sync()
+        t0 = time.perf_counter()
+        steps = _w5_fits(s, **opt)
+        sync()
+        wall = time.perf_counter() - t0
+        metric = tutorial_metric("w5", s)
+        losses = np.asarray(s.losses)
+        eager, replays, graphs = fit_tally(s)
+        assert eager + replays == steps and graphs == 2 and _falling(losses)
+        results[f"w5_{tag}_metric"] = metric
+        log(f"w5 with {opt}: {steps / wall:.1f} it/s, loss {losses[0]:.5f} "
+            f"-> {losses[-1]:.6f}, |new_var - 2| {metric:.6f} (band "
+            f"{TUTORIAL_BANDS['w5']}), steps {fit_tally(s)}")
+
+    trace_dir = out / "profile"
+    s = Solver(_pde(), seed=0, **README)
+    s.fit(niters=100, batch_size=100, progress=False, profile_dir=trace_dir)
+    traces = sorted(os.listdir(trace_dir))
+    text = (trace_dir / traces[-1]).read_text()
+    assert "taylor_fwd_kernel" in text, traces
+    log(f"profile_dir: {traces[-1]} ({len(text)} bytes) holds the Taylor "
+        "kernels")
+    del s, a, b
+    free_card()
+    return results
+
+
+def profile_steps(steps=50):
+    """Per-step cost of the last fit of ``w1``-``w5`` through graphs, with
+    the guard on and off (``step_profile``: host ms per step, device ops
+    and busy ms per step, Taylor launches per step).  A tutorial's earlier
     fits run in full first."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from pydens_tpu_torch import Solver
     rows = []
     for name in ("w1", "w2", "w3", "w4", "w5"):
@@ -767,28 +1094,12 @@ def profile_steps(steps=50, warmup=20):
                     hook(solver.model)
                 if i < len(fits) - 1:
                     solver.fit(progress=False, **fit)
-            fit = dict(fits[-1][1], progress=False, stop_on_nan=guard)
-            solver.fit(**dict(fit, niters=warmup))
-            sync()
-            t0 = time.perf_counter()
-            solver.fit(**dict(fit, niters=steps))
-            sync()
-            step_ms = (time.perf_counter() - t0) * 1e3 / steps
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                solver.fit(**dict(fit, niters=steps))
-                sync()
-            dev = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-            busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / steps
-            row = dict(workload=name, stop_on_nan=guard, step_ms=step_ms,
-                       device_busy_ms=busy_ms,
-                       busy_share=busy_ms / step_ms,
-                       device_ops=len(dev) / steps)
+            row = dict(workload=name, stop_on_nan=guard, **step_profile(
+                solver, dict(fits[-1][1], stop_on_nan=guard), steps))
             log(json.dumps(row))
             rows.append(row)
             del solver
-            torch.cuda.empty_cache()
+            free_card()
     return rows
 
 
@@ -970,12 +1281,18 @@ def main():
         print(smi, flush=True)
         return 0
     taylor, tut_taylor, mlp, tut_mlp = phase_kernels()
-    launches, _, _ = phase_poisson()
+    launches, w1_device, w1_prof = phase_poisson()
     phase_wide_fit()
     tutorials = phase_tutorials()
+    print(json.dumps({"graph_vs_eager": phase_graph_vs_eager(),
+                      "loop_features": phase_loop_features()}), flush=True)
     path_launches = {k: {"w1": launches[k],
-                         **{w: t[k] for w, t in tutorials.items()}}
+                         **{w: t[0][k] for w, t in tutorials.items()}}
                      for k in launches}
+    # Launches on the card: the Taylor kernels once per fit step (eager or
+    # replayed), the MLP kernel once per predict (never captured).
+    device_launches = {"w1": w1_device,
+                       **{w: t[1] for w, t in tutorials.items()}}
     all_taylor = taylor + list(tut_taylor.values())
     fwd_err = max(e["fwd"] for e, _ in all_taylor)
     bwd_err = max(e["bwd"] for e, _ in all_taylor)
@@ -995,9 +1312,15 @@ def main():
                 for kind, suffix in (("", ""), ("plain_", "_plain"),
                                      ("bound_", "_bound"))}
 
-    def entry(name, src, replaces, times, key, err, table):
+    def entry(name, src, replaces, times, key, err, table, kernel=None):
         # No single PyTorch call computes a Taylor traversal or a layout
-        # chain with its skip stack: library_ms is null.
+        # chain with its skip stack: library_ms is null.  ``launches`` is
+        # the wrapper's count on the main path (eager steps and captures);
+        # a captured kernel's launches on the card, and per replayed step,
+        # follow.
+        graph = ({"path_device_launches": device_launches,
+                  "graph_launches_per_step": w1_prof[f"{kernel}_per_step"]}
+                 if kernel else {"path_device_launches": path_launches[name]})
         return {"name": name, "route": "cuda",
                 "source": f"pydens_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": launches[name],
@@ -1006,15 +1329,15 @@ def main():
                 "bound_ms": times[f"{key}_bound"],
                 "bound_by": times[f"{key}_bound_by"], "library_ms": None,
                 **shape_times(key, table),
-                "path_launches": path_launches[name]}
+                "path_launches": path_launches[name], **graph}
 
     kernels = [
         entry("fused_taylor_forward", "fused_taylor.cu",
               "pydens_tpu/ops/pallas_taylor.py:386", main_taylor, "fwd",
-              fwd_err, shapes),
+              fwd_err, shapes, "taylor_fwd_kernel"),
         entry("fused_taylor_backward", "fused_taylor.cu",
               "pydens_tpu/ops/pallas_taylor.py:428", main_taylor, "bwd",
-              bwd_err, shapes),
+              bwd_err, shapes, "taylor_bwd_kernel"),
         entry("fused_mlp_forward", "fused_mlp.cu",
               "pydens_tpu/ops/pallas_mlp.py:92", main_mlp, "fwd",
               max(e for e, _ in list(mlp.values()) + list(tut_mlp.values())),

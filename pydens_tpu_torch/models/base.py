@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from .layout import make_layout_network
-from ..ops.tokens import _batch_diagonal_grad, variable_scope
+from ..ops.tokens import _batch_diagonal_grad, as_device, variable_scope
 from ..ops import fused_mlp, fused_taylor
 
 __all__ = ["Model", "ConvBlockModel", "TorchModel", "resolve_device"]
@@ -350,17 +350,16 @@ class Model(nn.Module):
                 shape_fn = shape_fn * ((xi - lo_i) * (hi_i - xi) * inv_span2)
             bc = self.boundary_condition
             if callable(bc):
-                bc = torch.as_tensor(
-                    bc(*[xs_spatial[:, i] for i in range(nds)]),
-                    dtype=self.dtype, device=u.device)
+                bc = as_device(bc(*[xs_spatial[:, i] for i in range(nds)]),
+                               u.device, self.dtype)
                 bc = self._normalize_cond("boundary_condition", bc,
                                           u.shape[0], u.shape[1])
             u = u * shape_fn + bc
 
         if self.initial_condition is not None:
             cols = [xs_spatial[:, i] for i in range(nds)]
-            ic = torch.as_tensor(self.initial_condition(*cols),
-                                 dtype=self.dtype, device=u.device)
+            ic = as_device(self.initial_condition(*cols), u.device,
+                           self.dtype)
             ic = self._normalize_cond("initial_condition", ic,
                                       u.shape[0], u.shape[1])
             gate = torch.sigmoid(
@@ -431,9 +430,9 @@ class Model(nn.Module):
                     net = net + coef * taps[tuple(sorted(mi[i] for i in B))]
             shift = xs
             for i in range(m):
-                e = xs.new_zeros((n_total,))
-                e[mi[i]] = 1.0
-                shift = shift + svec[i] * e
+                # s_i on column mi[i]: a device op, no host value copied.
+                shift = shift + torch.nn.functional.pad(
+                    svec[i], (mi[i], n_total - mi[i] - 1))
             out = self.anzatc(net, shift, params)
             for s in svec:
                 out = _batch_diagonal_grad(out, s)

@@ -133,7 +133,7 @@ def _identity_state(x, closure):
     for mi in closure:
         t = x.new_zeros((n, in_dim))
         if len(mi) == 1:
-            t[:, mi[0]] = 1.0
+            t[:, mi[0]].fill_(1.0)
         taps[mi] = t
     return x, taps
 

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 __all__ = ["Expr", "D", "V", "variable_scope", "as_array", "lift",
-           "EvalContext", "PLAN_MAX_ORDER"]
+           "EvalContext", "PLAN_MAX_ORDER", "staging", "as_device"]
 
 # Highest derivative order the Taylor plan will schedule (Bell(n) activation
 # terms and 2^n - 1 ansatz cross terms grow steeply past it); deeper nesting
@@ -46,10 +46,55 @@ class EvalContext:
         self.table = table  # dict: multi-index tuple -> (N, k) tensor
 
 
+_STAGING = []  # stack of {key: device tensor} stores of staged host values
+
+
+@contextlib.contextmanager
+def staging(store):
+    """Scope under which :func:`as_device` copies each distinct host value
+    to the device once and returns that copy afterwards: the Solver enters
+    it for the eager warm-up step of a CUDA-graph fit step (which fills
+    ``store``) and for the capture (which then makes no host-to-device
+    copy)."""
+    _STAGING.append(store)
+    try:
+        yield store
+    finally:
+        _STAGING.pop()
+
+
+def as_device(value, device, dtype=None):
+    """``torch.as_tensor(value, dtype=dtype, device=device)``, except that
+    under :func:`staging` a host value (numpy, number, CPU tensor) bound for
+    the card is copied once per distinct value and kept.  A value first met
+    while a CUDA graph is being captured raises: the capture would bake a
+    copy from a host address into the graph."""
+    device = torch.device(device)
+    if (not _STAGING or device.type == "cpu"
+            or (torch.is_tensor(value) and (value.device.type != "cpu"
+                                            or value.requires_grad))):
+        return torch.as_tensor(value, dtype=dtype, device=device)
+    host = (value.numpy() if torch.is_tensor(value) else np.asarray(value))
+    key = (type(value), device, dtype, host.dtype.str, host.shape,
+           host.tobytes())
+    store = _STAGING[-1]
+    if key not in store:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"a host value of shape {host.shape} reached the device for "
+                "the first time while the fit step was captured as a CUDA "
+                "graph: it differs from the value of the warm-up step. "
+                "Values from numpy or Python in an equation, a condition "
+                "or a constraint must not change from step to step; "
+                "compute changing values with torch from the coordinates")
+        store[key] = torch.as_tensor(value, dtype=dtype, device=device)
+    return store[key]
+
+
 def _const(a, ref):
     """A numpy operand as a tensor beside ``ref``; anything else as-is."""
     if isinstance(a, (np.ndarray, np.generic)):
-        return torch.as_tensor(np.asarray(a), device=ref.device)
+        return as_device(np.asarray(a), ref.device)
     return a
 
 

@@ -9,8 +9,12 @@ ported slice (``__init__`` / ``fit`` / ``predict`` / ``reshape_and_concat``
   row, which also records the equation's derivative plan.
 * Training state is ONE flat parameter vector; the network sees views into
   it.  Each step is a loss, one ``torch.autograd.grad`` and an in-place
-  Adam update, all on the device: losses go into a preallocated device
-  buffer that the host reads once per chunk.
+  optimizer update, all on the device, in one closure over buffers that
+  live as long as the fit configuration is cached (:class:`_FitStep`): on
+  the card the first step of a configuration runs eagerly and every later
+  one replays a captured CUDA graph of it, the port's counterpart of the
+  JAX package's one compiled chunk.  Losses go into a device buffer that
+  the host reads once per chunk.
 * The default sampler is U(0, 1) per column and IGNORES ``domain``
   (``model_torch.py:431``), drawn on the device from the Solver's
   ``torch.Generator`` once per chunk; so is any sampler with a device path
@@ -22,9 +26,12 @@ ported slice (``__init__`` / ``fit`` / ``predict`` / ``reshape_and_concat``
 
 from __future__ import annotations
 
+import contextlib
+import os
 import re
 import sys
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -33,7 +40,7 @@ import torch
 from .models import ConvBlockModel
 from .models.base import resolve_device
 from .ops.tokens import (Expr, EvalContext, _batch_diagonal_grad,
-                         as_array, variable_scope)
+                         as_array, as_device, staging, variable_scope)
 from .utils.criteria import resolve_criterion
 from .utils.optimizers import resolve_optimizer
 
@@ -96,9 +103,139 @@ class _FlatSpec:
 
 # Keyword arguments of pydens_tpu's fit that this package does not take
 # yet, with their ROADMAP.md Queue 1 item.
-_FIT_NOT_PORTED = {"callback": 8, "checkpoint_path": 8, "checkpoint_every": 8,
-                   "profile_dir": 8, "adaptive": 10, "rba": 10, "causal": 10,
+_FIT_NOT_PORTED = {"adaptive": 10, "rba": 10, "causal": 10,
                    "causal_axis": 10, "loss_balancing": 10}
+
+
+def _capture_error(err):
+    """The first error of a failed capture (a failing op makes the end of
+    the capture fail too) and the innermost frame outside torch that led to
+    it, as ``file:line (function)``."""
+    while err.__context__ is not None and isinstance(err.__context__,
+                                                     RuntimeError):
+        err = err.__context__
+    frames = [f for f in traceback.extract_tb(err.__traceback__)
+              if f"{os.sep}torch{os.sep}" not in f.filename]
+    site = (f"{frames[-1].filename}:{frames[-1].lineno} ({frames[-1].name})"
+            if frames else "unknown site")
+    return err, site
+
+
+class _FitStep:
+    """One fit configuration's training step, in place, as a closure over
+    buffers that live as long as the configuration stays cached: the flat
+    parameters ``theta``, the optimizer ``state``, the guard flag ``armed``
+    and its threshold ``tol``, the device step ``index`` (0-d int64), the
+    chunk's ``points`` ``(chunk, batch, total)`` (one row with
+    ``resample=False``) and the ``losses`` buffer.  The points row and the
+    loss slot are picked by the device index, so the step has no Python
+    state and no host read (counterpart of ``run_chunk``'s ``body``,
+    ``pydens_tpu/solver.py:1205-1450``).
+
+    :meth:`run` takes steps: eagerly on the CPU, or when ``capture`` is off;
+    on the card the configuration's first step runs eagerly on a side
+    stream (the warm-up, a real step), the next one captures the closure as
+    a CUDA graph, and every step from then on replays it.  Host values the
+    step reads are staged on the device by the warm-up
+    (:func:`~pydens_tpu_torch.ops.tokens.staging`).  A capture that fails
+    raises with its first error and the site; nothing falls back."""
+
+    def __init__(self, loss_fn, opt, mask, theta, chunk, batch_size,
+                 resample, guard, capture):
+        dev, dtype = theta.device, theta.dtype
+        total = loss_fn.total
+        self.loss_fn = loss_fn
+        self.opt = opt
+        self.mask = mask
+        self.theta = theta.detach().clone().requires_grad_(True)
+        self.state = opt.init(self.theta.detach())
+        self.armed = (torch.ones((), dtype=torch.bool, device=dev)
+                      if guard else None)
+        self.tol = (torch.full((), -np.inf, dtype=dtype, device=dev)
+                    if guard else None)
+        self.index = torch.zeros((), dtype=torch.int64, device=dev)
+        self.resample = resample
+        self.points = torch.zeros((chunk if resample else 1, batch_size,
+                                   total), dtype=dtype, device=dev)
+        self.losses = torch.zeros((chunk,), dtype=dtype, device=dev)
+        self.capture = capture
+        self.graph = None
+        self.constants = {}
+        self.eager_steps = 0     # steps run eagerly (the warm-up, or all)
+        self.replays = 0         # steps run as replays of the graph
+
+    def step(self):
+        """One training step; reads and writes only the buffers above."""
+        if self.resample:
+            pts = self.points.index_select(0, self.index)[0]
+        else:
+            pts = self.points[0]
+        loss = self.loss_fn(self.theta, pts)
+        grad, = torch.autograd.grad(loss, self.theta)
+        if self.mask is not None:
+            grad = grad * self.mask
+        loss = loss.detach()
+        # The update of the iteration that trips the guard is kept; every
+        # later one is a no-op.
+        self.opt.update(self.theta, grad, self.state, gate=self.armed)
+        if self.armed is not None:
+            # tol < loss < inf: finite and above tol, in fewer device ops
+            # than isfinite's four.
+            self.armed.logical_and_((loss > self.tol) & (loss < np.inf))
+        self.losses.index_copy_(0, self.index, loss)
+        self.index.add_(1)
+
+    def run(self, n):
+        """Take ``n`` steps from the device index 0.  If one raises (a
+        capture that fails), ``theta`` and the state are put back as they
+        were before the first, so the fit commits the last whole chunk."""
+        buffers = (self.theta, *self.state.values())
+        saved = [t.detach().clone() for t in buffers]
+        self.index.zero_()
+        try:
+            for _ in range(n):
+                if not self.capture:
+                    self.step()
+                    self.eager_steps += 1
+                elif self.graph is not None:
+                    self.graph.replay()
+                    self.replays += 1
+                elif not self.eager_steps:
+                    self._warm_up()
+                    self.eager_steps += 1
+                else:
+                    self._capture()
+                    self.graph.replay()
+                    self.replays += 1
+        except BaseException:
+            with torch.no_grad():
+                for dst, src in zip(buffers, saved):
+                    dst.copy_(src)
+            raise
+
+    def _warm_up(self):
+        dev = self.theta.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with staging(self.constants), torch.cuda.stream(side):
+            self.step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+    def _capture(self):
+        # Capture records the step without running it: theta, the state
+        # and the index move only when the graph is replayed.
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with staging(self.constants), torch.cuda.graph(graph):
+                self.step()
+        except RuntimeError as err:
+            first, site = _capture_error(err)
+            raise RuntimeError(
+                f"CUDA-graph capture of the fit step failed at {site}: "
+                f"{first}. A step must not read a device value on the host "
+                "(.item(), float(), .tolist(), a Python `if` on a tensor), "
+                "e.g. in an equation, a condition or an lr schedule") from err
+        self.graph = graph
 
 
 def _is_number(x):
@@ -187,6 +324,10 @@ class Solver:
         (an error without one: pass ``device="cpu"`` for the CPU).
     """
 
+    # False runs every step on the card eagerly, for comparisons with the
+    # captured graph only: no fit argument reaches it.
+    _capture_steps = True
+
     def __init__(self, equation, ndims, initial_condition=None,
                  boundary_condition=None, domain=(0, 1), nparams=0,
                  model=ConvBlockModel, constraints=None, seed=0, device=None,
@@ -207,11 +348,15 @@ class Solver:
                            boundary_condition=boundary_condition,
                            domain=domain, nparams=nparams, device=self.device)
         seed = 0 if seed is None else int(seed)
-        self.model.reset_parameters(torch.Generator().manual_seed(seed))
+        self._init_generator = torch.Generator().manual_seed(seed)
+        self.model.reset_parameters(self._init_generator)
         self._generator = torch.Generator(device=self.device).manual_seed(
             seed)
         self._opt = None
         self._opt_state = None
+        self._pending_opt_state = None   # set by a checkpoint load
+        self._opt_cache = {}
+        self._step_cache = {}
 
         # Discovery: one real forward of model + equation + constraints on a
         # single row of domain midpoints registers the V variables and
@@ -254,11 +399,38 @@ class Solver:
         self._plan_ok = (ctx.plan_ok and bool(ctx.derivs)
                          and self.model.supports_taylor)
         self.model.set_variables(registry)
+        # Copies: on the CPU the variables share the registry's memory.
+        self._initial_variables = {k: np.array(v) for k, v in
+                                   registry.items()}
 
     @property
     def params(self):
         """The full parameter tree (net + log_scale + V variables)."""
         return self.model.params
+
+    def reset(self, seed=None):
+        """Re-initialize the parameters and V variables as ``__init__``
+        does, and clear the loss history, the fit history, the optimizer
+        and its state and the step counter, keeping the cached fit steps
+        (and their CUDA graphs), so a following ``fit`` with the same
+        configuration replays its graph.  With ``seed``, the parameters
+        equal those of a new ``Solver(..., seed=seed)`` and the sampling
+        generator restarts from ``seed``; without, both continue their
+        streams, so the parameters are new."""
+        if seed is not None:
+            self._init_generator.manual_seed(int(seed))
+            self._generator.manual_seed(int(seed))
+        self.model.reset_parameters(self._init_generator)
+        with torch.no_grad():
+            for name, value in self._initial_variables.items():
+                self.model.variables[name].copy_(torch.as_tensor(value))
+        self.losses = []
+        self.history = []
+        self._opt = None
+        self._opt_state = None
+        self._pending_opt_state = None
+        self._step_counter = 0
+        return self
 
     @property
     def optimizer(self):
@@ -341,8 +513,8 @@ class Solver:
                 col = torch.full((batch, 1), float(x), dtype=dtype,
                                  device=device)
             else:
-                x = torch.as_tensor(x, dtype=dtype, device=device)
-                col = (x.reshape(-1)[0].expand(batch, 1)
+                x = as_device(x, device, dtype)
+                col =(x.reshape(-1)[0].expand(batch, 1)
                        if x.numel() != batch else x.reshape(batch, 1))
             cols.append(col)
         return torch.cat(cols, dim=1)
@@ -446,6 +618,7 @@ class Solver:
             return loss
 
         loss_fn.spec = spec
+        loss_fn.total = total
         return loss_fn
 
     def _sample(self, sampler, n, batch_size):
@@ -481,8 +654,10 @@ class Solver:
 
     def fit(self, niters, batch_size, sampler=None, loss_terms="equation",
             optimizer="Adam", criterion="MSELoss", lr=0.005, losses=None,
-            progress="auto", chunk_size=500, resample=True, fast_taps="auto",
-            stop_on_nan=True, until_loss=None, **kwargs):
+            progress="auto", chunk_size=500, profile_dir=None, resample=True,
+            fast_taps="auto", callback=None, checkpoint_path=None,
+            checkpoint_every=None, stop_on_nan=True, until_loss=None,
+            **kwargs):
         """Train for ``niters`` iterations of ``batch_size`` collocation
         points each (``model_torch.py:364-422``).
 
@@ -492,16 +667,41 @@ class Solver:
         ``sample(size) -> (size, total)``; ``resample=False`` draws ONE
         batch and trains on it every iteration.  ``loss_terms`` (alias
         ``losses``) is ``'equation'`` and/or ``'constraint_k'`` names, or a
-        ``{term: weight}`` dict; ``optimizer`` is ``'Adam'`` or ``None`` to
-        reuse the previous fit's optimizer and its state; ``criterion`` a
-        name, a torch criterion instance or a callable; extra kwargs go to
-        the optimizer (``betas``, ``eps``).  ``fast_taps``:
-        ``'auto'``/``True``/``'always'`` use the Taylor plan whenever the
-        equation's derivatives allow it, ``False``/``'never'`` force nested
-        gradients.  ``chunk_size`` iterations run between host reads of the
-        loss buffer.  Frozen layers and variables
+        ``{term: weight}`` dict; ``optimizer`` is a torch-style name
+        (``'Adam'``, ``'AdamW'``, ``'Adamax'``, ``'NAdam'``, ``'RAdam'``,
+        ``'SGD'``, ``'RMSprop'``, ``'Adagrad'``, ``'Adadelta'``,
+        ``'Lion'``), an optimizer object, a factory ``f(learning_rate=lr,
+        **kwargs)``, or ``None`` to reuse the previous fit's optimizer and
+        its state; extra kwargs go to the optimizer (``betas``, ``eps``,
+        ``momentum``, ``weight_decay``, ...).  ``lr`` is a float or a
+        schedule of :mod:`pydens_tpu_torch.utils.schedules` (any function
+        of the 0-d device step count written in torch ops).  ``criterion``
+        is a name, a torch criterion instance or a callable.
+        ``fast_taps``: ``'auto'``/``True``/``'always'`` use the Taylor plan
+        whenever the equation's derivatives allow it, ``False``/``'never'``
+        force nested gradients.  Frozen layers and variables
         (``model.freeze_trainable``) have their gradient entries zeroed
         before the optimizer.
+
+        ``chunk_size`` iterations run between host reads of the loss
+        buffer.  On the card every step after a configuration's first
+        replays a captured CUDA graph of the step (one launch a step); the
+        graph is cached per configuration (loss terms, criterion,
+        optimizer and learning rate, batch and chunk size, plan, frozen
+        names, ``resample``, guard), so a later fit of the same
+        configuration, ``fit(optimizer=None)`` and a fit after
+        :meth:`reset` replay it.  A step that cannot be captured raises.
+
+        ``callback(iteration, chunk_losses)`` is called after every chunk
+        with the global iteration count and that chunk's losses (a float32
+        array); a truthy return stops the fit cleanly.  If it raises, what
+        completed is kept.  ``checkpoint_path`` snapshots the training
+        state (as :meth:`save`) every ``checkpoint_every`` iterations
+        (default: every chunk), at chunk boundaries, and at the end of the
+        fit, a callback stop included but not a stop at a non-finite loss.
+        ``profile_dir`` writes a ``torch.profiler`` trace of the whole fit
+        there (``fit_<time>.pt.trace.json``, for ``chrome://tracing`` or
+        TensorBoard).
 
         ``stop_on_nan=True`` (the default) arms a divergence guard: at the
         first non-finite loss the rest of the chunk's updates become no-ops
@@ -516,10 +716,11 @@ class Solver:
         fit_t0 = time.perf_counter()
         not_ported = sorted(set(kwargs) & set(_FIT_NOT_PORTED))
         if not_ported:
+            items = sorted({_FIT_NOT_PORTED[k] for k in not_ported})
             raise NotImplementedError(
                 f"fit options {not_ported} are not ported to "
-                "pydens_tpu_torch yet (ROADMAP.md, Queue 1 items "
-                f"{sorted({_FIT_NOT_PORTED[k] for k in not_ported})})")
+                "pydens_tpu_torch yet (ROADMAP.md, Queue 1 item "
+                f"{', '.join(map(str, items))})")
         niters = int(niters)
         if niters <= 0:
             return self
@@ -530,9 +731,21 @@ class Solver:
             loss_terms = losses
         loss_terms = _normalize_loss_terms(loss_terms)
         criterion_fn, _ = resolve_criterion(criterion)
-        if optimizer is not None:
-            self._opt = resolve_optimizer(optimizer, lr, kwargs)
-            self._opt_state = None
+        fresh_optimizer = optimizer is not None
+        if fresh_optimizer:
+            # One instance per (optimizer, lr, kwargs), as the JAX package
+            # keys it (a schedule by identity): the cached fit steps key on
+            # the instance.  The entry keeps the optimizer and lr objects
+            # alive, so an id in the token is never reused.
+            opt_token = (optimizer if isinstance(optimizer, str)
+                         else id(optimizer),
+                         float(lr) if isinstance(lr, (int, float))
+                         else id(lr),
+                         tuple(sorted(kwargs.items())))
+            if opt_token not in self._opt_cache:
+                self._opt_cache[opt_token] = (
+                    resolve_optimizer(optimizer, lr, kwargs), optimizer, lr)
+            self._opt = self._opt_cache[opt_token][0]
         elif self._opt is None:
             raise ValueError("fit(optimizer=None) requires a previous fit "
                              "call that created an optimizer")
@@ -542,25 +755,26 @@ class Solver:
                 "'auto' or True/'always' (Taylor plan when valid), or "
                 "False/'never' (nested gradients)")
         use_plan = bool(self._plan_ok) and fast_taps not in (False, "never")
-
-        loss_fn = self._build_loss_fn(loss_terms, criterion_fn, use_plan)
-        spec = loss_fn.spec
-        mask = self._flat_mask(spec)
-        theta = spec.flatten(self.model.params).detach().clone()
-        theta.requires_grad_(True)
-        if self._opt_state is None:
-            self._opt_state = self._opt.init(theta.detach())
         batch_size = int(batch_size)
         chunk = max(1, min(niters, int(chunk_size)))
-        loss_buf = torch.empty((chunk,), dtype=self.model.dtype,
-                               device=self.device)
-        fixed = None if resample else self._sample(sampler, 1, batch_size)[0]
+        step = self._fit_step(loss_terms, criterion_fn, use_plan, batch_size,
+                              chunk, bool(resample), bool(stop_on_nan))
+        spec = step.loss_fn.spec
+        with torch.no_grad():
+            step.theta.copy_(spec.flatten(self.model.params))
+        if fresh_optimizer or self._opt_state is None:
+            self._opt_state = self._opt.init(step.theta.detach())
+        for name, value in self._opt_state.items():
+            step.state[name].copy_(value)
+        self._graft_pending_opt_state(step.state)
         # The guard's predicate, the same on the device and on the host:
         # a loss is good when finite and above tol (-inf without until_loss).
         tol = np.float32(-np.inf if until_loss is None else until_loss)
-        armed = None
-        if stop_on_nan:
-            armed = torch.ones((), dtype=torch.bool, device=self.device)
+        if step.armed is not None:
+            step.armed.fill_(True)
+            step.tol.fill_(float(tol))
+        if not resample:
+            step.points[0].copy_(self._sample(sampler, 1, batch_size)[0])
 
         bounds = range(0, niters, chunk)
         if progress is True or (progress == "auto" and sys.stderr.isatty()):
@@ -569,58 +783,87 @@ class Solver:
                 bounds = tqdm(bounds, unit="chunk")
             except ImportError:
                 pass
+        profiler = contextlib.nullcontext()
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+            profiler = profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self.device.type == "cuda"
+                else []))
+        ckpt_every = int(checkpoint_every or chunk)
+        ckpt_saved = -1
         fit_losses = []
         iters_run = 0
         nan_stop = converged_at = None
+
+        def save_checkpoint():
+            # Host copies of the step's buffers between chunks: a snapshot
+            # never reads them inside a step.
+            nonlocal ckpt_saved
+            ckpt_saved = iters_run
+            from .utils.checkpoint import save_solver
+            save_solver(self, checkpoint_path,
+                        params=spec.unflatten(step.theta.detach()),
+                        opt_state=step.state,
+                        losses=self.losses + fit_losses,
+                        step_counter=self._step_counter + iters_run)
+
         try:
-            for start in bounds:
-                n = min(chunk, niters - start)
-                pts_all = (self._sample(sampler, n, batch_size) if resample
-                           else None)
-                for i in range(n):
-                    pts = pts_all[i] if resample else fixed
-                    loss = loss_fn(theta, pts)
-                    grad, = torch.autograd.grad(loss, theta)
-                    if mask is not None:
-                        grad = grad * mask
-                    loss = loss.detach()
-                    # The update of the iteration that trips the guard is
-                    # kept; every later one is a no-op.
-                    self._opt.update(theta, grad, self._opt_state, gate=armed)
-                    if armed is not None:
-                        # tol < loss < inf: finite and above tol, in fewer
-                        # device ops than isfinite's four.
-                        armed = armed & (loss > float(tol)) & (loss < np.inf)
-                    loss_buf[i] = loss
-                # The one host read of this chunk.
-                chunk_losses = loss_buf[:n].tolist()
-                if stop_on_nan:
-                    arr = np.asarray(chunk_losses, np.float32)
-                    bad = ~(np.isfinite(arr) & (arr > tol))
-                    if bad.any():
-                        done = int(np.argmax(bad)) + 1
-                        fit_losses.extend(chunk_losses[:done])
-                        iters_run = start + done
-                        stop_at = self._step_counter + iters_run - 1
-                        if until_loss is not None and np.isfinite(
-                                arr[done - 1]):
-                            converged_at = stop_at
+            with profiler:
+                for start in bounds:
+                    n = min(chunk, niters - start)
+                    if resample:
+                        step.points[:n].copy_(
+                            self._sample(sampler, n, batch_size))
+                    step.run(n)
+                    # The one host read of this chunk.
+                    chunk_losses = step.losses[:n].tolist()
+                    if stop_on_nan:
+                        arr = np.asarray(chunk_losses, np.float32)
+                        bad = ~(np.isfinite(arr) & (arr > tol))
+                        if bad.any():
+                            done = int(np.argmax(bad)) + 1
+                            fit_losses.extend(chunk_losses[:done])
+                            iters_run = start + done
+                            stop_at = self._step_counter + iters_run - 1
+                            if until_loss is not None and np.isfinite(
+                                    arr[done - 1]):
+                                converged_at = stop_at
+                                break
+                            nan_stop = stop_at
+                            warnings.warn(
+                                f"fit stopped early: non-finite loss at "
+                                f"iteration {nan_stop} (of {niters}); the "
+                                "partial loss history is kept. Lower the "
+                                "learning rate or check the sampled "
+                                "domain. Pass stop_on_nan=False to "
+                                "disable this guard.")
                             break
-                        nan_stop = stop_at
-                        warnings.warn(
-                            f"fit stopped early: non-finite loss at "
-                            f"iteration {nan_stop} (of {niters}); the "
-                            "partial loss history is kept. Lower the "
-                            "learning rate or check the sampled "
-                            "domain. Pass stop_on_nan=False to "
-                            "disable this guard.")
+                    fit_losses.extend(chunk_losses)
+                    iters_run = start + n
+                    if checkpoint_path is not None and (
+                            iters_run // ckpt_every
+                            > max(ckpt_saved, 0) // ckpt_every):
+                        save_checkpoint()
+                    if callback is not None and callback(
+                            self._step_counter + iters_run,
+                            np.asarray(chunk_losses, np.float32)):
                         break
-                fit_losses.extend(chunk_losses)
-                iters_run = start + n
+            # The final snapshot: at the end of the fit or a callback stop,
+            # whatever the interval; a non-finite stop keeps the last good
+            # one.
+            if (checkpoint_path is not None and nan_stop is None
+                    and ckpt_saved < iters_run):
+                save_checkpoint()
         finally:
+            # Commit whatever completed, also when a callback raised.
             self._step_counter += iters_run
-            self.model.load_params(spec.unflatten(theta.detach()))
+            self.model.load_params(spec.unflatten(step.theta.detach()))
+            self._opt_state = {k: v.clone() for k, v in step.state.items()}
             self.losses.extend(fit_losses)
+            if profile_dir:
+                os.makedirs(profile_dir, exist_ok=True)
+                profiler.export_chrome_trace(os.path.join(
+                    profile_dir, f"fit_{time.time_ns()}.pt.trace.json"))
 
         self.history.append({
             "niters": iters_run, "batch_size": batch_size,
@@ -639,6 +882,62 @@ class Solver:
             self.history[-1]["stopped_on_nan"] = int(nan_stop)
         if converged_at is not None:
             self.history[-1]["converged_at"] = int(converged_at)
+        return self
+
+    def _fit_step(self, loss_terms, criterion_fn, use_plan, batch_size,
+                  chunk, resample, guard):
+        """The cached :class:`_FitStep` of a fit configuration, built on
+        first use.  The optimizer instance is part of the key, and with it
+        its float learning rate (baked into a captured graph) or its
+        schedule."""
+        capture = self.device.type == "cuda" and self._capture_steps
+        key = (loss_terms, criterion_fn, self._opt, use_plan, batch_size,
+               chunk, resample, guard, capture,
+               frozenset(self.model._frozen_layers),
+               frozenset(self.model._frozen_variables))
+        if key not in self._step_cache:
+            loss_fn = self._build_loss_fn(loss_terms, criterion_fn, use_plan)
+            self._step_cache[key] = _FitStep(
+                loss_fn, self._opt, self._flat_mask(loss_fn.spec),
+                loss_fn.spec.flatten(self.model.params), chunk, batch_size,
+                resample, guard, capture)
+        return self._step_cache[key]
+
+    def _graft_pending_opt_state(self, state):
+        """Checkpoint resume: the loaded optimizer state replaces this
+        fit's, if it has the same buffers (``pydens_tpu``'s
+        ``_pending_opt_state``)."""
+        pending, self._pending_opt_state = self._pending_opt_state, None
+        if pending is None:
+            return
+        if set(pending) != set(state) or any(
+                tuple(pending[k].shape) != tuple(state[k].shape)
+                for k in state):
+            warnings.warn(
+                "checkpointed optimizer state is incompatible with this "
+                f"fit's optimizer and was not restored: buffers "
+                f"{sorted(pending)} vs {sorted(state)}")
+            return
+        for name, value in pending.items():
+            state[name].copy_(torch.as_tensor(value))
+
+    # ------------------------------------------------------------------
+    # checkpointing (a superset of the reference, which has none)
+    # ------------------------------------------------------------------
+    def save(self, path):
+        """Write the parameters (V variables included), the optimizer
+        state, the losses, the step counter, the sampling generator's
+        state, the fit history, the condition modes and the frozen names
+        to ``path`` (:mod:`pydens_tpu_torch.utils.checkpoint`)."""
+        from .utils.checkpoint import save_solver
+        save_solver(self, path)
+
+    def load(self, path):
+        """Restore a checkpoint written by :meth:`save` into this solver
+        (built with the same problem and model configuration).  The
+        optimizer state is grafted onto the next fit's optimizer."""
+        from .utils.checkpoint import load_solver
+        load_solver(self, path)
         return self
 
     # ------------------------------------------------------------------

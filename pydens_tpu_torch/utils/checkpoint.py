@@ -1,0 +1,108 @@
+"""Checkpoint / resume, counterpart of ``pydens_tpu/utils/checkpoint.py``.
+
+The training state of a Solver — the parameter tree (network,
+``log_scale`` and V variables), the optimizer state, the losses, the step
+counter, the sampling generator's state, the fit history, the condition
+modes and the frozen names — in a format that needs neither jax nor flax:
+a ``numpy.savez`` archive of arrays, with a format tag and one JSON member
+for what is not an array.  It is written to a temporary file and renamed
+into place, so a crash mid-write keeps the previous checkpoint.  Enough
+state is kept that a resumed run continues the saving run's next fit bit
+for bit on the same device.
+"""
+
+import json
+import os
+import zipfile
+
+import numpy as np
+import torch
+
+from ..solver import _tree_leaves
+
+__all__ = ["save_solver", "load_solver"]
+
+_FORMAT = "pydens_tpu_torch checkpoint 1"
+
+
+def _host(t):
+    return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+def save_solver(solver, path, *, params=None, opt_state=None, losses=None,
+                step_counter=None):
+    """Write ``solver``'s training state to ``path``.  The keyword
+    overrides let ``fit`` snapshot its own buffers mid-fit
+    (``checkpoint_path=``) without changing the solver."""
+    params = solver.model.params if params is None else params
+    opt_state = solver._opt_state if opt_state is None else opt_state
+    losses = solver.losses if losses is None else losses
+    step_counter = (solver._step_counter if step_counter is None
+                    else step_counter)
+    arrays = {"format": np.array(_FORMAT)}
+    for keys, leaf in _tree_leaves(params):
+        arrays["params/" + "/".join(keys)] = _host(leaf)
+    for name, value in (opt_state or {}).items():
+        arrays["opt_state/" + name] = _host(value)
+    arrays["losses"] = np.asarray(losses, np.float32)
+    arrays["step_counter"] = np.int64(step_counter)
+    arrays["generator_state"] = _host(solver._generator.get_state())
+    arrays["meta"] = np.array(json.dumps({
+        "history": solver.history,
+        "cond_modes": solver.model._cond_modes,
+        "frozen_layers": sorted(solver.model._frozen_layers),
+        "frozen_variables": sorted(solver.model._frozen_variables),
+        "generator_device": solver.device.type,
+    }))
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as fh:
+        np.savez(fh, **arrays)
+    os.replace(tmp, path)
+
+
+def load_solver(solver, path):
+    """Restore a checkpoint of :func:`save_solver` into ``solver``, which
+    must have the same model configuration.  The optimizer state waits in
+    ``solver._pending_opt_state`` for the next fit, which grafts it onto its
+    optimizer; the generator state is restored when the checkpoint was
+    written on the same kind of device."""
+    try:
+        with np.load(path, allow_pickle=False) as archive:
+            data = {name: archive[name] for name in archive.files}
+    except (OSError, ValueError, EOFError, zipfile.BadZipFile):
+        data = {}
+    if str(data.get("format", "")) != _FORMAT:
+        raise ValueError(f"{path} is not a pydens_tpu_torch checkpoint")
+
+    current = dict(_tree_leaves(solver.model.params))
+    saved = {tuple(name.split("/")[1:]): value for name, value in data.items()
+             if name.startswith("params/")}
+    problem = None
+    if set(saved) != set(current):
+        problem = (f"parameters {sorted('/'.join(k) for k in saved)} vs "
+                   f"{sorted('/'.join(k) for k in current)}")
+    else:
+        problem = next((f"shape mismatch at {'/'.join(keys)}: "
+                        f"{tuple(leaf.shape)} vs {tuple(saved[keys].shape)}"
+                        for keys, leaf in current.items()
+                        if tuple(saved[keys].shape) != tuple(leaf.shape)),
+                       None)
+    if problem is not None:
+        raise ValueError(f"checkpoint at {path} does not match this solver's "
+                         f"model configuration: {problem}")
+    with torch.no_grad():
+        for keys, leaf in current.items():
+            leaf.copy_(torch.from_numpy(saved[keys]))
+    solver.losses = data["losses"].tolist()
+    solver._step_counter = int(data["step_counter"])
+    meta = json.loads(str(data["meta"]))
+    if meta["generator_device"] == solver.device.type:
+        solver._generator.set_state(torch.from_numpy(data["generator_state"]))
+    solver.history = meta["history"]
+    solver.model._cond_modes = dict(meta["cond_modes"])
+    solver.model._frozen_layers = set(meta["frozen_layers"])
+    solver.model._frozen_variables = set(meta["frozen_variables"])
+    opt_state = {name[len("opt_state/"):]: value
+                 for name, value in data.items()
+                 if name.startswith("opt_state/")}
+    solver._pending_opt_state = opt_state or None

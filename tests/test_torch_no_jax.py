@@ -3,7 +3,8 @@
 A plain ``import`` check proves nothing in a process where jax is already
 loaded (this image's interpreter imports it at startup), so the package is
 imported and trained in a subprocess where ``import jax`` fails (the README
-fit, and a w5-like fit with a sampler product, a constraint and a freeze),
+fit, a w5-like fit with a sampler product, a constraint and a freeze, then
+a fit with a schedule and SGD, a save and a load),
 and every file of the package is scanned for a jax import."""
 
 import ast
@@ -55,6 +56,20 @@ s.fit(batch_size=50, niters=5, lr=0.1, progress=False,
       loss_terms=["equation", "constraint_0"])
 assert s.model.params["variables"]["k"].item() != 1.0
 assert np.isfinite(s.losses).all() and len(s.history) == 2
+
+# The loop features: a schedule, another optimizer, save and load.
+import os, tempfile
+from pydens_tpu_torch.utils.schedules import cosine_decay_schedule
+s.fit(batch_size=50, niters=5, lr=cosine_decay_schedule(0.1, 5),
+      optimizer="SGD", momentum=0.9, progress=False)
+path = os.path.join(tempfile.mkdtemp(), "ckpt.npz")
+s.save(path)
+s2 = Solver(ode, ndims=1, nparams=1, initial_condition=1.0, device="cpu",
+            seed=1, constraints=lambda f, x, e: f(np.array([0.5]), 1.0))
+s2.load(path)
+assert s2.losses == s.losses and len(s2.history) == 3
+assert s2.model.params["variables"]["k"].item() == \\
+    s.model.params["variables"]["k"].item()
 loaded = sorted(n for n in sys.modules
                 if n.split(".")[0] == "jax" and sys.modules[n] is not None)
 assert not loaded, loaded
