@@ -11,6 +11,12 @@
 // S_ab -> s''T_aT_b + s'S_ab.  The backward is the adjoint of that
 // recurrence; it needs s''' and the input state of each activation.
 //
+// A third kernel, taylor_jvp_kernel, has no Pallas counterpart: it is the
+// tangent of the traversal with respect to the packed weights (the J.v of a
+// Levenberg-Marquardt step, which the JAX package takes by XLA autodiff of
+// its plan), the forward's recurrences on dual numbers.  It is reached as the
+// backward of the backward: the VJP of g -> J^T g is J.v.
+//
 // What bounds it on an H100: latency and occupancy, not FMAs or bytes.  At
 // a 64-wide chain and 65,537 points the forward is 2.75 G FMAs and the
 // backward about three times that: 0.1 and 0.3 ms at the card's f32 FMA
@@ -162,13 +168,29 @@ __device__ void init_state(const Plan& p, float* buf,
   }
 }
 
+// The activation of one (feature, point) column of a state, every stream
+// (stride TILE_POINTS), from `in` into `out` (which may be `in`), with the
+// derivatives `d` of s at V.
+__device__ __forceinline__ void act_element(const Plan& p, const float* d,
+                                            const float* in, float* out) {
+  const int F = p.n_first;
+  for (int q = 0; q < p.n_pairs; ++q) {
+    const float ta = in[(1 + p.pairs[2 * q]) * TILE_POINTS];
+    const float tb = in[(1 + p.pairs[2 * q + 1]) * TILE_POINTS];
+    const int o = (1 + F + q) * TILE_POINTS;
+    out[o] = fmaf(d[2] * ta, tb, d[1] * in[o]);
+  }
+  for (int i = 0; i < F; ++i)
+    out[(1 + i) * TILE_POINTS] = d[1] * in[(1 + i) * TILE_POINTS];
+  out[0] = d[0];
+}
+
 // The activation of features [0, width) of a state read from `src` (feature
 // stride src_ld) into `dst` (feature stride dst_ld); src may be dst.  With
 // `save`, the input state is copied there too (feature stride p.rows).
 __device__ void act_columns(const Plan& p, int width, int kind,
                             const float* src, int src_ld, float* dst,
                             int dst_ld, float* save) {
-  const int F = p.n_first;
   for (int idx = threadIdx.x; idx < width * TILE_POINTS; idx += THREADS) {
     const int j = idx / TILE_POINTS, m = idx - j * TILE_POINTS;
     const float* in = src + j * src_ld + m;
@@ -180,24 +202,51 @@ __device__ void act_columns(const Plan& p, int width, int kind,
     }
     float d[4];
     sigma_derivs(kind, in[0], d);
+    act_element(p, d, in, out);
+  }
+}
+
+// The activation on dual numbers, in place on the primal state `buf` and its
+// tangent `tbuf` (feature stride p.ld): with a dot for the tangent,
+//   V' = s'V.
+//   T' = s''V.T + s'T.
+//   S_ab' = s'''V.T_aT_b + s''(T_a.T_b + T_aT_b. + V.S_ab) + s'S_ab.
+// then the primal update.  Each thread reads only its own column.
+__device__ void act_dual(const Plan& p, int width, int kind, float* buf,
+                         float* tbuf) {
+  const int F = p.n_first;
+  for (int idx = threadIdx.x; idx < width * TILE_POINTS; idx += THREADS) {
+    const int j = idx / TILE_POINTS, m = idx - j * TILE_POINTS;
+    float* in = buf + j * p.ld + m;
+    float* tin = tbuf + j * p.ld + m;
+    float d[4];
+    sigma_derivs(kind, in[0], d);
+    const float vd = tin[0];
     for (int q = 0; q < p.n_pairs; ++q) {
-      const float ta = in[(1 + p.pairs[2 * q]) * TILE_POINTS];
-      const float tb = in[(1 + p.pairs[2 * q + 1]) * TILE_POINTS];
+      const int a = (1 + p.pairs[2 * q]) * TILE_POINTS;
+      const int b = (1 + p.pairs[2 * q + 1]) * TILE_POINTS;
       const int o = (1 + F + q) * TILE_POINTS;
-      out[o] = fmaf(d[2] * ta, tb, d[1] * in[o]);
+      const float mixed = tin[a] * in[b] + in[a] * tin[b] + vd * in[o];
+      tin[o] = d[3] * vd * in[a] * in[b] + d[2] * mixed + d[1] * tin[o];
     }
-    for (int i = 0; i < F; ++i)
-      out[(1 + i) * TILE_POINTS] = d[1] * in[(1 + i) * TILE_POINTS];
-    out[0] = d[0];
+    for (int i = 0; i < F; ++i) {
+      const int t = (1 + i) * TILE_POINTS;
+      tin[t] = d[2] * vd * in[t] + d[1] * tin[t];
+    }
+    tin[0] = d[1] * vd;
+    act_element(p, d, in, in);
   }
 }
 
 // out[c][r] = sum_{t < T} in[t][r] * wm[c * cs + t * ts] for c < C and
-// r < rows, plus bias[c] on the V rows when `bias` is given.  A thread owns
-// rows r0..r0+3 and the columns cg, cg + ncg, cg + 2 ncg, cg + 3 ncg.
+// r < rows, plus bias[c] on the V rows when `bias` is given, plus what `out`
+// held before with `accumulate`.  A thread owns rows r0..r0+3 and the
+// columns cg, cg + ncg, cg + 2 ncg, cg + 3 ncg, the same in every call of
+// the same (rows, C): a call that accumulates onto another's output needs no
+// barrier between them.
 __device__ void product(const float* in, float* out, int ld, int rows, int T,
                         int C, const float* wm, int cs, int ts,
-                        const float* bias) {
+                        const float* bias, bool accumulate = false) {
   const int nrg = rows / 4, ncg = (C + 3) / 4;
   for (int item = threadIdx.x; item < nrg * ncg; item += THREADS) {
     const int cg = item / nrg, r0 = 4 * (item - cg * nrg);
@@ -232,7 +281,15 @@ __device__ void product(const float* in, float* out, int ld, int rows, int T,
         o.z += b;
         o.w += b;
       }
-      *reinterpret_cast<float4*>(out + c * ld + r0) = o;
+      float4* dst = reinterpret_cast<float4*>(out + c * ld + r0);
+      if (accumulate) {
+        const float4 prev = *dst;
+        o.x += prev.x;
+        o.y += prev.y;
+        o.z += prev.z;
+        o.w += prev.w;
+      }
+      *dst = o;
     }
   }
 }
@@ -405,6 +462,63 @@ taylor_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
   }
 }
 
+// The traversal and its tangent for a tangent `v_glob` of the packed weights
+// (the same layout): the forward's recurrences on dual numbers.  A dense
+// layer maps the tangent to tin.W + in.Wv (+ bv on V), an activation as
+// act_dual.  The tile design is the forward's; the block holds the weights
+// and their tangent, and two state buffers each for the primal and the
+// tangent.  Three products per dense layer: about three times the forward's
+// FMAs.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS_PER_SM)
+taylor_jvp_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
+                  const float* __restrict__ v_glob, const int* __restrict__ tab,
+                  float* __restrict__ out, float* __restrict__ tout, int n,
+                  int P, int out_dim) {
+  extern __shared__ float4 smem4[];
+  float* w = reinterpret_cast<float*>(smem4);
+  float* wv = w + weights_floats(P);
+  const Plan p = read_plan(tab);
+  float* buf[2];
+  float* tbuf[2];
+  buf[0] = wv + weights_floats(P);
+  buf[1] = buf[0] + p.wmax * p.ld;
+  tbuf[0] = buf[1] + p.wmax * p.ld;
+  tbuf[1] = tbuf[0] + p.wmax * p.ld;
+  load_weights_async(w, w_glob, P);
+  load_weights_async(wv, v_glob, P);
+  const int tiles = (n + TILE_POINTS - 1) / TILE_POINTS;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    init_state(p, buf[0], x, n, tile);
+    for (int idx = threadIdx.x; idx < p.in_dim * p.rows; idx += THREADS) {
+      const int k = idx / p.rows;
+      tbuf[0][k * p.ld + idx - k * p.rows] = 0.f;
+    }
+    wait_weights();
+    __syncthreads();
+    int cur = 0, width = p.in_dim;
+    for (int o = 0; o < p.n_ops; ++o) {
+      const int* op = p.ops + o * OP_INTS;
+      if (op[0] == 0) {
+        const int K = op[1], N = op[2];
+        product(tbuf[cur], tbuf[1 - cur], p.ld, p.rows, K, N, w + op[3], 1, N,
+                wv + op[4]);
+        product(buf[cur], tbuf[1 - cur], p.ld, p.rows, K, N, wv + op[3], 1, N,
+                nullptr, true);
+        product(buf[cur], buf[1 - cur], p.ld, p.rows, K, N, w + op[3], 1, N,
+                w + op[4]);
+        cur = 1 - cur;
+        width = N;
+      } else {
+        act_dual(p, width, op[2], buf[cur], tbuf[cur]);
+      }
+      __syncthreads();
+    }
+    store_streams(p, buf[cur], out, n, tile, out_dim);
+    store_streams(p, tbuf[cur], tout, n, tile, out_dim);
+    __syncthreads();
+  }
+}
+
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS_PER_SM)
 taylor_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
                   const int* __restrict__ tab, const float* __restrict__ g,
@@ -507,6 +621,12 @@ size_t taylor_smem_bytes(int P, int n_streams, int wmax, int n_bufs) {
   return sizeof(float) * ((size_t)weights_floats(P) + (size_t)n_bufs * wmax * ld);
 }
 
+// The tangent kernel's block: the weights twice and four state buffers.
+size_t taylor_jvp_smem_bytes(int P, int n_streams, int wmax) {
+  return taylor_smem_bytes(P, n_streams, wmax, 4) +
+         sizeof(float) * (size_t)weights_floats(P);
+}
+
 cudaError_t allow_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -529,6 +649,20 @@ int pdt_taylor_forward(const float* x, const float* w, const int* tab,
   if (err != cudaSuccess) return (int)err;
   taylor_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       x, w, tab, out, n, P, out_dim);
+  return (int)cudaGetLastError();
+}
+
+// x (n, in_dim), w and v (P,), tab, out and tout (n, n_streams*out_dim);
+// `grid` persistent blocks.
+int pdt_taylor_jvp(const float* x, const float* w, const float* v,
+                   const int* tab, float* out, float* tout, int n, int P,
+                   int n_streams, int wmax, int out_dim, int grid,
+                   void* stream) {
+  const size_t smem = taylor_jvp_smem_bytes(P, n_streams, wmax);
+  cudaError_t err = allow_smem((const void*)taylor_jvp_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  taylor_jvp_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      x, w, v, tab, out, tout, n, P, out_dim);
   return (int)cudaGetLastError();
 }
 

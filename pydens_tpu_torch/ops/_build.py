@@ -37,6 +37,7 @@ _SIGNATURES = {
     "pdt_taylor_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "pdt_taylor_backward": [_P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P],
+    "pdt_taylor_jvp": [_P] * 6 + [_I] * 6 + [_P],
     "pdt_mlp_blocks_per_sm": [_I] * 5,
     "pdt_mlp_forward": [_P, _P, _P, _P] + [_I] * 8 + [_P],
 }

@@ -14,7 +14,13 @@ Poisson-type residual in one traversal.
   keeps a ``launches`` counter of kernel launches.
 * :func:`fused_taylor_forward_plain` is the same traversal in torch ops;
   :func:`fused_taylor_backward_plain` is its autograd VJP.
-* :class:`FusedTaylor` binds the two into one ``torch.autograd.Function``.
+* :func:`fused_taylor_jvp` launches the tangent kernel (the traversal and
+  its tangent with respect to the packed weights) for CUDA tensors;
+  :func:`fused_taylor_jvp_plain` is ``torch.func.jvp`` of the plain forward.
+* :class:`FusedTaylor` binds them into one ``torch.autograd.Function``
+  whose backward is differentiable once more with respect to its cotangent:
+  the VJP of ``g -> J^T g`` is ``J v``, the tangent kernel.  That is how a
+  Levenberg-Marquardt step takes ``J v`` of the residual through the plan.
 
 The chain reaches the kernels as an int32 op table plus ONE packed weight
 buffer (each layer's ``w`` row-major, then its ``b``), so one compiled
@@ -33,7 +39,8 @@ from ._build import (MAX_SHARED_BYTES, check_operand, launch_checked,
 __all__ = ["supports", "TaylorPlan", "FusedTaylor", "fused_taylor_taps",
            "fused_taylor_forward", "fused_taylor_forward_plain",
            "fused_taylor_backward", "fused_taylor_backward_plain",
-           "pack_weights", "split_streams", "act_kind", "sigma_table"]
+           "fused_taylor_jvp", "fused_taylor_jvp_plain", "pack_weights",
+           "split_streams", "act_kind", "sigma_table"]
 
 TANH, SIGMOID, SIN = 0, 1, 2
 _ACT_KINDS = {id(ACTIVATIONS["tanh"]): TANH,
@@ -79,13 +86,19 @@ def pack_weights(net_params, layer_names):
                       for t in (net_params[name]["w"], net_params[name]["b"])])
 
 
-def _taylor_smem_bytes(n_params, n_streams, wmax, n_bufs):
-    """Shared memory of one block: the packed weights (rounded up to 16
-    bytes) and ``n_bufs`` tile states of ``wmax`` features x
-    ``n_streams * TILE_POINTS`` rows (2 in the forward, 3 in the
-    backward) — ``taylor_smem_bytes`` of the CUDA source."""
+def _taylor_smem_bytes(n_params, n_streams, wmax, n_bufs, weight_sets=1):
+    """Shared memory of one block: ``weight_sets`` copies of the packed
+    weights (each rounded up to 16 bytes) and ``n_bufs`` tile states of
+    ``wmax`` features x ``n_streams * TILE_POINTS`` rows (the forward 1 and
+    2, the backward 1 and 3, the tangent kernel 2 and 4) —
+    ``taylor_smem_bytes`` and ``taylor_jvp_smem_bytes`` of the CUDA
+    source."""
     ld = n_streams * _TILE_POINTS + _ROW_PAD
-    return 4 * (-(-n_params // 4) * 4 + n_bufs * wmax * ld)
+    return 4 * (weight_sets * -(-n_params // 4) * 4 + n_bufs * wmax * ld)
+
+
+# (n_bufs, weight_sets) of the tangent kernel's block.
+_JVP_SMEM = (4, 2)
 
 
 def _chain_ops(tokens, acts, layer_shapes):
@@ -104,11 +117,12 @@ def _chain_ops(tokens, acts, layer_shapes):
 
 
 def supports(tokens, acts, closure, layer_shapes, in_dim,
-             dtype=torch.float32):
+             dtype=torch.float32, tangent=False):
     """Whether the fused kernels cover this (layout, plan): a dense chain
     (no skips), activations with closed-form derivatives (tanh, sigmoid,
     sin), derivative multi-indices of order <= 2, float32, and a state
-    that fits one block's shared memory."""
+    that fits one block's shared memory — with ``tangent``, the tangent
+    kernel's block too."""
     if dtype != torch.float32 or not closure:
         return False
     if any(t not in ("f", "c", "a") for t in tokens):
@@ -120,6 +134,9 @@ def supports(tokens, acts, closure, layer_shapes, in_dim,
     n_streams = 1 + len(closure)
     wmax = max([in_dim] + [n for _, n in layer_shapes])
     n_params = sum(k * n + n for k, n in layer_shapes)
+    if tangent and _taylor_smem_bytes(n_params, n_streams, wmax,
+                                      *_JVP_SMEM) > MAX_SHARED_BYTES:
+        return False
     return _taylor_smem_bytes(n_params, n_streams, wmax, 3) <= MAX_SHARED_BYTES
 
 
@@ -164,18 +181,20 @@ class TaylorPlan:
         for a, b in self.pairs:
             table += [pos[a], pos[b]]
         self.table = table + records
+        self.tangent_ok = self.smem_bytes(*_JVP_SMEM) <= MAX_SHARED_BYTES
         self._device_tables = {}
 
-    def smem_bytes(self, n_bufs):
+    def smem_bytes(self, n_bufs, weight_sets=1):
         return _taylor_smem_bytes(self.n_params, self.n_streams, self.wmax,
-                                  n_bufs)
+                                  n_bufs, weight_sets)
 
-    def launch_shape(self, n, sm_count, n_bufs):
+    def launch_shape(self, n, sm_count, n_bufs, weight_sets=1):
         """``(grid, slots)`` of a launch over ``n`` points: ``slots``
         persistent blocks fit the card at once (``MIN_BLOCKS_PER_SM`` per
         SM where shared memory allows, else one), and the grid is the
         smaller of that and the number of tiles."""
-        per_block = self.smem_bytes(n_bufs) + _BLOCK_RESERVED_BYTES
+        per_block = (self.smem_bytes(n_bufs, weight_sets)
+                     + _BLOCK_RESERVED_BYTES)
         per_sm = (_BLOCKS_PER_SM
                   if _BLOCKS_PER_SM * per_block <= _SM_SHARED_BYTES else 1)
         slots = sm_count * per_sm
@@ -317,9 +336,63 @@ def fused_taylor_backward_plain(packed, x, g, plan):
     return d_packed, dx
 
 
+def fused_taylor_jvp(packed, x, v, plan):
+    """``(streams, tangent)``: the streams of :func:`fused_taylor_forward`
+    and their tangent for the tangent ``v`` of ``packed`` (same layout), each
+    ``(n, n_streams * out_dim)``: the CUDA tangent kernel for CUDA tensors,
+    the plain version for CPU tensors.  A plan whose tangent block does not
+    fit shared memory raises (``TaylorPlan.tangent_ok``)."""
+    if x.device.type == "cpu":
+        return fused_taylor_jvp_plain(packed, x, v, plan)
+    n = _check_kernel_args(packed, x, plan)
+    check_operand("v", v, (plan.n_params,))
+    if not plan.tangent_ok:
+        raise ValueError(
+            "fused Taylor tangent kernel: the chain's weights, their tangent "
+            f"and four tile states need {plan.smem_bytes(*_JVP_SMEM)} bytes "
+            f"of shared memory, more than a block has ({MAX_SHARED_BYTES})")
+    shape = (n, plan.n_streams * plan.out_dim)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    tangent = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if n == 0:
+        return out, tangent
+    lib = _lib()
+    grid, _ = plan.launch_shape(n, _sm_count(x.device), *_JVP_SMEM)
+    err = lib.pdt_taylor_jvp(
+        x.data_ptr(), packed.data_ptr(), v.data_ptr(),
+        plan.device_table(x.device).data_ptr(), out.data_ptr(),
+        tangent.data_ptr(), n, plan.n_params, plan.n_streams, plan.wmax,
+        plan.out_dim, grid, torch.cuda.current_stream(x.device).cuda_stream)
+    launch_checked("pdt_taylor_jvp", err)
+    fused_taylor_jvp.launches += 1
+    return out, tangent
+
+
+fused_taylor_jvp.launches = 0
+
+
+def fused_taylor_jvp_plain(packed, x, v, plan):
+    """``torch.func.jvp`` of :func:`fused_taylor_forward_plain` with
+    respect to ``packed``."""
+    x = x.detach()
+    return torch.func.jvp(
+        lambda p: fused_taylor_forward_plain(p, x, plan),
+        (packed.detach(),), (v.detach(),))
+
+
+def _second_order_needed(ctx, i):
+    """Whether the running backward pass will use the gradient of input
+    ``i`` of the node ``ctx`` (an input that requires grad may still lie
+    off the path to what ``torch.autograd.grad`` was asked for)."""
+    node = ctx.next_functions[i][0]
+    return node is not None and torch._C._will_engine_execute_node(node)
+
+
 class FusedTaylor(torch.autograd.Function):
     """The fused traversal as a differentiable op: forward and backward
-    each run :func:`fused_taylor_forward` / :func:`fused_taylor_backward`."""
+    each run :func:`fused_taylor_forward` / :func:`fused_taylor_backward`,
+    and the backward is itself differentiable with respect to its
+    cotangent (:class:`_FusedTaylorAdjoint`)."""
 
     @staticmethod
     def forward(ctx, packed, x, plan):
@@ -328,12 +401,49 @@ class FusedTaylor(torch.autograd.Function):
         return fused_taylor_forward(packed, x, plan)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         packed, x = ctx.saved_tensors
-        d_packed, dx = fused_taylor_backward(packed, x, g.contiguous(),
-                                             ctx.plan)
+        # Views, so that the adjoint's inputs are never leaves: the engine
+        # can tell whether it runs a non-leaf node under autograd.grad.
+        d_packed, dx = _FusedTaylorAdjoint.apply(
+            packed.view_as(packed), x.view_as(x), g.contiguous(), ctx.plan)
         return d_packed, (dx if ctx.needs_input_grad[1] else None), None
+
+
+class _FusedTaylorAdjoint(torch.autograd.Function):
+    """``(d packed, d x) = J^T g`` of the traversal, linear in ``g``.  Its
+    own backward takes the cotangent ``v`` of ``d packed`` to ``J v`` by
+    the tangent kernel (:func:`fused_taylor_jvp`); the derivatives it does
+    not compute — with respect to the weights and the points (third-order
+    terms of the traversal), and ``J_x`` of a cotangent of ``d x`` — raise
+    when a backward pass needs them, and it is not differentiable again."""
+
+    @staticmethod
+    def forward(ctx, packed, x, g, plan):
+        ctx.save_for_backward(packed, x)
+        ctx.plan = plan
+        ctx.set_materialize_grads(False)
+        return fused_taylor_backward(packed, x, g, plan)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, v_packed, v_x):
+        for i, name in ((0, "the packed weights"), (1, "the points")):
+            if ctx.needs_input_grad[i] and _second_order_needed(ctx, i):
+                raise NotImplementedError(
+                    "the fused Taylor op has no second derivative with "
+                    f"respect to {name}; only J.v of its adjoint (the "
+                    "cotangent's direction) is implemented")
+        if v_x is not None:
+            raise NotImplementedError(
+                "the fused Taylor op has no tangent with respect to its "
+                "points: J.v takes the weights' direction only")
+        if v_packed is None or not ctx.needs_input_grad[2]:
+            return None, None, None, None
+        packed, x = ctx.saved_tensors
+        _, tangent = fused_taylor_jvp(packed, x, v_packed.contiguous(),
+                                      ctx.plan)
+        return None, None, tangent, None
 
 
 def split_streams(out, plan):

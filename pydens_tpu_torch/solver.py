@@ -42,7 +42,7 @@ from .models.base import resolve_device
 from .ops.tokens import (Expr, EvalContext, _batch_diagonal_grad,
                          as_array, as_device, staging, variable_scope)
 from .utils.criteria import resolve_criterion
-from .utils.optimizers import resolve_optimizer
+from .utils.optimizers import LBFGS, LMConfig, resolve_optimizer
 
 __all__ = ["Solver"]
 
@@ -138,7 +138,12 @@ class _FitStep:
     a CUDA graph, and every step from then on replays it.  Host values the
     step reads are staged on the device by the warm-up
     (:func:`~pydens_tpu_torch.ops.tokens.staging`).  A capture that fails
-    raises with its first error and the site; nothing falls back."""
+    raises with its first error and the site; nothing falls back.
+
+    With :class:`~pydens_tpu_torch.utils.optimizers.LMConfig` a step is one
+    Levenberg-Marquardt update of the residual vector (``loss_fn.resvec``),
+    its conjugate-gradient loop a fixed trip count in the graph; ``live``
+    sums the live CG iterations on the device."""
 
     def __init__(self, loss_fn, opt, mask, theta, chunk, batch_size,
                  resample, guard, capture):
@@ -158,32 +163,46 @@ class _FitStep:
         self.points = torch.zeros((chunk if resample else 1, batch_size,
                                    total), dtype=dtype, device=dev)
         self.losses = torch.zeros((chunk,), dtype=dtype, device=dev)
+        self.live = torch.zeros((), dtype=torch.int64, device=dev)
         self.capture = capture
         self.graph = None
         self.constants = {}
         self.eager_steps = 0     # steps run eagerly (the warm-up, or all)
         self.replays = 0         # steps run as replays of the graph
 
-    def step(self):
-        """One training step; reads and writes only the buffers above."""
+    def _points_row(self):
         if self.resample:
-            pts = self.points.index_select(0, self.index)[0]
-        else:
-            pts = self.points[0]
-        loss = self.loss_fn(self.theta, pts)
-        grad, = torch.autograd.grad(loss, self.theta)
-        if self.mask is not None:
-            grad = grad * self.mask
-        loss = loss.detach()
-        # The update of the iteration that trips the guard is kept; every
-        # later one is a no-op.
-        self.opt.update(self.theta, grad, self.state, gate=self.armed)
+            return self.points.index_select(0, self.index)[0]
+        return self.points[0]
+
+    def _record(self, loss):
+        """The guard's flag, the loss slot and the index after a step whose
+        loss at the start was ``loss``."""
         if self.armed is not None:
             # tol < loss < inf: finite and above tol, in fewer device ops
             # than isfinite's four.
             self.armed.logical_and_((loss > self.tol) & (loss < np.inf))
         self.losses.index_copy_(0, self.index, loss)
         self.index.add_(1)
+
+    def step(self):
+        """One training step; reads and writes only the buffers above.  The
+        update of the iteration that trips the guard is kept; every later
+        one is a no-op."""
+        pts = self._points_row()
+        if isinstance(self.opt, LMConfig):
+            loss, live = self.opt.update(
+                self.theta, lambda th: self.loss_fn.resvec(th, pts),
+                self.state, mask=self.mask, gate=self.armed)
+            self.live.add_(live)
+        else:
+            loss = self.loss_fn(self.theta, pts)
+            grad, = torch.autograd.grad(loss, self.theta)
+            if self.mask is not None:
+                grad = grad * self.mask
+            loss = loss.detach()
+            self.opt.update(self.theta, grad, self.state, gate=self.armed)
+        self._record(loss)
 
     def run(self, n):
         """Take ``n`` steps from the device index 0.  If one raises (a
@@ -194,40 +213,41 @@ class _FitStep:
         self.index.zero_()
         try:
             for _ in range(n):
-                if not self.capture:
-                    self.step()
-                    self.eager_steps += 1
-                elif self.graph is not None:
-                    self.graph.replay()
-                    self.replays += 1
-                elif not self.eager_steps:
-                    self._warm_up()
-                    self.eager_steps += 1
-                else:
-                    self._capture()
-                    self.graph.replay()
-                    self.replays += 1
+                self._one_step()
         except BaseException:
             with torch.no_grad():
                 for dst, src in zip(buffers, saved):
                     dst.copy_(src)
             raise
 
-    def _warm_up(self):
+    def _one_step(self):
+        if not self.capture:
+            self.step()
+            self.eager_steps += 1
+        elif not self.eager_steps:
+            self._warm_up(self.step)
+            self.eager_steps += 1
+        else:
+            if self.graph is None:
+                self.graph = self._capture(self.step)
+            self.graph.replay()
+            self.replays += 1
+
+    def _warm_up(self, fn):
         dev = self.theta.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with staging(self.constants), torch.cuda.stream(side):
-            self.step()
+            fn()
         torch.cuda.current_stream(dev).wait_stream(side)
 
-    def _capture(self):
-        # Capture records the step without running it: theta, the state
-        # and the index move only when the graph is replayed.
+    def _capture(self, fn):
+        # Capture records fn without running it: theta, the state and the
+        # index move only when the graph is replayed.
         graph = torch.cuda.CUDAGraph()
         try:
             with staging(self.constants), torch.cuda.graph(graph):
-                self.step()
+                fn()
         except RuntimeError as err:
             first, site = _capture_error(err)
             raise RuntimeError(
@@ -235,7 +255,86 @@ class _FitStep:
                 f"{first}. A step must not read a device value on the host "
                 "(.item(), float(), .tolist(), a Python `if` on a tensor), "
                 "e.g. in an equation, a condition or an lr schedule") from err
-        self.graph = graph
+        return graph
+
+
+class _LinesearchFitStep(_FitStep):
+    """The L-BFGS step (:class:`~pydens_tpu_torch.utils.optimizers.LBFGS`):
+    the value and gradient at ``theta``, the direction and the first
+    linesearch trial (:meth:`step`), then one trial at a time
+    (:meth:`trial`) while the linesearch's ``active`` flag, which the host
+    reads after each, holds.  On the card each of the two is a captured
+    graph (``graph`` and ``trial_graph``); the configuration's first step
+    and its trials run eagerly as the warm-up.  Every trial evaluates the
+    loss and its gradient on the step's points (``step_points``); ``live``
+    sums the trials on the device.
+
+    ``masked`` puts every trial a step may take (``max_linesearch_steps``,
+    each a no-op once the search has ended) into the one step graph, which
+    then needs no host read (the design timed against this one)."""
+
+    def __init__(self, *args, masked=False):
+        super().__init__(*args)
+        self.ls = self.opt.scratch(self.theta.detach())
+        self.step_points = torch.zeros_like(self.points[0])
+        self.masked = masked
+        self.trial_graph = None
+        self.eager_trials = 0    # trials after a step's first, run eagerly
+        self.trial_replays = 0   # and as replays of the trial graph
+
+    def _value_and_grad(self, point):
+        point = point.detach().requires_grad_(True)
+        loss = self.loss_fn(point, self.step_points)
+        grad, = torch.autograd.grad(loss, point)
+        return loss.detach(), grad
+
+    def trial(self):
+        was = self.opt.trial(self.theta, self.state, self.ls,
+                             self._value_and_grad)
+        self.live.add_(was.to(torch.int64))
+
+    def step(self):
+        with torch.no_grad():
+            self.step_points.copy_(self._points_row())
+        loss = self.loss_fn(self.theta, self.step_points)
+        grad, = torch.autograd.grad(loss, self.theta)
+        if self.mask is not None:
+            grad = grad * self.mask
+        loss = loss.detach()
+        self.opt.begin(self.theta.detach(), loss, grad, self.state, self.ls,
+                       gate=self.armed)
+        trials = (self.opt.linesearch.max_linesearch_steps if self.masked
+                  else 1)
+        for _ in range(trials):
+            self.trial()
+        self._record(loss)
+
+    def _eager_step(self):
+        self.step()
+        while bool(self.ls["active"]):
+            self.trial()
+            self.eager_trials += 1
+
+    def _one_step(self):
+        if self.masked:
+            return super()._one_step()
+        if not self.capture:
+            self._eager_step()
+            self.eager_steps += 1
+            return
+        if not self.eager_steps:
+            self._warm_up(self._eager_step)
+            self.eager_steps += 1
+            return
+        if self.graph is None:
+            self.graph = self._capture(self.step)
+        self.graph.replay()
+        self.replays += 1
+        while bool(self.ls["active"]):   # the one host read of a trial
+            if self.trial_graph is None:
+                self.trial_graph = self._capture(self.trial)
+            self.trial_graph.replay()
+            self.trial_replays += 1
 
 
 def _is_number(x):
@@ -327,11 +426,23 @@ class Solver:
     # False runs every step on the card eagerly, for comparisons with the
     # captured graph only: no fit argument reaches it.
     _capture_steps = True
+    # True captures every linesearch trial an L-BFGS step may take in its
+    # graph, for the comparison of the two designs only (_LinesearchFitStep).
+    _masked_linesearch = False
 
     def __init__(self, equation, ndims, initial_condition=None,
                  boundary_condition=None, domain=(0, 1), nparams=0,
                  model=ConvBlockModel, constraints=None, seed=0, device=None,
-                 **kwargs):
+                 mesh=None, n_models=1, formulation="residual", **kwargs):
+        # pydens_tpu's defaults are taken; any other value is a feature of
+        # a later slice (ROADMAP.md Queue 1 item).
+        for name, value, default, item in (
+                ("formulation", formulation, "residual", 10),
+                ("n_models", n_models, 1, 11), ("mesh", mesh, None, 15)):
+            if value is not default and value != default:
+                raise NotImplementedError(
+                    f"Solver({name}={value!r}) is not ported to "
+                    f"pydens_tpu_torch yet (ROADMAP.md, Queue 1 item {item})")
         self.equation = equation
         if constraints is None:
             self.constraints = ()
@@ -582,14 +693,16 @@ class Solver:
         plan_derivs = self._plan_derivs if use_plan else None
         leaf_grad = plan_derivs is None or bool(nums)
 
-        def loss_fn(theta, pts):
+        def term_values(theta, pts):
+            """The equation's residuals (None without an equation term) and
+            the requested constraints' values at ``theta``."""
             params = spec.unflatten(theta)
             if leaf_grad:
                 leaves = [pts[:, k:k + 1].detach().requires_grad_(True)
                           for k in range(total)]
             else:
                 leaves = [pts[:, k:k + 1] for k in range(total)]
-            terms = []
+            residuals, values = None, []
             with variable_scope("read", params["variables"]):
                 table = (model.full_taps(params, pts, plan_derivs)
                          if plan_derivs is not None else None)
@@ -599,17 +712,25 @@ class Solver:
                 coords = [Expr(_leaf_fn(ctx, k), ctx, leaf_index=k)
                           for k in range(total)]
                 if eq_weight is not None:
-                    acc = theta.new_zeros(())
-                    for res in _as_residual_list(equation(f, *coords)):
-                        acc = acc + criterion(as_array(res),
-                                              torch.zeros_like(leaves[0]))
-                    terms.append(acc)
+                    residuals = [as_array(res) for res in
+                                 _as_residual_list(equation(f, *coords))]
                 if nums:
                     fwd = self._make_forward(params, ctx)
-                    zero = theta.new_zeros((1,))
-                    for num, _ in nums:
-                        c = as_array(constraints[num](fwd, *coords))
-                        terms.append(criterion(c, zero))
+                    values = [as_array(constraints[num](fwd, *coords))
+                              for num, _ in nums]
+            return residuals, values, leaves[0]
+
+        def loss_fn(theta, pts):
+            residuals, values, leaf = term_values(theta, pts)
+            terms = []
+            if residuals is not None:
+                acc = theta.new_zeros(())
+                for res in residuals:
+                    acc = acc + criterion(res, torch.zeros_like(leaf))
+                terms.append(acc)
+            if values:
+                zero = theta.new_zeros((1,))
+                terms += [criterion(c, zero) for c in values]
             if not terms:   # only unknown names: a zero loss
                 return theta[:0].sum()
             loss = theta.new_zeros(())
@@ -617,8 +738,23 @@ class Solver:
                 loss = loss + w * t
             return loss
 
+        def resvec(theta, pts):
+            """The stacked residual vector ``r`` with ``loss_fn == r . r``
+            for the MSE criterion: each block flattened and scaled by
+            ``sqrt(weight / size)`` (``resvec_fn`` of
+            ``pydens_tpu/solver.py``), for Levenberg-Marquardt."""
+            residuals, values, _ = term_values(theta, pts)
+            blocks = [res.reshape(-1) * (eq_weight / res.numel()) ** 0.5
+                      for res in residuals or ()]
+            blocks += [c.reshape(-1) * (w / c.numel()) ** 0.5
+                       for c, (_, w) in zip(values, nums)]
+            if not blocks:
+                return theta.new_zeros((1,))
+            return torch.cat(blocks)
+
         loss_fn.spec = spec
         loss_fn.total = total
+        loss_fn.resvec = resvec
         return loss_fn
 
     def _sample(self, sampler, n, batch_size):
@@ -670,10 +806,13 @@ class Solver:
         ``{term: weight}`` dict; ``optimizer`` is a torch-style name
         (``'Adam'``, ``'AdamW'``, ``'Adamax'``, ``'NAdam'``, ``'RAdam'``,
         ``'SGD'``, ``'RMSprop'``, ``'Adagrad'``, ``'Adadelta'``,
-        ``'Lion'``), an optimizer object, a factory ``f(learning_rate=lr,
-        **kwargs)``, or ``None`` to reuse the previous fit's optimizer and
-        its state; extra kwargs go to the optimizer (``betas``, ``eps``,
-        ``momentum``, ``weight_decay``, ...).  ``lr`` is a float or a
+        ``'Lion'``; the finishers ``'LBFGS'``, with a zoom linesearch, and
+        ``'LM'`` / ``'GaussNewton'``, matrix-free Levenberg-Marquardt on the
+        residual vector, MSE criterion only), an optimizer object, a factory
+        ``f(learning_rate=lr, **kwargs)``, or ``None`` to reuse the previous
+        fit's optimizer and its state; extra kwargs go to the optimizer
+        (``betas``, ``eps``, ``momentum``, ``weight_decay``, ``memory_size``,
+        ``cg_iters``, ...).  ``lr`` is a float or a
         schedule of :mod:`pydens_tpu_torch.utils.schedules` (any function
         of the 0-d device step count written in torch ops).  ``criterion``
         is a name, a torch criterion instance or a callable.
@@ -730,7 +869,7 @@ class Solver:
         if losses is not None:
             loss_terms = losses
         loss_terms = _normalize_loss_terms(loss_terms)
-        criterion_fn, _ = resolve_criterion(criterion)
+        criterion_fn, criterion_key = resolve_criterion(criterion)
         fresh_optimizer = optimizer is not None
         if fresh_optimizer:
             # One instance per (optimizer, lr, kwargs), as the JAX package
@@ -755,6 +894,8 @@ class Solver:
                 "'auto' or True/'always' (Taylor plan when valid), or "
                 "False/'never' (nested gradients)")
         use_plan = bool(self._plan_ok) and fast_taps not in (False, "never")
+        if isinstance(self._opt, LMConfig):
+            self._check_lm(criterion_key, use_plan)
         batch_size = int(batch_size)
         chunk = max(1, min(niters, int(chunk_size)))
         step = self._fit_step(loss_terms, criterion_fn, use_plan, batch_size,
@@ -884,6 +1025,25 @@ class Solver:
             self.history[-1]["converged_at"] = int(converged_at)
         return self
 
+    def _check_lm(self, criterion_key, use_plan):
+        """Levenberg-Marquardt's conditions (``pydens_tpu``'s ``fit``): the
+        MSE criterion, so that ``loss == |r|^2``; on the plan path through
+        the fused Taylor op, a chain whose tangent kernel fits a block."""
+        if (isinstance(criterion_key, str)
+                and criterion_key not in ("mseloss", "mse")):
+            raise ValueError(
+                "optimizer='LM' (Gauss-Newton) is defined for the MSE "
+                "criterion (loss == ||residual||^2)")
+        if use_plan:
+            plan = self.model._fused_taylor_plan(
+                self.model.plan_closure(self._plan_derivs))
+            if plan is not None and not plan.tangent_ok:
+                raise ValueError(
+                    "optimizer='LM' takes J.v through the fused Taylor "
+                    "tangent kernel, and this chain's tangent state does "
+                    "not fit one block's shared memory; pass "
+                    "fast_taps=False for nested gradients")
+
     def _fit_step(self, loss_terms, criterion_fn, use_plan, batch_size,
                   chunk, resample, guard):
         """The cached :class:`_FitStep` of a fit configuration, built on
@@ -891,16 +1051,19 @@ class Solver:
         its float learning rate (baked into a captured graph) or its
         schedule."""
         capture = self.device.type == "cuda" and self._capture_steps
+        masked = self._masked_linesearch
         key = (loss_terms, criterion_fn, self._opt, use_plan, batch_size,
-               chunk, resample, guard, capture,
+               chunk, resample, guard, capture, masked,
                frozenset(self.model._frozen_layers),
                frozenset(self.model._frozen_variables))
         if key not in self._step_cache:
             loss_fn = self._build_loss_fn(loss_terms, criterion_fn, use_plan)
-            self._step_cache[key] = _FitStep(
-                loss_fn, self._opt, self._flat_mask(loss_fn.spec),
-                loss_fn.spec.flatten(self.model.params), chunk, batch_size,
-                resample, guard, capture)
+            args = (loss_fn, self._opt, self._flat_mask(loss_fn.spec),
+                    loss_fn.spec.flatten(self.model.params), chunk,
+                    batch_size, resample, guard, capture)
+            self._step_cache[key] = (
+                _LinesearchFitStep(*args, masked=masked)
+                if isinstance(self._opt, LBFGS) else _FitStep(*args))
         return self._step_cache[key]
 
     def _graft_pending_opt_state(self, state):

@@ -9,16 +9,24 @@ update runs inside a captured CUDA graph of the fit step.  The learning
 rate is a float or a schedule (:mod:`pydens_tpu_torch.utils.schedules`),
 evaluated at the count of updates applied before this one, as optax's
 ``scale_by_schedule`` does; the bias corrections use the count after it, as
-``scale_by_adam`` does.  L-BFGS and Levenberg-Marquardt are ROADMAP.md
-Queue 1 item 9's next slice.
+``scale_by_adam`` does.
+
+Two second-order finishers take other arguments than a gradient, so the
+Solver's fit step drives them itself: :class:`LBFGS` (``optax.lbfgs`` with
+its zoom linesearch, :mod:`pydens_tpu_torch.utils.linesearch`) re-evaluates
+the loss at trial points, and :class:`LMConfig` (matrix-free
+Levenberg-Marquardt) takes ``J v`` and ``J^T u`` of the residual vector.
 """
 
 import warnings
 
 import torch
 
+from .linesearch import ZoomLinesearch
+
 __all__ = ["Adam", "AdamW", "Adamax", "NAdam", "RAdam", "SGD", "RMSprop",
-           "Adagrad", "Adadelta", "Lion", "resolve_optimizer"]
+           "Adagrad", "Adadelta", "Lion", "LBFGS", "LMConfig", "linearize",
+           "resolve_optimizer"]
 
 
 def _bias_correction(moment, decay, count):
@@ -281,6 +289,249 @@ class Lion(_FlatOptimizer):
         return -lr * (u + self.weight_decay * theta), {"mu": mu}
 
 
+class LBFGS:
+    """``optax.lbfgs(learning_rate=None, memory_size=memory_size)`` (optax
+    0.2.6): ``scale_by_lbfgs`` with the scaled initial preconditioner
+    (``scale_init_precond=True``), then
+    ``scale(-1)``, then ``scale_by_zoom_linesearch(max_linesearch_steps=20,
+    initial_guess_strategy='one')``, on one flat vector, in place.
+
+    A step is :meth:`begin` (the two-loop recursion over ``memory_size``
+    ring buffers of parameter and gradient differences and their weights,
+    from the value and gradient at ``theta``), then :meth:`trial` until the
+    scratch's ``active`` flag is false (each trial evaluates the loss and
+    its gradient once at a trial point; at most ``max_linesearch_steps``).
+    The trial that ends the search moves ``theta`` to ``params + stepsize *
+    updates``.  ``gate`` (a 0-d bool device tensor, as in
+    :class:`_FlatOptimizer`) taken at :meth:`begin` makes the whole step a
+    no-op on ``theta`` and the state where it is False."""
+
+    def __init__(self, memory_size=10):
+        if int(memory_size) < 1:
+            raise ValueError("memory_size must be >= 1")
+        self.memory_size = int(memory_size)
+        self.linesearch = ZoomLinesearch()
+
+    def init(self, theta):
+        m = self.memory_size
+        inf = float("inf")
+        count = torch.zeros((), dtype=torch.int32, device=theta.device)
+        return {
+            "count": count,
+            "params": torch.zeros_like(theta),
+            "updates": torch.zeros_like(theta),
+            "diff_params_memory": theta.new_zeros((m,) + theta.shape),
+            "diff_updates_memory": theta.new_zeros((m,) + theta.shape),
+            "weights_memory": theta.new_zeros((m,)),
+            # scale_by_zoom_linesearch's state and its info.
+            "learning_rate": theta.new_full((), 1.0),
+            "value": theta.new_full((), inf),
+            "num_linesearch_steps": count.clone(),
+            "decrease_error": theta.new_full((), inf),
+            "curvature_error": theta.new_full((), inf),
+        }
+
+    def scratch(self, theta):
+        """Buffers of one step: the linesearch state and the step's gate."""
+        ls = self.linesearch.buffers(theta)
+        ls["gate"] = torch.ones((), dtype=torch.bool, device=theta.device)
+        return ls
+
+    @torch.no_grad()
+    def begin(self, theta, value, grad, state, ls, gate=None):
+        """``scale_by_lbfgs``'s update at ``theta`` with gradient ``grad``,
+        then the linesearch's start along ``-precond(grad)``."""
+        m = self.memory_size
+        count = state["count"]
+        if gate is None:
+            ls["gate"].fill_(True)
+        else:
+            ls["gate"].copy_(gate)
+        gate = ls["gate"]
+        started = count > 0
+        diff_params = theta - state["params"]
+        diff_updates = grad - state["updates"]
+        vdot = torch.dot(diff_updates, diff_params)
+        weight = torch.where(vdot == 0.0, 0.0, 1.0 / vdot)
+        diff_params = torch.where(started, diff_params, 0.0)
+        diff_updates = torch.where(started, diff_updates, 0.0)
+        weight = torch.where(started, weight, 0.0)
+        prev = torch.remainder(count - 1, m).to(torch.int64).reshape(1)
+        memories = {"diff_params_memory": diff_params,
+                    "diff_updates_memory": diff_updates,
+                    "weights_memory": weight}
+        new = {}
+        for name, row in memories.items():
+            new[name] = state[name].index_copy(0, prev, row.unsqueeze(0))
+        # The scaled initial preconditioner; at the first step the capped
+        # reciprocal of the gradient's norm.
+        numerator = torch.dot(diff_updates, diff_params)
+        denominator = torch.dot(diff_updates, diff_updates)
+        scale = torch.where(denominator > 0.0, numerator / denominator, 1.0)
+        capped = torch.clamp_max(1.0 / torch.sqrt(torch.dot(grad, grad)), 1.0)
+        scale = torch.where(started, scale, capped)
+        # _precondition_by_lbfgs: the two-loop recursion from memory_idx.
+        order = torch.remainder(
+            count + torch.arange(m, device=theta.device), m).to(torch.int64)
+        dws = new["diff_params_memory"].index_select(0, order)
+        dus = new["diff_updates_memory"].index_select(0, order)
+        rhos = new["weights_memory"].index_select(0, order)
+        vec, alphas = grad, [None] * m
+        for j in reversed(range(m)):
+            alphas[j] = rhos[j] * torch.dot(dws[j], vec)
+            vec = vec + -alphas[j] * dus[j]
+        vec = scale * vec
+        for j in range(m):
+            beta = rhos[j] * torch.dot(dus[j], vec)
+            vec = vec + (alphas[j] - beta) * dws[j]
+        new.update(count=count + 1, params=theta, updates=grad)
+        for name, t in new.items():
+            torch.where(gate, t, state[name], out=state[name])
+        self.linesearch.start(ls, -vec, theta, value, grad)
+
+    def trial(self, theta, state, ls, value_and_grad):
+        """One linesearch iteration; where it ends the search, ``theta``
+        moves and the linesearch's state and info are kept (under the
+        step's gate).  Returns the 0-d bool tensor that it was live."""
+        was = self.linesearch.step(ls, value_and_grad)
+        with torch.no_grad():
+            commit = was & ~ls["active"] & ls["gate"]
+            lr = ls["stepsize"]
+            torch.where(commit, ls["params"] + lr * ls["updates"], theta,
+                        out=theta)
+            for name, t in (("learning_rate", lr), ("value", ls["value"]),
+                            ("num_linesearch_steps", ls["count"]),
+                            ("decrease_error", ls["decrease_error"]),
+                            ("curvature_error", ls["curvature_error"])):
+                torch.where(commit, t, state[name], out=state[name])
+        return was
+
+
+def linearize(residual_fn, theta):
+    """``(r, J^T r, jvp, vjp)`` of ``residual_fn`` at ``theta`` (a tensor
+    that requires grad): ``jvp(v) = J v`` and ``vjp(w) = J^T w`` reuse one
+    graph of ``r`` and one of ``J^T u`` (the counterpart of
+    ``jax.linearize`` and ``jax.linear_transpose``).  ``J^T u`` is taken at
+    ``u = r`` with its graph kept; it is linear in ``u``, so its VJP with
+    respect to ``u`` is ``J v``, and through the fused Taylor op that VJP
+    is the tangent kernel (reverse over reverse: no forward mode)."""
+    with torch.enable_grad():
+        r = residual_fn(theta)
+        u = r.detach().requires_grad_(True)
+        jtu, = torch.autograd.grad(r, theta, u, create_graph=True)
+
+    def jvp(v):
+        return torch.autograd.grad(jtu, u, v, retain_graph=True)[0]
+
+    def vjp(w):
+        return torch.autograd.grad(r, theta, w, retain_graph=True)[0]
+    return r.detach(), jtu.detach(), jvp, vjp
+
+
+class LMConfig:
+    """Matrix-free Levenberg-Marquardt (damped Gauss-Newton), counterpart
+    of ``pydens_tpu/utils/optimizers.py``'s ``LMConfig`` with its checks.
+    Per step it solves
+
+        (J^T J + lambda I) d = J^T r,     theta <- theta - d  if
+                                           |r(theta - d)|^2 < |r(theta)|^2
+
+    by conjugate gradients from 0 (``J v`` and ``J^T u`` by autograd; no
+    Jacobian is formed), with Nielsen's gain-ratio damping.  The state is
+    ``{"damping": (lambda, nu)}``.  :meth:`update` runs one step."""
+
+    def __init__(self, cg_iters=50, cg_tol=1e-6, init_damping=1e-3,
+                 damping_down=1.0 / 3.0, damping_up=2.0,
+                 min_damping=1e-12, max_damping=1e12):
+        if int(cg_iters) < 1:
+            raise ValueError("cg_iters must be a positive int")
+        if not (0 < damping_down < 1 < damping_up):
+            raise ValueError("need 0 < damping_down < 1 < damping_up")
+        self.cg_iters = int(cg_iters)
+        self.cg_tol = float(cg_tol)
+        self.init_damping = float(init_damping)
+        self.damping_down = float(damping_down)
+        self.damping_up = float(damping_up)
+        self.min_damping = float(min_damping)
+        self.max_damping = float(max_damping)
+
+    def init(self, theta):
+        return {"damping": torch.tensor([self.init_damping, self.damping_up],
+                                        dtype=torch.float32,
+                                        device=theta.device)}
+
+    def update(self, theta, residual_fn, state, mask=None, gate=None):
+        """One step in place (``gn_update`` of ``pydens_tpu/solver.py``):
+        ``residual_fn(theta)`` is the residual vector ``r`` with
+        ``loss == r . r``; ``mask`` (frozen entries 0) restricts the solve
+        to the trainable subspace, on ``b`` and on both sides of the
+        matvec.  The conjugate-gradient loop is ``jax.scipy.sparse.linalg.
+        cg``'s (stop when ``r . r <= max(tol^2 b . b, 0)`` or after
+        ``cg_iters``) as a fixed trip count with a device mask that freezes
+        the iterate once the rule holds.  Returns ``(loss at theta, live
+        CG iterations)``, 0-d device tensors."""
+        r, jtr, jvp, vjp = linearize(residual_fn, theta)
+
+        def matvec(v):
+            if mask is not None:
+                v = v * mask
+            out = vjp(jvp(v))
+            if mask is not None:
+                out = out * mask
+            return out + lam * v
+
+        with torch.no_grad():
+            lam, nu = state["damping"][0], state["damping"][1]
+            loss = torch.dot(r, r)
+            b = jtr if mask is None else jtr * mask
+            x = torch.zeros_like(b)
+            res, p = b, b
+            gamma = torch.dot(res, res)
+            tol = torch.full((), self.cg_tol, dtype=b.dtype, device=b.device)
+            floor = torch.clamp_min(tol * tol * torch.dot(b, b), 0.0)
+            live_iters = torch.zeros((), dtype=torch.int32,
+                                     device=theta.device)
+        for _ in range(self.cg_iters):
+            Ap = matvec(p)
+            with torch.no_grad():
+                live = gamma > floor
+                alpha = gamma / torch.dot(p, Ap)
+                x = torch.where(live, x + alpha * p, x)
+                res_ = res - alpha * Ap
+                gamma_ = torch.dot(res_, res_)
+                p = torch.where(live, res_ + (gamma_ / gamma) * p, p)
+                res = torch.where(live, res_, res)
+                gamma = torch.where(live, gamma_, gamma)
+                live_iters = live_iters + live.to(torch.int32)
+        del jvp, vjp, matvec   # the graphs of the solve
+        with torch.no_grad():
+            trial = theta - x
+        with torch.enable_grad():
+            r_t = residual_fn(trial).detach()
+        with torch.no_grad():
+            loss_t = torch.dot(r_t, r_t)
+            actual = loss - loss_t
+            pred = torch.dot(x, lam * x + b)
+            rho = actual / torch.clamp_min(pred, 1e-30)
+            accept = torch.isfinite(loss_t) & (actual > 0)
+            t = 2.0 * rho - 1.0
+            shrink = torch.clamp_min(1.0 - t * t * t, self.damping_down)
+            new = torch.stack([
+                torch.where(accept, torch.clamp_min(lam * shrink,
+                                                    self.min_damping),
+                            torch.clamp_max(lam * nu, self.max_damping)),
+                torch.where(accept, self.damping_up,
+                            torch.clamp_max(nu * 2.0, 1e6))])
+            if gate is None:
+                torch.where(accept, trial, theta, out=theta)
+                state["damping"].copy_(new)
+            else:
+                torch.where(accept & gate, trial, theta, out=theta)
+                torch.where(gate, new, state["damping"],
+                            out=state["damping"])
+        return loss, live_iters
+
+
 def _warn_unused(kwargs):
     if kwargs:
         warnings.warn(f"ignoring unsupported optimizer kwargs: "
@@ -336,6 +587,27 @@ def _lion(lr, kwargs):
     return Lion(lr, b1=b1, b2=b2)
 
 
+def _lbfgs(lr, kwargs):
+    memory_size = kwargs.pop("memory_size", kwargs.pop("history_size", 10))
+    _warn_unused(kwargs)
+    # The zoom linesearch picks the step size: a user-set lr (anything but
+    # fit's 0.005 default) would be silently discarded, so say so.
+    if lr is not None and lr != 0.005:
+        warnings.warn(
+            "optimizer='LBFGS' picks its step size with a zoom linesearch; "
+            "the lr argument is ignored", stacklevel=4)
+    return LBFGS(memory_size=memory_size)
+
+
+def _lm(lr, kwargs):
+    if lr is not None and lr != 0.005:
+        warnings.warn(
+            "optimizer='LM' (Gauss-Newton) solves for its own step from the "
+            "damped normal equations; the lr argument is ignored",
+            stacklevel=4)
+    return LMConfig(**kwargs)
+
+
 _OPTIMIZERS = {
     "adam": _adam_family(Adam),
     "adamw": _adam_family(AdamW),
@@ -347,15 +619,16 @@ _OPTIMIZERS = {
     "adagrad": _adagrad,
     "adadelta": _adadelta,
     "lion": _lion,
+    "lbfgs": _lbfgs,
+    "lm": _lm,
+    "gn": _lm,
+    "gaussnewton": _lm,
+    "gauss_newton": _lm,
+    "gauss-newton": _lm,
+    "levenbergmarquardt": _lm,
+    "levenberg_marquardt": _lm,
+    "levenberg-marquardt": _lm,
 }
-
-# Second-order names of the JAX registry, the next slice of item 9: their
-# line search (L-BFGS) and conjugate-gradient solve (LM) are loops whose
-# length depends on the data, and LM's J.v needs a forward-mode rule
-# through the fused Taylor op.
-_NOT_PORTED = {"lbfgs", "lm", "gn", "gaussnewton", "gauss_newton",
-               "gauss-newton", "levenbergmarquardt", "levenberg_marquardt",
-               "levenberg-marquardt"}
 
 
 def resolve_optimizer(name, lr, kwargs):
@@ -365,7 +638,8 @@ def resolve_optimizer(name, lr, kwargs):
     gate=None)`` through, or call a factory ``f(learning_rate=lr,
     **kwargs)`` that returns one."""
     if not isinstance(name, str):
-        if (not isinstance(name, type) and hasattr(name, "init")
+        if isinstance(name, (LBFGS, LMConfig)) or (
+                not isinstance(name, type) and hasattr(name, "init")
                 and hasattr(name, "update")):
             return name
         if callable(name):
@@ -374,12 +648,6 @@ def resolve_optimizer(name, lr, kwargs):
                 return built
         raise ValueError(f"cannot interpret optimizer {name!r}")
     key = name.lower()
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported to pydens_tpu_torch yet: it "
-            "is the next slice of ROADMAP.md Queue 1 item 9 (L-BFGS and "
-            "Levenberg-Marquardt); use a first-order optimizer such as "
-            "'Adam'")
     if key not in _OPTIMIZERS:
         raise ValueError(f"unknown optimizer {name!r}; "
                          f"known: {sorted(_OPTIMIZERS)}")

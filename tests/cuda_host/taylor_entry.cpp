@@ -15,6 +15,18 @@ void host_taylor_forward(const float* x, const float* w, const int* tab,
               [&] { taylor_fwd_kernel(x, w, tab, out, n, P, out_dim); });
 }
 
+int host_taylor_jvp_smem_bytes(int P, int S, int W) {
+  return (int)taylor_jvp_smem_bytes(P, S, W);
+}
+
+void host_taylor_jvp(const float* x, const float* w, const float* v,
+                     const int* tab, float* out, float* tout, int n, int P,
+                     int S, int W, int out_dim, int grid) {
+  host_launch(grid, THREADS, taylor_jvp_smem_bytes(P, S, W), [&] {
+    taylor_jvp_kernel(x, w, v, tab, out, tout, n, P, out_dim);
+  });
+}
+
 void host_taylor_backward(const float* x, const float* w, const int* tab,
                           const float* g, float* saves, float* partials,
                           float* dw, float* dx, int n, int P, int S, int W,

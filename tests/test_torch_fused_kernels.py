@@ -122,6 +122,77 @@ def test_poisson_loss_and_grads_through_kernels_match_pallas(monkeypatch):
     np.testing.assert_allclose(tg.numpy(), ref.numpy(), rtol=2e-3, atol=2e-5)
 
 
+@pytest.mark.parametrize("activation,closure", [
+    ("Tanh", POISSON_CLOSURE),
+    ("Sigmoid", [(0,), (1,), (0, 1)]),
+    ("Sin", [(0,), (0, 0)]),
+])
+def test_taylor_jvp_plain_matches_jax_jvp_of_the_plan(activation, closure):
+    # The tangent of the traversal with respect to the weights:
+    # fused_taylor_jvp_plain against jax.jvp of the JAX package's XLA plan
+    # traversal (taylor_taps, which the JAX LM step linearizes), for a
+    # seeded tangent of every weight.  Streams and tangent rtol/atol 2e-5.
+    init, apply, names = jmake_network("fa fa f", [16, 16, 1], activation,
+                                       in_dim=2)
+    jparams = init(jax.random.key(0))
+    net = make_layout_network("fa fa f", [16, 16, 1], activation, in_dim=2)
+    plan = fused_taylor.TaylorPlan(net.tokens, net.activations, closure,
+                                   net.layer_shapes, 2)
+    rng = np.random.default_rng(8)
+    tangent = jax.tree.map(
+        lambda a: rng.normal(size=a.shape).astype(np.float32), jparams)
+    x = (rng.uniform(size=(96, 2)) * 0.8 + 0.1).astype(np.float32)
+
+    def streams(params):
+        V, taps = apply.taylor_taps(params, jnp.asarray(x), closure)
+        return jnp.concatenate([V] + [taps[(d,)] for d in plan.firsts]
+                               + [taps[tuple(p)] for p in plan.pairs], axis=1)
+
+    ref, tref = jax.jvp(streams, (jparams,),
+                        (jax.tree.map(jnp.asarray, tangent),))
+    packed = fused_taylor.pack_weights(
+        params_from_jax(jax.tree.map(np.asarray, jparams)), names)
+    v = fused_taylor.pack_weights(params_from_jax(tangent), names)
+    out, tout = fused_taylor.fused_taylor_jvp_plain(
+        packed, torch.from_numpy(x), v, plan)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(tref), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_fused_taylor_double_backward_is_jv_and_refuses_the_rest():
+    # In float64: the VJP of FusedTaylor's backward with respect to its
+    # cotangent is J v (central differences of the forward, rtol 1e-6);
+    # a second derivative with respect to the weights raises, by
+    # autograd.grad and by backward(), rather than returning zeros.
+    net = make_layout_network("fa fa f", [5, 4, 1], "Tanh", in_dim=2,
+                              dtype=torch.float64)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    plan = fused_taylor.TaylorPlan(net.tokens, net.activations,
+                                   POISSON_CLOSURE, net.layer_shapes, 2)
+    packed = fused_taylor.pack_weights(net.params(), net.layer_names)
+    packed = packed.detach().requires_grad_()
+    x = torch.rand(7, 2, dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(1))
+    out = fused_taylor.FusedTaylor.apply(packed, x, plan)
+    u = torch.randn(out.shape, dtype=torch.float64).requires_grad_()
+    jtu, = torch.autograd.grad(out, packed, u, create_graph=True)
+    v = torch.randn(packed.shape, dtype=torch.float64)
+    jv, = torch.autograd.grad(jtu, u, v, retain_graph=True)
+    eps = 1e-6
+    with torch.no_grad():
+        fd = (fused_taylor.fused_taylor_forward_plain(packed + eps * v, x,
+                                                      plan)
+              - fused_taylor.fused_taylor_forward_plain(packed - eps * v, x,
+                                                        plan)) / (2 * eps)
+    torch.testing.assert_close(jv, fd, rtol=1e-6, atol=1e-8)
+    with pytest.raises(NotImplementedError, match="second derivative"):
+        torch.autograd.grad(jtu, packed, v, retain_graph=True)
+    with pytest.raises(NotImplementedError, match="second derivative"):
+        jtu.backward(v)
+
+
 @pytest.mark.parametrize("layout,features", [
     ("fa fa f", [32, 32, 1]),
     ("fa fa fa f", [10, 12, 15, 1]),
@@ -190,6 +261,14 @@ def test_scope_guards():
                                      shapes, 2, dtype=torch.float64)
     assert not fused_taylor.supports(["f", "a", "f"], [tanh], [(0,)],
                                      [(2, 1024), (1024, 1)], 2)  # too wide
+    # 128 wide: the forward and backward fit a block, the tangent kernel's
+    # weights, their tangent and four tile states do not.
+    wide = [(2, 128), (128, 128), (128, 1)]
+    tokens = ["f", "a", "f", "a", "f"]
+    assert fused_taylor.supports(tokens, [tanh, tanh], POISSON_CLOSURE,
+                                 wide, 2)
+    assert not fused_taylor.supports(tokens, [tanh, tanh], POISSON_CLOSURE,
+                                     wide, 2, tangent=True)
     assert fused_mlp.supports(["f", "a", "R", "f", "+"], [tanh],
                               [(2, 8), (8, 8)], 2)
     assert not fused_mlp.supports(["f", "a", "f"], [relu], shapes, 2)
@@ -212,6 +291,8 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
             packed, x, torch.empty(5, 2, device="meta"), tplan)
     with pytest.raises(ValueError, match="CUDA"):
         fused_mlp.fused_mlp_forward(packed, x, mplan)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_taylor.fused_taylor_jvp(packed, x, packed, tplan)
 
 
 def test_mlp_forward_refuses_grad():
@@ -297,12 +378,15 @@ def test_taylor_plan_table_matches_the_cuda_source(layout, features, act,
 def test_supports_keeps_the_kernels_scope(layout, features, act, in_dim,
                                           closure):
     # Every configuration the kernels were built and checked for stays in
-    # scope, and its backward (the larger block) fits shared memory.
+    # scope, and its backward (the larger block) fits shared memory; so
+    # does the tangent kernel's block (the LM path).
     net = make_layout_network(layout, features, act, in_dim=in_dim)
     assert fused_taylor.supports(net.tokens, net.activations, closure,
-                                 net.layer_shapes, in_dim)
+                                 net.layer_shapes, in_dim, tangent=True)
     plan = _plan(layout, features, act, in_dim, closure)
     assert plan.smem_bytes(2) < plan.smem_bytes(3) <= MAX_SHARED_BYTES
+    assert plan.tangent_ok
+    assert plan.smem_bytes(*fused_taylor._JVP_SMEM) <= MAX_SHARED_BYTES
 
 
 @pytest.mark.parametrize("n_streams", range(2, 9))

@@ -248,3 +248,88 @@ def test_schedule_that_reads_the_count_on_the_host_raises():
     assert step.replays == 0 and s._step_counter == 0 and s.losses == []
     assert all(torch.equal(a, b) for a, b in zip(before,
                                                  s.model.parameters()))
+
+
+def _ode_ic():
+    def ode(f, x):
+        return D(f, x) - 2 * np.pi * torch.cos(2 * np.pi * x)
+    return ode, dict(ndims=1, initial_condition=.5, activation="Tanh",
+                     layout="fafaf", features=[12, 10, 1])
+
+
+def _finisher_pair(make, optimizer, niters, batch, **kw):
+    """Adam, then ``optimizer`` on a fixed batch, through graphs and
+    eagerly."""
+    return _pair(make, [dict(niters=100, batch_size=batch, lr=0.01),
+                        dict(niters=niters, batch_size=batch,
+                             optimizer=optimizer, resample=False, **kw)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [_poisson, _ode_ic], ids=["w1", "ode"])
+@pytest.mark.parametrize("optimizer", ["LBFGS", "LM"])
+def test_finisher_graph_matches_eager(optimizer, make):
+    # L-BFGS (a step graph and a trial graph, the host reading the
+    # linesearch's flag) and LM (one graph a step, its CG loop a fixed trip
+    # count) through graphs against the same fits eagerly: losses rtol 1e-5
+    # over the first 20 steps (_assert_agree) and the same number of live
+    # linesearch trials / CG iterations.
+    _require_cuda()
+    fw = fused_taylor.fused_taylor_jvp.launches
+    graph, eager = _finisher_pair(make, optimizer,
+                                  30 if optimizer == "LBFGS" else 8, 256)
+    _assert_agree(graph, eager)
+    g, e = (list(s._step_cache.values())[-1] for s in (graph, eager))
+    assert int(g.live) == int(e.live) > 0
+    if optimizer == "LBFGS":
+        assert g.trial_graph is not None or g.trial_replays == 0
+    else:
+        # The tangent kernel ran: its wrapper counts the eager steps and
+        # the graph's capture.
+        assert fused_taylor.fused_taylor_jvp.launches > fw
+
+
+@pytest.mark.gpu
+def test_masked_linesearch_graph_matches_the_host_driven_one():
+    # Every trial in the step graph (no host read) against the step and
+    # trial graphs with the host reading the flag: the same losses (rtol
+    # 1e-5) and the same live trials.
+    _require_cuda()
+    runs = []
+    for masked in (False, True):
+        eq, kw = _ode_ic()
+        s = Solver(eq, seed=0, device="cuda", **kw)
+        s._masked_linesearch = masked
+        s.fit(niters=100, batch_size=256, lr=0.01, progress=False)
+        s.fit(niters=30, batch_size=256, optimizer="LBFGS", resample=False,
+              progress=False)
+        runs.append(s)
+    host, masked = runs
+    np.testing.assert_allclose(masked.losses, host.losses, rtol=1e-5)
+    steps = [list(s._step_cache.values())[-1] for s in runs]
+    assert int(steps[0].live) == int(steps[1].live)
+    assert steps[1].trial_graph is None and steps[1].replays == 29
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["LBFGS", "LM"])
+def test_finisher_fit_runs_no_plain_function(optimizer, monkeypatch):
+    # With every *_plain function of the kernels patched to raise, the
+    # finisher fit on the card still runs: its steps take only the kernels.
+    _require_cuda()
+    from pydens_tpu_torch.ops import fused_mlp
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+    for mod, name in ((fused_taylor, "fused_taylor_forward_plain"),
+                      (fused_taylor, "fused_taylor_backward_plain"),
+                      (fused_taylor, "fused_taylor_jvp_plain"),
+                      (fused_mlp, "fused_mlp_forward_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    eq, kw = _poisson()
+    s = Solver(eq, seed=0, device="cuda", **kw)
+    s.fit(niters=50, batch_size=256, progress=False)
+    s.fit(niters=10, batch_size=256, optimizer=optimizer, resample=False,
+          progress=False)
+    assert np.isfinite(s.losses).all() and len(s.losses) == 60
+    assert s.predict(np.zeros((4, 2), np.float32)).shape == (4, 1)

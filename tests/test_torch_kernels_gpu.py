@@ -89,6 +89,42 @@ def test_taylor_kernels_match_plain_on_cuda(layout, features, act, in_dim,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout,features,act,in_dim,closure,n", [
+    (*README_CHAIN, 1024),                        # w1 at the LM batch
+    (*README_CHAIN, 1),
+    (*README_CHAIN, M + 1),
+    (*WIDE_CHAIN, 65537),
+    ("fa fa fa f", [64, 64, 64, 1], "Tanh", 3, HEAT_CLOSURE, 20000),
+    ("fafaf", [12, 10, 1], "Tanh", 1, [(0,)], 512),     # the ODE finisher
+    ("fa fa f", [16, 16, 1], "Sigmoid", 3, [(0,), (2,), (0, 2)], 257),
+    ("fa fa f", [16, 16, 1], "Sin", 2, [(0,), (1,), (0, 0), (0, 1)], 96),
+    ("fafaf", [30, 40, 1], "Sigmoid", 4, HEAT_CLOSURE, 1500),
+])
+def test_taylor_jvp_kernel_matches_plain_on_cuda(layout, features, act,
+                                                 in_dim, closure, n):
+    # The tangent kernel against its plain twin (torch.func.jvp of the
+    # plain forward) on the card: streams and tangent rtol/atol 2e-5.
+    _require_cuda()
+    dev = torch.device("cuda")
+    net = make_layout_network(layout, features, act, in_dim=in_dim,
+                              device=dev)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    plan = fused_taylor.TaylorPlan(net.tokens, net.activations, closure,
+                                   net.layer_shapes, in_dim)
+    with torch.no_grad():
+        packed = fused_taylor.pack_weights(net.params(), net.layer_names)
+    gen = torch.Generator(dev).manual_seed(1)
+    x = torch.rand(n, in_dim, device=dev, generator=gen)
+    v = torch.randn(plan.n_params, device=dev, generator=gen)
+    before = fused_taylor.fused_taylor_jvp.launches
+    out, tout = fused_taylor.fused_taylor_jvp(packed, x, v, plan)
+    assert fused_taylor.fused_taylor_jvp.launches == before + 1
+    ref, tref = fused_taylor.fused_taylor_jvp_plain(packed, x, v, plan)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(tout, tref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
 def test_taylor_backward_memory_does_not_grow_with_n():
     # 64-wide chain, 262,144 points: beyond its inputs and outputs the
     # backward allocates only its workspace, which is sized by the grid

@@ -2,9 +2,10 @@
 
 A plain ``import`` check proves nothing in a process where jax is already
 loaded (this image's interpreter imports it at startup), so the package is
-imported and trained in a subprocess where ``import jax`` fails (the README
-fit, a w5-like fit with a sampler product, a constraint and a freeze, then
-a fit with a schedule and SGD, a save and a load),
+imported and trained in a subprocess where ``import jax`` and ``import
+optax`` fail (the README fit, a w5-like fit with a sampler product, a
+constraint and a freeze, then a fit with a schedule and SGD, a save and a
+load, then L-BFGS and Levenberg-Marquardt fits),
 and every file of the package is scanned for a jax import."""
 
 import ast
@@ -25,6 +26,7 @@ for name in list(sys.modules):
                               "pydens_tpu"):
         del sys.modules[name]
 sys.modules["jax"] = None        # any `import jax` now raises ImportError
+sys.modules["optax"] = None
 sys.modules["pydens_tpu"] = None
 import numpy as np
 import torch
@@ -70,8 +72,16 @@ s2.load(path)
 assert s2.losses == s.losses and len(s2.history) == 3
 assert s2.model.params["variables"]["k"].item() == \\
     s.model.params["variables"]["k"].item()
+
+# The finishers: L-BFGS (its zoom linesearch) and LM on a fixed batch.
+s2.fit(batch_size=64, niters=3, optimizer="LBFGS", resample=False,
+       progress=False)
+s2.fit(batch_size=64, niters=2, optimizer="LM", resample=False,
+       cg_iters=5, progress=False)
+assert np.isfinite(s2.losses).all() and len(s2.history) == 5
 loaded = sorted(n for n in sys.modules
-                if n.split(".")[0] == "jax" and sys.modules[n] is not None)
+                if n.split(".")[0] in ("jax", "optax")
+                and sys.modules[n] is not None)
 assert not loaded, loaded
 print("ok")
 """

@@ -142,9 +142,16 @@ def test_factory_and_objects_are_accepted():
     assert (built.lr, built.decay) == (0.02, 0.5)
     with pytest.raises(ValueError, match="unknown optimizer"):
         resolve_optimizer("Adamm", 0.1, {})
-    for name in ("LBFGS", "LM", "gauss-newton"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            resolve_optimizer(name, 0.1, {})
+    # The finishers, by name (lr is theirs to choose: a set one warns) and
+    # as objects.
+    for name, cls in (("LBFGS", topt.LBFGS), ("LM", topt.LMConfig),
+                      ("gauss-newton", topt.LMConfig)):
+        with pytest.warns(UserWarning, match="lr argument is ignored"):
+            assert isinstance(resolve_optimizer(name, 0.1, {}), cls)
+        built = resolve_optimizer(name, 0.005, {})
+        assert resolve_optimizer(built, 0.1, {}) is built
+    with pytest.raises(ValueError, match="cg_iters"):
+        topt.LMConfig(cg_iters=0)
 
 
 # -- w5 fits against pydens_tpu ----------------------------------------------

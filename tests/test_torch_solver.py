@@ -237,12 +237,22 @@ def test_unported_options_raise():
     pde, kw = _poisson(tpdt)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tpdt.Solver(pde, device="cpu", periodic=True, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tpdt.Solver(pde, device="cpu", **kw).fit(niters=1, batch_size=4,
-                                                 optimizer="LBFGS")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tpdt.Solver(pde, device="cpu", **kw).fit(niters=1, batch_size=4,
-                                                 optimizer="LM")
+    # pydens_tpu.Solver's formulation / n_models / mesh: their defaults are
+    # taken, other values name their item.
+    for name, value, item in (("formulation", "variational", 10),
+                              ("n_models", 2, 11), ("mesh", object(), 15)):
+        with pytest.raises(NotImplementedError,
+                           match=f"{name}.*Queue 1 item {item}"):
+            tpdt.Solver(pde, device="cpu", **{name: value}, **kw)
+    assert tpdt.Solver(pde, device="cpu", formulation="residual",
+                       n_models=1, mesh=None, **kw)._plan_ok
+    # The finishers are ported: the registry builds them and a fit runs.
+    solver = tpdt.Solver(pde, device="cpu", **kw)
+    solver.fit(niters=1, batch_size=4, optimizer="LBFGS", resample=False,
+               progress=False)
+    with pytest.raises(ValueError, match="MSE"):
+        solver.fit(niters=1, batch_size=4, optimizer="LM",
+                   criterion="L1Loss", progress=False)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tpdt.Solver(pde, device="cpu", **kw).fit(niters=1, batch_size=4,
                                                  adaptive=2)

@@ -28,7 +28,7 @@ POISSON_CLOSURE = [(0,), (1,), (0, 0), (1, 1)]
 # source and what the host build puts in their place.
 _HOST_EDITS = [
     ("#include <cuda_runtime.h>", '#include "emulation.h"', 1),
-    ("extern __shared__ float4 smem4[];", "float4* smem4 = host_smem;", 2),
+    ("extern __shared__ float4 smem4[];", "float4* smem4 = host_smem;", 3),
     (re.compile(r"const unsigned base = [^;]*__cvta_generic_to_shared[^;]*;"),
      "", 1),
     (re.compile(r'asm volatile\("cp\.async\.ca\.shared\.global.*?\);',
@@ -71,8 +71,11 @@ def host_lib(tmp_path_factory):
     lib.host_taylor_forward.argtypes = [P, P, P, P] + [I] * 6
     lib.host_taylor_backward.argtypes = [P] * 8 + [I] * 6
     lib.host_taylor_smem_bytes.argtypes = [I] * 4
+    lib.host_taylor_jvp.argtypes = [P] * 6 + [I] * 6
+    lib.host_taylor_jvp_smem_bytes.argtypes = [I] * 3
     lib.host_taylor_forward.restype = None
     lib.host_taylor_backward.restype = None
+    lib.host_taylor_jvp.restype = None
     return lib
 
 
@@ -80,7 +83,7 @@ def _ptr(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-@pytest.mark.parametrize("layout,features,act,in_dim,closure,n,sm_count", [
+HOST_CASES = [
     ("fa fa fa f", [10, 12, 15, 1], "Tanh", 2, POISSON_CLOSURE, 100, 132),
     ("fa fa fa f", [10, 12, 15, 1], "Tanh", 2, POISSON_CLOSURE, 1000, 3),
     ("fafaf", [12, 10, 1], "Tanh", 1, [(0,)], 400, 2),
@@ -93,7 +96,20 @@ def _ptr(a):
     ("f a a f", [6, 3], "Sin", 2, [(0,), (0, 0)], 17, 4),   # act after act
     ("fa ff", [8, 4, 3], "Sigmoid", 2, [(0,), (1,), (0, 1)], 1, 1),
     ("fa fa", [5, 4], "Tanh", 2, [(0,), (1,), (1, 1)], 31, 2),  # ends in `a`
-])
+]
+
+
+def _host_case(layout, features, act, in_dim, closure):
+    net = make_layout_network(layout, features, act, in_dim=in_dim)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    plan = fused_taylor.TaylorPlan(net.tokens, net.activations, closure,
+                                   net.layer_shapes, in_dim)
+    packed = fused_taylor.pack_weights(net.params(), net.layer_names).detach()
+    return plan, packed
+
+
+@pytest.mark.parametrize("layout,features,act,in_dim,closure,n,sm_count",
+                         HOST_CASES)
 def test_taylor_kernels_on_the_host_match_plain(host_lib, layout, features,
                                                 act, in_dim, closure, n,
                                                 sm_count):
@@ -138,3 +154,31 @@ def test_taylor_kernels_on_the_host_match_plain(host_lib, layout, features,
         packed, torch.from_numpy(x), torch.from_numpy(g), plan)
     np.testing.assert_allclose(dw, rdp.numpy(), rtol=2e-3, atol=2e-5)
     np.testing.assert_allclose(dx, rdx.numpy(), rtol=2e-3, atol=2e-5)
+
+
+@pytest.mark.parametrize("layout,features,act,in_dim,closure,n,sm_count",
+                         HOST_CASES)
+def test_taylor_jvp_kernel_on_the_host_matches_plain(
+        host_lib, layout, features, act, in_dim, closure, n, sm_count):
+    # The tangent kernel (taylor_jvp_kernel) on a seeded tangent of the
+    # packed weights against fused_taylor_jvp_plain (torch.func.jvp of the
+    # plain forward): streams and tangent rtol/atol 2e-5 (f32, other
+    # summation order), from NaN-filled shared memory and outputs.
+    plan, packed = _host_case(layout, features, act, in_dim, closure)
+    S, W, P = plan.n_streams, plan.wmax, plan.n_params
+    assert host_lib.host_taylor_jvp_smem_bytes(P, S, W) == plan.smem_bytes(
+        *fused_taylor._JVP_SMEM)
+    rng = np.random.default_rng(2)
+    x = rng.uniform(size=(n, in_dim)).astype(np.float32)
+    v = rng.normal(size=P).astype(np.float32)
+    w = packed.numpy()
+    tab = np.asarray(plan.table, np.int32)
+    out = np.full((n, S * plan.out_dim), np.nan, np.float32)
+    tout = np.full_like(out, np.nan)
+    grid, _ = plan.launch_shape(n, sm_count, *fused_taylor._JVP_SMEM)
+    host_lib.host_taylor_jvp(_ptr(x), _ptr(w), _ptr(v), _ptr(tab), _ptr(out),
+                             _ptr(tout), n, P, S, W, plan.out_dim, grid)
+    ref, tref = fused_taylor.fused_taylor_jvp_plain(
+        packed, torch.from_numpy(x), torch.from_numpy(v), plan)
+    np.testing.assert_allclose(out, ref.numpy(), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(tout, tref.numpy(), rtol=2e-5, atol=2e-5)
