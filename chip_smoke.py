@@ -3,6 +3,7 @@
     python3 chip_smoke.py              # the smoke run below
     python3 chip_smoke.py --profile    # per-step profile of w1-w5 only
     python3 chip_smoke.py --mlp-turns OLD.cu   # MLP kernel: OLD.cu vs this
+    python3 chip_smoke.py --jvp-turns OLD.cu   # tangent kernel: OLD.cu vs this
     python3 chip_smoke.py --finishers  # phases 1, 2 and 9 only
     python3 chip_smoke.py --w3-repeat  # w3's eager fit, repeated
 
@@ -64,7 +65,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    the 64-wide chain at batch 65,536, through graphs; the step tallies
    and ``torch.profiler`` over replayed steps show every linesearch trial
    and every CG iteration launching the Taylor kernels (the tangent
-   kernel in each CG iteration); the two L-BFGS graph designs (the host
+   kernel in each CG iteration); LM on the 128-wide chain at 65,536; the
+   LM step's device busy share and the tangent kernel's share of a CG
+   iteration (``torch.profiler`` over a replayed step: the README ladder,
+   the 64- and 128-wide arms); the two L-BFGS graph designs (the host
    reading the linesearch's flag between a step graph and a trial graph,
    or every trial masked in one graph) timed in turns.
 
@@ -81,7 +85,9 @@ fits and the MLP kernel at the points of its predict calls
 (``TUTORIAL_CHAINS``), the MLP kernel at ``w3``'s layout on 1,024
 points, and the tangent kernel (``taylor_jvp_kernel``, Levenberg-
 Marquardt's J v) on the README chain at 1,024 points, the 64-wide chain
-and its 6-stream closure at 65,537, and the ODE finisher's chain.
+and its 6-stream closure at 65,537, the ODE finisher's chain and the
+128-wide chain at 65,537 (each with its points a tile, blocks per SM and
+shared memory a block).
 
 Prints one JSON line of per-kernel results, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -101,6 +107,15 @@ design, whose C entry and op table it knows) built from ``OLD.cu`` into
 tree's kernel's SASS instruction counts (``cuobjdump``).  To take the
 earlier source from git: ``git show <commit>:pydens_tpu_torch/csrc/fused_mlp.cu
 > build/fused_mlp_old.cu``.
+
+``--jvp-turns OLD.cu`` runs phases 1 and 2, then ``jvp_turns``: the
+tangent kernel of an earlier ``csrc/fused_taylor.cu`` (commit 6444749:
+its C entry and its launch, the weights twice and four 16-point states a
+block) built from ``OLD.cu`` into ``build/jvp_turns/``, timed in turns
+with this tree's at that commit's four phase-3 shapes, both held to the
+plain twin.  To take the
+source from git: ``git show 6444749:pydens_tpu_torch/csrc/fused_taylor.cu
+> build/fused_taylor_old.cu``.
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of its FMAs (2 FLOPs each) over the H100 SXM's 67 TFLOP/s f32 peak and its
@@ -137,6 +152,20 @@ MLP_LAYOUTS = [("l32x32", "fa fa f", [32, 32, 1]),
                ("l10x12x15", "fa fa fa f", [10, 12, 15, 1]),
                ("skip16", "faR fa fa+ f", [16, 16, 16, 1]),
                ("wide64", "fa fa fa f", [64, 64, 64, 1])]
+# The tangent kernel's shapes in phase 3 (the first four are those of commit
+# 6444749, timed again by --jvp-turns).
+JVP_SHAPES = {
+    "readme_n1024": dict(features=[10, 12, 15, 1], n=1024, reps=200),
+    "wide": dict(features=[64, 64, 64, 1], n=65537, reps=10),
+    "wide_heat": dict(features=[64, 64, 64, 1], n=65537, reps=10,
+                      closure=HEAT_CLOSURE, in_dim=3),
+    "ode_n512": dict(features=[12, 10, 1], n=512, reps=200, closure=[(0,)],
+                     in_dim=1, layout="fafaf"),
+    "wide128": dict(features=[128, 128, 1], n=65537, reps=10,
+                    layout="fa fa f"),
+}
+WIDE128 = dict(ndims=2, boundary_condition=1, layout="fa fa f",
+               activation="Tanh", units=[128, 128, 1])
 F32_FLOPS = 67e12           # H100 SXM f32 peak outside the tensor cores
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
 # Each tutorial's Taylor chain (network and closure of its equation), the
@@ -374,16 +403,19 @@ def check_taylor_jvp(features, n, reps, seed=0, closure=POISSON_CLOSURE,
                        lambda: ft.fused_taylor_jvp_plain(packed, x, v, plan),
                        reps)
     b, by, work = taylor_bounds(plan, n)["jvp"]
-    grid, slots = plan.launch_shape(
-        n, torch.cuda.get_device_properties(0).multi_processor_count,
-        *ft._JVP_SMEM)
+    grid, slots = plan.jvp_launch_shape(
+        n, torch.cuda.get_device_properties(0).multi_processor_count)
     log(f"taylor jvp {layout!r} {act} {features} in_dim {in_dim} closure "
         f"{len(closure)} n={n}: max|err| {err:.3e} (streams and tangent; "
         f"{100 * max(_tol_used(out, ref), _tol_used(tout, tref)):.1f}% of "
         f"VALUE_TOL), jvp {times['jvp']:.4f} ms (plain "
         f"{times['jvp_plain']:.4f} ms); {work}, {_share(times['jvp'], b)} "
-        f"({by}); {grid} blocks of {slots} slots, "
-        f"{plan.smem_bytes(*ft._JVP_SMEM)} B shared memory each")
+        f"({by}); {plan.jvp_tile} points a tile, {grid} blocks of {slots} "
+        f"slots, {plan.jvp_blocks_per_sm} blocks per SM, {plan.jvp_smem} B "
+        "shared memory each")
+    times.update(jvp_tile=plan.jvp_tile,
+                 jvp_blocks_per_sm=plan.jvp_blocks_per_sm,
+                 jvp_smem_bytes=plan.jvp_smem)
     times["jvp_bound"], times["jvp_bound_by"] = b, by
     return err, times
 
@@ -463,14 +495,9 @@ def phase_kernels():
                   for n in batches}
     # The tangent kernel (Levenberg-Marquardt's J v): the README chain at
     # the finishers' 1,024 points, the 64-wide chain and the 6-stream
-    # closure; "readme_n1024" heads the JSON line.
-    jvp = {"readme_n1024": check_taylor_jvp([10, 12, 15, 1], 1024, 200),
-           "wide": check_taylor_jvp(wide, 65537, 10),
-           "wide_heat": check_taylor_jvp(wide, 65537, 10,
-                                         closure=HEAT_CLOSURE, in_dim=3),
-           "ode_n512": check_taylor_jvp([12, 10, 1], 512, 200,
-                                        closure=[(0,)], in_dim=1,
-                                        layout="fafaf")}
+    # closure, the ODE finisher's chain, and the 128-wide chain of phase
+    # 9's LM arm; "readme_n1024" heads the JSON line.
+    jvp = {tag: check_taylor_jvp(**case) for tag, case in JVP_SHAPES.items()}
     sync()
     # The MLP shapes, keyed by tag; "readme_n10000" is the README predict.
     mlp = {"readme_n10000": check_mlp("fa fa fa f", [10, 12, 15, 1], 2,
@@ -1276,20 +1303,33 @@ def run_finisher(solver, optimizer, niters, batch, tag, **kw):
 
 def finisher_profile(solver, batch, steps, tag, windows=3):
     """``torch.profiler`` over a window of ``steps`` replayed steps of the
-    solver's finisher (after an unprofiled fit of that configuration and a
-    profiled warm-up fit, as ``step_profile``): each Taylor kernel's device
-    records, against what the live trials (L-BFGS: one forward and one
-    backward at theta and at each trial) or the CG loop (LM: two forwards,
-    ``cg_iters + 1`` backwards and ``cg_iters`` tangents a step) say every
-    step launched.  Returns the counts per step."""
+    solver's finisher (after two unprofiled fits of that configuration, a
+    timed one and a profiled warm-up fit, as ``step_profile``): each Taylor
+    kernel's device records, against what the live trials (L-BFGS: one
+    forward and one backward at theta and at each trial) or the CG loop
+    (LM: two forwards, ``cg_iters + 1`` backwards and ``cg_iters`` tangents
+    a step) say every step launched.  Returns the counts per step, host ms
+    per step (the timed fit), device busy ms per step (summed device
+    records) and the busy share, each Taylor kernel's device ms per step
+    and, for LM, per CG iteration: the step's busy ms and the tangent
+    kernel's ms over ``cg_iters`` (a step is its CG iterations plus two
+    residuals, one J^T r and the update) and the tangent's share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     names = ("taylor_fwd_kernel", "taylor_bwd_kernel", "taylor_jvp_kernel")
     fit = dict(niters=steps, batch_size=batch, optimizer=None,
                resample=False, progress=False)
+    # Two fits: the configuration's eager step and its capture (a 1-step
+    # fit takes one of them), so the timed fit replays.
+    solver.fit(**fit)
     solver.fit(**fit)
     step = _finisher_step(solver)
     lm = hasattr(step.opt, "cg_iters")
+    sync()
+    t0 = time.perf_counter()
+    solver.fit(**fit)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
     for taken in range(1, windows + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
@@ -1312,8 +1352,22 @@ def finisher_profile(solver, batch, steps, tag, windows=3):
             f"records, expected {expect}; taking another")
     assert counts == expect, (tag, counts, expect)
     row = {f"{k}_per_step": c / steps for k, c in zip(names, counts)}
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / steps
     row.update(windows_taken=taken, device_ops_per_step=len(dev) / steps,
-               live_per_step=live / steps)
+               live_per_step=live / steps, step_ms=step_ms,
+               device_busy_ms=busy_ms, busy_share=busy_ms / step_ms)
+    for k in names:
+        row[f"{k}_ms_per_step"] = sum(e.time_range.elapsed_us() for e in dev
+                                      if k in e.name) / 1e3 / steps
+    if lm:
+        cg = step.opt.cg_iters
+        row.update(busy_ms_per_cg_iteration=busy_ms / cg,
+                   jvp_ms_per_cg_iteration=(
+                       row["taylor_jvp_kernel_ms_per_step"] / cg),
+                   jvp_share_of_busy=(row["taylor_jvp_kernel_ms_per_step"]
+                                      / busy_ms),
+                   bwd_share_of_busy=(row["taylor_bwd_kernel_ms_per_step"]
+                                      / busy_ms))
     log(f"finisher profile {tag} (replays, {steps} steps): {json.dumps(row)}")
     return row
 
@@ -1390,8 +1444,12 @@ def _finishers():
     phase (LM below 1e-2 of it) and its error bound (L-BFGS 0.02, LM
     5e-3) on every seed, and below its loss bound (1e-4, 2e-6) on one;
     (iii) a timing arm on the 64-wide chain at batch 65,536 (5 L-BFGS,
-    then 3 LM steps, each timed on a second fit of replays).  Then the two
-    L-BFGS graph designs
+    then 3 LM steps, each timed on a second fit of replays); (iv) LM on the
+    128-wide chain at 65,536 (20 Adam, then 3 + 3 LM steps): the loss
+    falls and every CG iteration launches the tangent kernel.  Profiler
+    windows of one replayed LM step on the README ladder and the 64- and
+    128-wide arms give the step's device busy share and the tangent
+    kernel's share of a CG iteration.  Then the two L-BFGS graph designs
     in turns, and profiler windows of the ODE finishers' replayed steps.
     Every kernel's plain version raises throughout (``_plain_refused``)."""
     from pydens_tpu_torch import Solver
@@ -1413,6 +1471,7 @@ def _finishers():
         "7.0e-4, 6.2e-6)")
     assert rows["ladder"]["lbfgs"] < adam, rows["ladder"]
     assert rows["ladder"]["lm"] < 1.9e-5, rows["ladder"]
+    rows["ladder_lm_profile"] = finisher_profile(s, 1024, 1, "README LM")
     del s
     free_card()
 
@@ -1462,6 +1521,27 @@ def _finishers():
         run_finisher(s, opt, niters, WIDE_BATCH, f"wide {opt} first fit")
         rows[f"wide_{opt.lower()}"] = run_finisher(
             s, None, niters, WIDE_BATCH, f"wide {opt}")
+    rows["wide_lm_profile"] = finisher_profile(s, WIDE_BATCH, 1, "wide LM")
+    del s
+    free_card()
+
+    # The 128-wide chain, whose tangent block the first design did not fit
+    # (LM raised on the plan path): 20 Adam steps, then LM on a fixed
+    # batch, every CG iteration through the tangent kernel.
+    s = Solver(_pde(), seed=0, **WIDE128)
+    s.fit(niters=20, batch_size=WIDE_BATCH, progress=False)
+    adam = float(s.losses[-1])
+    first = run_finisher(s, "LM", 3, WIDE_BATCH, "wide128 LM first fit")
+    row = run_finisher(s, None, 3, WIDE_BATCH, "wide128 LM")
+    cg = s._opt.cg_iters
+    assert first["final_loss"] < adam, (adam, first)
+    assert row["final_loss"] <= first["final_loss"], (first, row)
+    assert first["taylor_jvp_per_step"] == row["taylor_jvp_per_step"] == cg
+    row.update(adam=adam, first_fit=first,
+               profile=finisher_profile(s, WIDE_BATCH, 1, "wide128 LM"))
+    rows["wide128_lm"] = row
+    log(f"wide128 LM: Adam 20 {adam:.4e} -> LM {first['final_loss']:.4e} "
+        f"-> {row['final_loss']:.4e}")
     del s
     free_card()
     launches = {c.__name__: c.launches for c in counters}
@@ -1672,6 +1752,106 @@ def mlp_turns(old_source, reps=20):
     print(json.dumps({"mlp_turns": rows}), flush=True)
 
 
+def _load_old_jvp(source):
+    """An earlier csrc/fused_taylor.cu built from ``source`` into
+    build/jvp_turns/, with the C entry of the first tangent kernel:
+    pdt_taylor_jvp(x, w, v, tab, out, tout, n, P, n_streams, wmax, out_dim,
+    grid, stream), 16 points a tile."""
+    import ctypes
+    from pathlib import Path
+    from pydens_tpu_torch.ops._build import _NVCC_FLAGS, _nvcc
+    out_dir = Path(__file__).resolve().parent / "build" / "jvp_turns"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    target = out_dir / "libtaylor_old.so"
+    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(target),
+                           str(source)], check=True, capture_output=True,
+                          text=True)
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "taylor_jvp" in line or "registers" in line:
+            log(f"  old ptxas: {line.strip()}")
+    lib = ctypes.CDLL(str(target))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.pdt_taylor_jvp.argtypes = [P] * 6 + [I] * 6 + [P]
+    lib.pdt_taylor_jvp.restype = ctypes.c_int
+    return lib
+
+
+def _old_jvp_grid(plan, n, sm_count):
+    """The first tangent kernel's launch: the weights twice and four
+    16-point tile states a block, two blocks an SM where they fit."""
+    ld = plan.n_streams * 16 + 4
+    smem = 4 * (2 * -(-plan.n_params // 4) * 4 + 4 * plan.wmax * ld)
+    per_sm = 2 if 2 * (smem + 1024) <= 233_472 else 1
+    return min(-(-n // 16), sm_count * per_sm), per_sm, smem
+
+
+def jvp_turns(old_source, reps=20):
+    """The tangent kernel of an earlier csrc/fused_taylor.cu (``old_source``:
+    the first design) against this tree's, in turns (old, new, new, old; CUDA
+    events, ``reps`` calls each of the bare C entries) at its four
+    phase-3 shapes, both held to the plain twin at VALUE_TOL; this tree's
+    kernel also through its wrapper."""
+    from pydens_tpu_torch.ops import fused_taylor as ft
+    from pydens_tpu_torch.ops._build import load_library
+    old, lib = _load_old_jvp(old_source), load_library()
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for tag in ("readme_n1024", "wide", "wide_heat", "ode_n512"):
+        case = dict(JVP_SHAPES[tag])
+        n = case["n"]
+        plan, packed, x = _taylor_case(
+            case.get("layout", "fa fa fa f"), case["features"], "Tanh", n, 0,
+            case.get("closure", POISSON_CLOSURE), case.get("in_dim", 2))
+        v = torch.randn(plan.n_params, device=x.device,
+                        generator=torch.Generator(x.device).manual_seed(1))
+        shape = (n, plan.n_streams * plan.out_dim)
+        outs = [torch.empty(shape, device=x.device) for _ in range(4)]
+        tab = plan.device_table(x.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        old_grid, old_per_sm, old_smem = _old_jvp_grid(plan, n, sm_count)
+        grid, _ = plan.jvp_launch_shape(n, sm_count)
+
+        def old_call():
+            assert old.pdt_taylor_jvp(
+                x.data_ptr(), packed.data_ptr(), v.data_ptr(), tab.data_ptr(),
+                outs[0].data_ptr(), outs[1].data_ptr(), n, plan.n_params,
+                plan.n_streams, plan.wmax, plan.out_dim, old_grid,
+                stream) == 0
+            return outs[0], outs[1]
+
+        def new_call():
+            assert lib.pdt_taylor_jvp(
+                x.data_ptr(), packed.data_ptr(), v.data_ptr(), tab.data_ptr(),
+                outs[2].data_ptr(), outs[3].data_ptr(), n, plan.n_streams,
+                plan.wmax, plan.out_dim, plan.jvp_tile, grid, stream) == 0
+            return outs[2], outs[3]
+        ref, tref = ft.fused_taylor_jvp_plain(packed, x, v, plan)
+        for fn in (old_call, new_call):
+            out, tout = fn()
+            sync()
+            torch.testing.assert_close(out, ref, **VALUE_TOL)
+            torch.testing.assert_close(tout, tref, **VALUE_TOL)
+        o1, n1, n2, o2 = (time_ms(f, reps) for f in (
+            old_call, new_call, new_call, old_call))
+        wrapped = time_ms(lambda: ft.fused_taylor_jvp(packed, x, v, plan),
+                          reps)
+        b, by, work = taylor_bounds(plan, n)["jvp"]
+        rows[tag] = dict(old=[o1, o2], new=[n1, n2], wrapper=wrapped,
+                         bound_ms=b, bound_by=by, old_blocks_per_sm=old_per_sm,
+                         old_smem_bytes=old_smem, tile=plan.jvp_tile,
+                         blocks_per_sm=plan.jvp_blocks_per_sm,
+                         smem_bytes=plan.jvp_smem)
+        log(f"jvp turns {tag} {case['features']} closure "
+            f"{plan.n_streams - 1} n={n}: old {o1:.4f} / {o2:.4f} ms "
+            f"({old_per_sm} blocks/SM, {old_smem} B), new {n1:.4f} / "
+            f"{n2:.4f} ms ({plan.jvp_blocks_per_sm} blocks/SM, "
+            f"{plan.jvp_smem} B, {plan.jvp_tile} points a tile); speed-up "
+            f"{(o1 + o2) / (n1 + n2):.2f}x; {work}: old "
+            f"{_share((o1 + o2) / 2, b)}, new {_share((n1 + n2) / 2, b)} "
+            f"({by}); through fused_taylor_jvp {wrapped:.4f} ms")
+    print(json.dumps({"jvp_turns": rows}), flush=True)
+
+
 def w3_repeat():
     """Queue 3's repeatability probe: ``w3``'s eager fit (no graphs) for its
     full 1000 steps, twice under ``torch.use_deterministic_algorithms(True,
@@ -1741,6 +1921,10 @@ def main():
         return 0
     if sys.argv[1:2] == ["--mlp-turns"]:
         mlp_turns(sys.argv[2])
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:2] == ["--jvp-turns"]:
+        jvp_turns(sys.argv[2])
         print(smi, flush=True)
         return 0
     taylor, tut_taylor, mlp, tut_mlp, jvp = phase_kernels()
@@ -1814,6 +1998,9 @@ def main():
            for tag, (_, times) in jvp.items()
            for kind, suffix in (("", ""), ("plain_", "_plain"),
                                 ("bound_", "_bound"))},
+        "plan": {tag: {k: times[k] for k in ("jvp_tile", "jvp_blocks_per_sm",
+                                             "jvp_smem_bytes")}
+                 for tag, (_, times) in jvp.items()},
         "path_launches": finisher_launches,
         "lm_launches_per_step":
             finishers["ode_lm"]["taylor_jvp_kernel_per_step"]}

@@ -15,7 +15,10 @@
 // tangent of the traversal with respect to the packed weights (the J.v of a
 // Levenberg-Marquardt step, which the JAX package takes by XLA autodiff of
 // its plan), the forward's recurrences on dual numbers.  It is reached as the
-// backward of the backward: the VJP of g -> J^T g is J.v.
+// backward of the backward: the VJP of g -> J^T g is J.v.  Its design (one
+// fused dual product a layer, the weights streamed through a cp.async ring,
+// two blocks an SM at the 64-wide chain, any chain the backward takes) and
+// its times are in the note above it, "The tangent kernel".
 //
 // What bounds it on an H100: latency and occupancy, not FMAs or bytes.  At
 // a 64-wide chain and 65,537 points the forward is 2.75 G FMAs and the
@@ -84,14 +87,14 @@ constexpr int HEADER_INTS = 6;
 
 struct Plan {
   int n_ops, in_dim, n_first, n_pairs, wmax, save_rows, n_streams;
-  int rows;  // n_streams * TILE_POINTS
+  int rows;  // n_streams * points per tile
   int ld;    // row stride of a state buffer in shared memory
   const int* first;
   const int* pairs;
   const int* ops;
 };
 
-__device__ Plan read_plan(const int* tab) {
+__device__ Plan read_plan(const int* tab, int tile = TILE_POINTS) {
   Plan p;
   p.n_ops = tab[0];
   p.in_dim = tab[1];
@@ -100,7 +103,7 @@ __device__ Plan read_plan(const int* tab) {
   p.wmax = tab[4];
   p.save_rows = tab[5];
   p.n_streams = 1 + p.n_first + p.n_pairs;
-  p.rows = p.n_streams * TILE_POINTS;
+  p.rows = p.n_streams * tile;
   p.ld = p.rows + ROW_PAD;
   p.first = tab + HEADER_INTS;
   p.pairs = p.first + p.n_first;
@@ -152,12 +155,13 @@ __device__ __forceinline__ void wait_weights() {
 }
 
 // The tile's input state: V = x, T_d = e_d, S = 0; padded points get x = 0.
+template <int TP = TILE_POINTS>
 __device__ void init_state(const Plan& p, float* buf,
                            const float* __restrict__ x, int n, int tile) {
   for (int idx = threadIdx.x; idx < p.in_dim * p.rows; idx += THREADS) {
     const int k = idx / p.rows, r = idx - k * p.rows;
-    const int s = r / TILE_POINTS;
-    const int row = tile * TILE_POINTS + (r - s * TILE_POINTS);
+    const int s = r / TP;
+    const int row = tile * TP + (r - s * TP);
     float v = 0.f;
     if (s == 0) {
       if (row < n) v = x[(size_t)row * p.in_dim + k];
@@ -169,19 +173,19 @@ __device__ void init_state(const Plan& p, float* buf,
 }
 
 // The activation of one (feature, point) column of a state, every stream
-// (stride TILE_POINTS), from `in` into `out` (which may be `in`), with the
+// (stride TP), from `in` into `out` (which may be `in`), with the
 // derivatives `d` of s at V.
+template <int TP = TILE_POINTS>
 __device__ __forceinline__ void act_element(const Plan& p, const float* d,
                                             const float* in, float* out) {
   const int F = p.n_first;
   for (int q = 0; q < p.n_pairs; ++q) {
-    const float ta = in[(1 + p.pairs[2 * q]) * TILE_POINTS];
-    const float tb = in[(1 + p.pairs[2 * q + 1]) * TILE_POINTS];
-    const int o = (1 + F + q) * TILE_POINTS;
+    const float ta = in[(1 + p.pairs[2 * q]) * TP];
+    const float tb = in[(1 + p.pairs[2 * q + 1]) * TP];
+    const int o = (1 + F + q) * TP;
     out[o] = fmaf(d[2] * ta, tb, d[1] * in[o]);
   }
-  for (int i = 0; i < F; ++i)
-    out[(1 + i) * TILE_POINTS] = d[1] * in[(1 + i) * TILE_POINTS];
+  for (int i = 0; i < F; ++i) out[(1 + i) * TP] = d[1] * in[(1 + i) * TP];
   out[0] = d[0];
 }
 
@@ -212,29 +216,30 @@ __device__ void act_columns(const Plan& p, int width, int kind,
 //   T' = s''V.T + s'T.
 //   S_ab' = s'''V.T_aT_b + s''(T_a.T_b + T_aT_b. + V.S_ab) + s'S_ab.
 // then the primal update.  Each thread reads only its own column.
+template <int TP>
 __device__ void act_dual(const Plan& p, int width, int kind, float* buf,
                          float* tbuf) {
   const int F = p.n_first;
-  for (int idx = threadIdx.x; idx < width * TILE_POINTS; idx += THREADS) {
-    const int j = idx / TILE_POINTS, m = idx - j * TILE_POINTS;
+  for (int idx = threadIdx.x; idx < width * TP; idx += THREADS) {
+    const int j = idx / TP, m = idx - j * TP;
     float* in = buf + j * p.ld + m;
     float* tin = tbuf + j * p.ld + m;
     float d[4];
     sigma_derivs(kind, in[0], d);
     const float vd = tin[0];
     for (int q = 0; q < p.n_pairs; ++q) {
-      const int a = (1 + p.pairs[2 * q]) * TILE_POINTS;
-      const int b = (1 + p.pairs[2 * q + 1]) * TILE_POINTS;
-      const int o = (1 + F + q) * TILE_POINTS;
+      const int a = (1 + p.pairs[2 * q]) * TP;
+      const int b = (1 + p.pairs[2 * q + 1]) * TP;
+      const int o = (1 + F + q) * TP;
       const float mixed = tin[a] * in[b] + in[a] * tin[b] + vd * in[o];
       tin[o] = d[3] * vd * in[a] * in[b] + d[2] * mixed + d[1] * tin[o];
     }
     for (int i = 0; i < F; ++i) {
-      const int t = (1 + i) * TILE_POINTS;
+      const int t = (1 + i) * TP;
       tin[t] = d[2] * vd * in[t] + d[1] * tin[t];
     }
     tin[0] = d[1] * vd;
-    act_element(p, d, in, in);
+    act_element<TP>(p, d, in, in);
   }
 }
 
@@ -403,15 +408,16 @@ __device__ void act_adjoint(const Plan& p, int width, int kind,
 
 // Element (point m, column c) of the (n, S * out_dim) stream matrix, for
 // the tile's points, lies at feature c % out_dim, row (c / out_dim) * M + m.
+template <int TP = TILE_POINTS>
 __device__ void store_streams(const Plan& p, const float* buf,
                               float* __restrict__ out, int n, int tile,
                               int out_dim) {
   const int cols = p.n_streams * out_dim;
-  for (int idx = threadIdx.x; idx < TILE_POINTS * cols; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < TP * cols; idx += THREADS) {
     const int m = idx / cols, c = idx - m * cols;
     const int s = c / out_dim, j = c - s * out_dim;
-    const int row = tile * TILE_POINTS + m;
-    if (row < n) out[(size_t)row * cols + c] = buf[j * p.ld + s * TILE_POINTS + m];
+    const int row = tile * TP + m;
+    if (row < n) out[(size_t)row * cols + c] = buf[j * p.ld + s * TP + m];
   }
 }
 
@@ -462,59 +468,371 @@ taylor_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
   }
 }
 
+// ---- The tangent kernel ---------------------------------------------------
+//
 // The traversal and its tangent for a tangent `v_glob` of the packed weights
 // (the same layout): the forward's recurrences on dual numbers.  A dense
-// layer maps the tangent to tin.W + in.Wv (+ bv on V), an activation as
-// act_dual.  The tile design is the forward's; the block holds the weights
-// and their tangent, and two state buffers each for the primal and the
-// tangent.  Three products per dense layer: about three times the forward's
-// FMAs.
+// layer maps the pair (in, tin) to out = in.W (+ b on V) and tout = tin.W +
+// in.Wv (+ bv on V), an activation as act_dual.
+//
+// What bounds it on an H100.  Three products a dense layer: at the 64-wide
+// chain and 65,537 points, 8.24 G FMAs, 246 us at the card's 67 TFLOP/s of
+// f32 FMA; a few MB cross device memory (1 us).  So the FMA pipes and what
+// feeds them: shared-memory loads and the warps resident to hide their
+// latency.  The first design (commit 6444749) kept W and Wv whole in shared
+// memory beside four tile states (154,656 B at that chain: one 256-thread
+// block an SM, 8 warps of 64), ran the three products as three passes over
+// the state (15 shared loads per 48 FMAs, with 320 register tiles for 256
+// threads and the 64 -> 1 layer on 20 threads walking K serially), and
+// refused a chain whose block did not fit (128 wide): on an NVIDIA H100
+// 80GB HBM3 at 700 W, 1.6004 ms at that shape, 15.4% of its bound, and
+// 1.6317 ms (18.2%) with 6 streams.
+//
+// This design:
+// * One fused dual product a layer.  A thread owns the same register tiles
+//   (4 rows x 1 column, RB row groups) of out and tout for the whole layer
+//   and, per K row, loads in and tin once per row group (one 16-byte load
+//   each, the same address across the warp's 32 lanes) and W and Wv once
+//   (32 lanes on 32 consecutive columns): at the 64-wide chain 12 loads for
+//   60 FMAs, where the first design took 15 for 48.
+// * A balanced map (dual_map): TC threads along the columns (N rounded up
+//   to a power of two), TR along the row groups, so the tiles divide evenly
+//   at the 64-wide chain (64 x 4 threads, 5 row groups each with 5 streams,
+//   6 with 6).  Where the columns and row groups leave threads idle (the
+//   64 -> 1 output layer) the remaining factor SK splits K; the partial sums
+//   meet in shared memory and are added in ks order, so the tangent is
+//   bitwise repeatable.  More than MAX_ROW_TILES row groups a thread (or
+//   more columns than threads) take passes, the weights streamed again.
+// * Weights streamed, not resident: each layer's rows arrive as K-slices of
+//   RING_ROWS x wmax floats (W and Wv) through a ring of RING_SLOTS slots,
+//   copied by cp.async (16-byte .cg copies, 4-byte ones at a slice's
+//   unaligned ends); slice s + 2 lands while slice s is multiplied, one
+//   barrier a slice.  A dense layer's first two slices start loading when
+//   the previous dense layer ends, so they load under the activation.  Each
+//   tile reads the weights again from L2 (about 68 KB a tile at the 64-wide
+//   chain, 280 MB a launch at 65,537 points: some 50 us of L2 traffic,
+//   under the products).
+// * Shared memory is four tile states and the ring: 98,400 B at the 64-wide
+//   chain (5 streams), 114,784 B with 6 streams, so two 256-thread blocks an
+//   SM, 16 warps.  The plan (TaylorPlan in ops/fused_taylor.py) takes 16
+//   points a tile, or 8 or 4 where the states at 16 do not fit: the kernel
+//   takes every chain the forward and backward take (the 128-wide chain:
+//   196,704 B, one block at 16 points).
+// * No tensor cores.  Plain TF32 keeps 10 mantissa bits and breaks the
+//   values' 2e-5 tolerance; 3xTF32 triples the tensor work, and the gap to
+//   the FMA bound is not the FMA rate (below).
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py --jvp-turns runs
+// the first design and this one in turns): at the 64-wide chain and 65,537
+// points about 1.38 ms against 1.58 (18% of the bound), with 6 streams
+// 1.53 against 1.61.  The gap is not the FMA rate.  In a variant (the map
+// below, the stream across layers), the products without their FMAs and
+// loads still took 0.58 ms of 1.59 (barriers, slice waits, epilogues) and
+// the activations 0.18 ms.  Maps with fewer shared loads a FMA were slower:
+// lanes along the row groups with a tile of 1 row group x 8 columns (18
+// loads per 96 FMAs, 160 busy threads: 1.47 ms), that map at 192 threads
+// with the next K row's loads in registers (164 registers: 1.65 ms), and a
+// weight stream running on across layers and tiles (1.59 ms).  Launch-bound
+// shapes (a tile or two a block) lost: 0.021 ms against 0.016 on the README
+// chain at 1,024 points, a slice wait and a barrier a layer where the first
+// design loaded the weights once.
+
+constexpr int RING_SLOTS = 3;
+constexpr int RING_ROWS = 8;       // K rows of a slice at the widest layer
+constexpr int MAX_ROW_TILES = 6;   // row groups a thread holds a pass
+// The split-K partials (at most THREADS pairs of float4) alias the ring.
+constexpr int SPLIT_FLOATS = 2 * 4 * THREADS;
+
+__host__ __device__ int jvp_slot_floats(int wmax) {
+  return ((RING_ROWS * wmax + 3) & ~3) + 4;  // + room for the alignment shift
+}
+
+__device__ __forceinline__ unsigned smem_addr(const float* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// Floats from a 16-byte boundary to `src`: a slice lands that far into its
+// slot, so that the slot and the source agree modulo 16 bytes.
+__device__ __forceinline__ int align_shift(const float* src) {
+  return static_cast<int>((reinterpret_cast<size_t>(src) >> 2) & 3);
+}
+
+// Starts the copy of `count` floats from `src` to `slot` + align_shift(src).
+__device__ void copy_slice(float* slot, const float* src, int count) {
+  const int shift = align_shift(src);
+  float* dst = slot + shift;
+  const int head = min(count, (4 - shift) & 3);
+  const int chunks = (count - head) / 4;
+  const int tail = head + 4 * chunks;
+  const int items = head + chunks + (count - tail);
+  for (int it = threadIdx.x; it < items; it += THREADS) {
+    if (it < head) {
+      cp_async4(dst + it, src + it);
+    } else if (it < head + chunks) {
+      const int i = head + 4 * (it - head);
+      cp_async16(dst + i, src + i);
+    } else {
+      const int i = tail + (it - head - chunks);
+      cp_async4(dst + i, src + i);
+    }
+  }
+}
+
+// How a block's threads share one dense layer (N columns, `groups` row
+// groups of 4 rows): thread (tc, tr, ks) owns the columns tc + a * tcn
+// (a < ca) and the row groups tr + b * trn (b < rb), over the K rows
+// t = ks mod sk of each slice.  Threads with ks >= sk only copy and wait.
+struct DualMap {
+  int tcn, trn, sk, ca, rb;
+  int tc, tr, ks;
+  int chunks;  // passes over the row groups: ceil(rb / MAX_ROW_TILES)
+  int passes;  // ca * chunks
+};
+
+__device__ DualMap dual_map(int N, int groups) {
+  DualMap m;
+  m.tcn = 1;
+  while (m.tcn < N && m.tcn < THREADS) m.tcn <<= 1;
+  m.ca = (N + m.tcn - 1) / m.tcn;
+  const int rest = THREADS / m.tcn;
+  m.trn = min(rest, groups);
+  m.sk = rest / m.trn;
+  m.rb = (groups + m.trn - 1) / m.trn;
+  m.tc = threadIdx.x % m.tcn;
+  const int r = threadIdx.x / m.tcn;
+  m.tr = r % m.trn;
+  m.ks = r / m.trn;
+  m.chunks = (m.rb + MAX_ROW_TILES - 1) / MAX_ROW_TILES;
+  m.passes = m.ca * m.chunks;
+  return m;
+}
+
+// K rows of a layer's slice: RING_ROWS at the widest layer, more where N is
+// narrower, at most K.
+__device__ __forceinline__ int slice_rows(int K, int N, int wmax) {
+  return min(K, RING_ROWS * wmax / N);
+}
+
+// Slice s of dense op `op` (the passes stream the same slices again) into
+// its ring slot: W's rows and Wv's, one cp.async group.
+__device__ void start_slice(const Plan& p, const int* op, int s,
+                            const float* __restrict__ w_glob,
+                            const float* __restrict__ v_glob, float* ring,
+                            int slot_floats) {
+  const int K = op[1], N = op[2];
+  const int ksr = slice_rows(K, N, p.wmax);
+  const int nsl = (K + ksr - 1) / ksr;
+  const int k0 = (s % nsl) * ksr;
+  const int off = op[3] + k0 * N, count = min(ksr, K - k0) * N;
+  float* slot = ring + (s % RING_SLOTS) * 2 * slot_floats;
+  copy_slice(slot, w_glob + off, count);
+  copy_slice(slot + slot_floats, v_glob + off, count);
+  cp_async_commit();
+}
+
+// Starts the first two slices of dense op `op`, ahead of its product.
+__device__ void start_head(const Plan& p, const int* op,
+                           const float* __restrict__ w_glob,
+                           const float* __restrict__ v_glob, float* ring,
+                           int slot_floats) {
+  const int K = op[1], N = op[2];
+  const int ksr = slice_rows(K, N, p.wmax);
+  const int total = dual_map(N, p.rows / 4).passes * ((K + ksr - 1) / ksr);
+  for (int s = 0; s < 2 && s < total; ++s)
+    start_slice(p, op, s, w_glob, v_glob, ring, slot_floats);
+}
+
+// The dense layer on dual numbers, from (in, tin) into (out, tout), its
+// first two slices already started (start_head).  Ends after a barrier.
+template <int TP>
+__device__ void dense_dual(const Plan& p, const int* op,
+                           const float* __restrict__ w_glob,
+                           const float* __restrict__ v_glob, float* ring,
+                           int slot_floats, const float* in, const float* tin,
+                           float* out, float* tout) {
+  const int K = op[1], N = op[2], w_off = op[3], b_off = op[4];
+  const int groups = p.rows / 4;
+  const DualMap m = dual_map(N, groups);
+  const int ksr = slice_rows(K, N, p.wmax);
+  const int nsl = (K + ksr - 1) / ksr;
+  const int total = m.passes * nsl;
+  const bool busy = m.ks < m.sk;
+  float4 acc[MAX_ROW_TILES], tacc[MAX_ROW_TILES];
+  int roff[MAX_ROW_TILES];
+  int c = 0, nb = 0;
+  for (int s = 0; s < total; ++s) {
+    const int pass = s / nsl, j = s - pass * nsl;
+    if (s + 1 < total)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // slice s is in; every thread is past slice s - 1
+    if (s + 2 < total)
+      start_slice(p, op, s + 2, w_glob, v_glob, ring, slot_floats);
+    if (j == 0) {
+      const int a = pass / m.chunks, bc = pass - a * m.chunks;
+      c = m.tc + a * m.tcn;
+      nb = min(MAX_ROW_TILES, m.rb - bc * MAX_ROW_TILES);
+#pragma unroll
+      for (int b = 0; b < MAX_ROW_TILES; ++b) {
+        const int g = m.tr + (bc * MAX_ROW_TILES + b) * m.trn;
+        roff[b] = 4 * min(g, groups - 1);
+        acc[b] = make_float4(0.f, 0.f, 0.f, 0.f);
+        tacc[b] = acc[b];
+      }
+    }
+    const int k0 = j * ksr, rows = min(ksr, K - k0);
+    const int cc = min(c, N - 1);
+    const float* slot = ring + (s % RING_SLOTS) * 2 * slot_floats;
+    const float* ws = slot + align_shift(w_glob + w_off + k0 * N) + cc;
+    const float* vs =
+        slot + slot_floats + align_shift(v_glob + w_off + k0 * N) + cc;
+    if (busy) {
+      for (int t = m.ks; t < rows; t += m.sk) {
+        const float w = ws[t * N], wv = vs[t * N];
+        const float* a = in + (k0 + t) * p.ld;
+        const float* ta = tin + (k0 + t) * p.ld;
+#pragma unroll
+        for (int b = 0; b < MAX_ROW_TILES; ++b) {
+          if (b < nb) {
+            const float4 x = *reinterpret_cast<const float4*>(a + roff[b]);
+            const float4 tx = *reinterpret_cast<const float4*>(ta + roff[b]);
+            acc[b].x = fmaf(x.x, w, acc[b].x);
+            acc[b].y = fmaf(x.y, w, acc[b].y);
+            acc[b].z = fmaf(x.z, w, acc[b].z);
+            acc[b].w = fmaf(x.w, w, acc[b].w);
+            tacc[b].x = fmaf(x.x, wv, fmaf(tx.x, w, tacc[b].x));
+            tacc[b].y = fmaf(x.y, wv, fmaf(tx.y, w, tacc[b].y));
+            tacc[b].z = fmaf(x.z, wv, fmaf(tx.z, w, tacc[b].z));
+            tacc[b].w = fmaf(x.w, wv, fmaf(tx.w, w, tacc[b].w));
+          }
+        }
+      }
+    }
+    if (j + 1 < nsl) continue;
+    // The pass's epilogue.  Split K: the partials of ks > 0 go to shared
+    // memory (aliasing the ring, which every thread is done reading), and
+    // ks == 0 adds them in ks order.
+    if (m.sk > 1) {
+      float4* part = reinterpret_cast<float4*>(ring);
+      const int plane = m.trn * m.tcn, own = m.tr * m.tcn + m.tc;
+      __syncthreads();
+      if (m.ks > 0 && busy) {
+        part[2 * ((m.ks - 1) * plane + own)] = acc[0];
+        part[2 * ((m.ks - 1) * plane + own) + 1] = tacc[0];
+      }
+      __syncthreads();
+      if (m.ks == 0) {
+        for (int q = 1; q < m.sk; ++q) {
+          const float4 u = part[2 * ((q - 1) * plane + own)];
+          const float4 tu = part[2 * ((q - 1) * plane + own) + 1];
+          acc[0].x += u.x;
+          acc[0].y += u.y;
+          acc[0].z += u.z;
+          acc[0].w += u.w;
+          tacc[0].x += tu.x;
+          tacc[0].y += tu.y;
+          tacc[0].z += tu.z;
+          tacc[0].w += tu.w;
+        }
+      }
+    }
+    if (m.ks == 0 && c < N) {
+      const int bc = pass % m.chunks;
+#pragma unroll
+      for (int b = 0; b < MAX_ROW_TILES; ++b) {
+        const int g = m.tr + (bc * MAX_ROW_TILES + b) * m.trn;
+        if (b < nb && g < groups) {
+          float4 o = acc[b], to = tacc[b];
+          if (4 * g < TP) {  // the V rows
+            const float bias = w_glob[b_off + c], tbias = v_glob[b_off + c];
+            o.x += bias;
+            o.y += bias;
+            o.z += bias;
+            o.w += bias;
+            to.x += tbias;
+            to.y += tbias;
+            to.z += tbias;
+            to.w += tbias;
+          }
+          *reinterpret_cast<float4*>(out + c * p.ld + 4 * g) = o;
+          *reinterpret_cast<float4*>(tout + c * p.ld + 4 * g) = to;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The index of the first dense op after op `o`, or -1.
+__device__ int next_dense(const Plan& p, int o) {
+  for (int i = o + 1; i < p.n_ops; ++i)
+    if (p.ops[i * OP_INTS] == 0) return i;
+  return -1;
+}
+
+// TP points a tile (16, or 8 or 4 where the states at 16 do not fit: the
+// plan's choice); the block holds four tile states (primal and tangent, in
+// and out) and the ring.
+template <int TP>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS_PER_SM)
 taylor_jvp_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
                   const float* __restrict__ v_glob, const int* __restrict__ tab,
                   float* __restrict__ out, float* __restrict__ tout, int n,
-                  int P, int out_dim) {
+                  int out_dim) {
   extern __shared__ float4 smem4[];
-  float* w = reinterpret_cast<float*>(smem4);
-  float* wv = w + weights_floats(P);
-  const Plan p = read_plan(tab);
+  const Plan p = read_plan(tab, TP);
   float* buf[2];
   float* tbuf[2];
-  buf[0] = wv + weights_floats(P);
+  buf[0] = reinterpret_cast<float*>(smem4);
   buf[1] = buf[0] + p.wmax * p.ld;
   tbuf[0] = buf[1] + p.wmax * p.ld;
   tbuf[1] = tbuf[0] + p.wmax * p.ld;
-  load_weights_async(w, w_glob, P);
-  load_weights_async(wv, v_glob, P);
-  const int tiles = (n + TILE_POINTS - 1) / TILE_POINTS;
+  float* ring = tbuf[1] + p.wmax * p.ld;
+  const int slot_floats = jvp_slot_floats(p.wmax);
+  const int tiles = (n + TP - 1) / TP;
+  const int first = next_dense(p, -1);
+  if (first >= 0 && (int)blockIdx.x < tiles)
+    start_head(p, p.ops + first * OP_INTS, w_glob, v_glob, ring, slot_floats);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    init_state(p, buf[0], x, n, tile);
+    init_state<TP>(p, buf[0], x, n, tile);
     for (int idx = threadIdx.x; idx < p.in_dim * p.rows; idx += THREADS) {
       const int k = idx / p.rows;
       tbuf[0][k * p.ld + idx - k * p.rows] = 0.f;
     }
-    wait_weights();
     __syncthreads();
     int cur = 0, width = p.in_dim;
     for (int o = 0; o < p.n_ops; ++o) {
       const int* op = p.ops + o * OP_INTS;
       if (op[0] == 0) {
-        const int K = op[1], N = op[2];
-        product(tbuf[cur], tbuf[1 - cur], p.ld, p.rows, K, N, w + op[3], 1, N,
-                wv + op[4]);
-        product(buf[cur], tbuf[1 - cur], p.ld, p.rows, K, N, wv + op[3], 1, N,
-                nullptr, true);
-        product(buf[cur], buf[1 - cur], p.ld, p.rows, K, N, w + op[3], 1, N,
-                w + op[4]);
+        dense_dual<TP>(p, op, w_glob, v_glob, ring, slot_floats, buf[cur],
+                       tbuf[cur], buf[1 - cur], tbuf[1 - cur]);
         cur = 1 - cur;
-        width = N;
+        width = op[2];
+        // The next dense layer's head, this tile's or the next tile's.
+        const int nd = next_dense(p, o);
+        if (nd >= 0)
+          start_head(p, p.ops + nd * OP_INTS, w_glob, v_glob, ring,
+                     slot_floats);
+        else if (tile + (int)gridDim.x < tiles)
+          start_head(p, p.ops + first * OP_INTS, w_glob, v_glob, ring,
+                     slot_floats);
       } else {
-        act_dual(p, width, op[2], buf[cur], tbuf[cur]);
+        act_dual<TP>(p, width, op[2], buf[cur], tbuf[cur]);
+        __syncthreads();
       }
-      __syncthreads();
     }
-    store_streams(p, buf[cur], out, n, tile, out_dim);
-    store_streams(p, tbuf[cur], tout, n, tile, out_dim);
+    store_streams<TP>(p, buf[cur], out, n, tile, out_dim);
+    store_streams<TP>(p, tbuf[cur], tout, n, tile, out_dim);
     __syncthreads();
   }
 }
@@ -621,10 +939,13 @@ size_t taylor_smem_bytes(int P, int n_streams, int wmax, int n_bufs) {
   return sizeof(float) * ((size_t)weights_floats(P) + (size_t)n_bufs * wmax * ld);
 }
 
-// The tangent kernel's block: the weights twice and four state buffers.
-size_t taylor_jvp_smem_bytes(int P, int n_streams, int wmax) {
-  return taylor_smem_bytes(P, n_streams, wmax, 4) +
-         sizeof(float) * (size_t)weights_floats(P);
+// The tangent kernel's block: four tile states of `tile` points and the
+// ring (or the split-K partials it holds, where they are larger).
+size_t taylor_jvp_smem_bytes(int n_streams, int wmax, int tile) {
+  const size_t ld = (size_t)n_streams * tile + ROW_PAD;
+  const size_t ring = (size_t)RING_SLOTS * 2 * jvp_slot_floats(wmax);
+  const size_t region = ring > SPLIT_FLOATS ? ring : (size_t)SPLIT_FLOATS;
+  return sizeof(float) * (4 * (size_t)wmax * ld + region);
 }
 
 cudaError_t allow_smem(const void* kernel, size_t smem) {
@@ -633,11 +954,26 @@ cudaError_t allow_smem(const void* kernel, size_t smem) {
                               (int)smem);
 }
 
+template <int TP>
+int launch_jvp(const float* x, const float* w, const float* v, const int* tab,
+               float* out, float* tout, int n, size_t smem, int out_dim,
+               int grid, cudaStream_t stream) {
+  cudaError_t err = allow_smem((const void*)taylor_jvp_kernel<TP>, smem);
+  if (err != cudaSuccess) return (int)err;
+  taylor_jvp_kernel<TP><<<grid, THREADS, smem, stream>>>(x, w, v, tab, out,
+                                                         tout, n, out_dim);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int pdt_taylor_tile_points() { return TILE_POINTS; }
+
+int pdt_taylor_jvp_smem_bytes(int n_streams, int wmax, int tile) {
+  return (int)taylor_jvp_smem_bytes(n_streams, wmax, tile);
+}
 
 // x (n, in_dim), w (P,), tab (device op table), out (n, n_streams*out_dim);
 // `grid` persistent blocks.
@@ -653,17 +989,20 @@ int pdt_taylor_forward(const float* x, const float* w, const int* tab,
 }
 
 // x (n, in_dim), w and v (P,), tab, out and tout (n, n_streams*out_dim);
-// `grid` persistent blocks.
+// `tile` points a tile (16, 8 or 4), `grid` persistent blocks.
 int pdt_taylor_jvp(const float* x, const float* w, const float* v,
-                   const int* tab, float* out, float* tout, int n, int P,
-                   int n_streams, int wmax, int out_dim, int grid,
+                   const int* tab, float* out, float* tout, int n,
+                   int n_streams, int wmax, int out_dim, int tile, int grid,
                    void* stream) {
-  const size_t smem = taylor_jvp_smem_bytes(P, n_streams, wmax);
-  cudaError_t err = allow_smem((const void*)taylor_jvp_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  taylor_jvp_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, w, v, tab, out, tout, n, P, out_dim);
-  return (int)cudaGetLastError();
+  const size_t smem = taylor_jvp_smem_bytes(n_streams, wmax, tile);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tile == 16)
+    return launch_jvp<16>(x, w, v, tab, out, tout, n, smem, out_dim, grid, st);
+  if (tile == 8)
+    return launch_jvp<8>(x, w, v, tab, out, tout, n, smem, out_dim, grid, st);
+  if (tile == 4)
+    return launch_jvp<4>(x, w, v, tab, out, tout, n, smem, out_dim, grid, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // g (n, n_streams*out_dim); saves (grid * save_rows * TILE_POINTS);

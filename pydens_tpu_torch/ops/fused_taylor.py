@@ -47,10 +47,17 @@ _ACT_KINDS = {id(ACTIVATIONS["tanh"]): TANH,
               id(ACTIVATIONS["sigmoid"]): SIGMOID,
               id(ACTIVATIONS["sin"]): SIN}
 
-# csrc/fused_taylor.cu: TILE_POINTS, ROW_PAD, MIN_BLOCKS_PER_SM.
+# csrc/fused_taylor.cu: TILE_POINTS, ROW_PAD, MIN_BLOCKS_PER_SM, and the
+# tangent kernel's THREADS, RING_SLOTS, RING_ROWS and SPLIT_FLOATS.
 _TILE_POINTS = 16
 _ROW_PAD = 4
 _BLOCKS_PER_SM = 2
+_THREADS = 256
+_RING_SLOTS = 3
+_RING_ROWS = 8
+_SPLIT_FLOATS = 2 * 4 * _THREADS
+# The tangent kernel's points per tile, the largest first.
+_JVP_TILES = (16, 8, 4)
 # Shared memory of one H100 SM, and what CUDA reserves of it per block.
 _SM_SHARED_BYTES = 233_472
 _BLOCK_RESERVED_BYTES = 1024
@@ -86,19 +93,43 @@ def pack_weights(net_params, layer_names):
                       for t in (net_params[name]["w"], net_params[name]["b"])])
 
 
-def _taylor_smem_bytes(n_params, n_streams, wmax, n_bufs, weight_sets=1):
-    """Shared memory of one block: ``weight_sets`` copies of the packed
-    weights (each rounded up to 16 bytes) and ``n_bufs`` tile states of
-    ``wmax`` features x ``n_streams * TILE_POINTS`` rows (the forward 1 and
-    2, the backward 1 and 3, the tangent kernel 2 and 4) —
-    ``taylor_smem_bytes`` and ``taylor_jvp_smem_bytes`` of the CUDA
-    source."""
+def _taylor_smem_bytes(n_params, n_streams, wmax, n_bufs):
+    """Shared memory of one forward or backward block: the packed weights
+    (rounded up to 16 bytes) and ``n_bufs`` tile states of ``wmax``
+    features x ``n_streams * TILE_POINTS`` rows (the forward 2, the
+    backward 3) — ``taylor_smem_bytes`` of the CUDA source."""
     ld = n_streams * _TILE_POINTS + _ROW_PAD
-    return 4 * (weight_sets * -(-n_params // 4) * 4 + n_bufs * wmax * ld)
+    return 4 * (-(-n_params // 4) * 4 + n_bufs * wmax * ld)
 
 
-# (n_bufs, weight_sets) of the tangent kernel's block.
-_JVP_SMEM = (4, 2)
+def _jvp_smem_bytes(n_streams, wmax, tile):
+    """Shared memory of one tangent-kernel block at ``tile`` points a tile:
+    four tile states and the ring of weight slices (``RING_SLOTS`` slots of
+    ``RING_ROWS * wmax`` floats of W and of its tangent, each with room for
+    a 16-byte alignment shift), or the split-K partials it holds where they
+    are larger — ``taylor_jvp_smem_bytes`` of the CUDA source."""
+    ld = n_streams * tile + _ROW_PAD
+    slot = -(-_RING_ROWS * wmax // 4) * 4 + 4
+    region = max(_RING_SLOTS * 2 * slot, _SPLIT_FLOATS)
+    return 4 * (4 * wmax * ld + region)
+
+
+def _jvp_tile(n_streams, wmax):
+    """The tangent kernel's points per tile: the largest of ``_JVP_TILES``
+    whose block fits shared memory.  The smallest fits wherever the
+    backward's block does (tests/test_torch_fused_kernels.py sweeps it)."""
+    for tile in _JVP_TILES[:-1]:
+        if _jvp_smem_bytes(n_streams, wmax, tile) <= MAX_SHARED_BYTES:
+            return tile
+    return _JVP_TILES[-1]
+
+
+def _blocks_per_sm(smem):
+    """``MIN_BLOCKS_PER_SM`` where that many blocks of ``smem`` bytes fit an
+    SM's shared memory, else one."""
+    per_block = smem + _BLOCK_RESERVED_BYTES
+    return (_BLOCKS_PER_SM if _BLOCKS_PER_SM * per_block <= _SM_SHARED_BYTES
+            else 1)
 
 
 def _chain_ops(tokens, acts, layer_shapes):
@@ -117,12 +148,12 @@ def _chain_ops(tokens, acts, layer_shapes):
 
 
 def supports(tokens, acts, closure, layer_shapes, in_dim,
-             dtype=torch.float32, tangent=False):
+             dtype=torch.float32):
     """Whether the fused kernels cover this (layout, plan): a dense chain
     (no skips), activations with closed-form derivatives (tanh, sigmoid,
     sin), derivative multi-indices of order <= 2, float32, and a state
-    that fits one block's shared memory — with ``tangent``, the tangent
-    kernel's block too."""
+    that fits one block's shared memory.  The tangent kernel takes every
+    such chain (:func:`_jvp_tile`)."""
     if dtype != torch.float32 or not closure:
         return False
     if any(t not in ("f", "c", "a") for t in tokens):
@@ -134,9 +165,6 @@ def supports(tokens, acts, closure, layer_shapes, in_dim,
     n_streams = 1 + len(closure)
     wmax = max([in_dim] + [n for _, n in layer_shapes])
     n_params = sum(k * n + n for k, n in layer_shapes)
-    if tangent and _taylor_smem_bytes(n_params, n_streams, wmax,
-                                      *_JVP_SMEM) > MAX_SHARED_BYTES:
-        return False
     return _taylor_smem_bytes(n_params, n_streams, wmax, 3) <= MAX_SHARED_BYTES
 
 
@@ -181,24 +209,32 @@ class TaylorPlan:
         for a, b in self.pairs:
             table += [pos[a], pos[b]]
         self.table = table + records
-        self.tangent_ok = self.smem_bytes(*_JVP_SMEM) <= MAX_SHARED_BYTES
+        # The tangent kernel: its points per tile, shared memory and
+        # blocks per SM.
+        self.jvp_tile = _jvp_tile(self.n_streams, self.wmax)
+        self.jvp_smem = _jvp_smem_bytes(self.n_streams, self.wmax,
+                                        self.jvp_tile)
+        self.jvp_blocks_per_sm = _blocks_per_sm(self.jvp_smem)
         self._device_tables = {}
 
-    def smem_bytes(self, n_bufs, weight_sets=1):
+    def smem_bytes(self, n_bufs):
         return _taylor_smem_bytes(self.n_params, self.n_streams, self.wmax,
-                                  n_bufs, weight_sets)
+                                  n_bufs)
 
-    def launch_shape(self, n, sm_count, n_bufs, weight_sets=1):
-        """``(grid, slots)`` of a launch over ``n`` points: ``slots``
-        persistent blocks fit the card at once (``MIN_BLOCKS_PER_SM`` per
-        SM where shared memory allows, else one), and the grid is the
-        smaller of that and the number of tiles."""
-        per_block = (self.smem_bytes(n_bufs, weight_sets)
-                     + _BLOCK_RESERVED_BYTES)
-        per_sm = (_BLOCKS_PER_SM
-                  if _BLOCKS_PER_SM * per_block <= _SM_SHARED_BYTES else 1)
-        slots = sm_count * per_sm
+    def launch_shape(self, n, sm_count, n_bufs):
+        """``(grid, slots)`` of a forward (``n_bufs`` 2) or backward (3)
+        launch over ``n`` points: ``slots`` persistent blocks fit the card
+        at once (``MIN_BLOCKS_PER_SM`` per SM where shared memory allows,
+        else one), and the grid is the smaller of that and the number of
+        tiles."""
+        slots = sm_count * _blocks_per_sm(self.smem_bytes(n_bufs))
         return min(-(-n // _TILE_POINTS), slots), slots
+
+    def jvp_launch_shape(self, n, sm_count):
+        """``(grid, slots)`` of a tangent-kernel launch, as
+        :meth:`launch_shape` with its own block and tile."""
+        slots = sm_count * self.jvp_blocks_per_sm
+        return min(-(-n // self.jvp_tile), slots), slots
 
     def backward_workspace(self, n, sm_count):
         """``(grid, save_floats, partial_floats)`` of one backward launch.
@@ -340,29 +376,24 @@ def fused_taylor_jvp(packed, x, v, plan):
     """``(streams, tangent)``: the streams of :func:`fused_taylor_forward`
     and their tangent for the tangent ``v`` of ``packed`` (same layout), each
     ``(n, n_streams * out_dim)``: the CUDA tangent kernel for CUDA tensors,
-    the plain version for CPU tensors.  A plan whose tangent block does not
-    fit shared memory raises (``TaylorPlan.tangent_ok``)."""
+    the plain version for CPU tensors.  The kernel takes every plan
+    (``TaylorPlan.jvp_tile`` points a tile)."""
     if x.device.type == "cpu":
         return fused_taylor_jvp_plain(packed, x, v, plan)
     n = _check_kernel_args(packed, x, plan)
     check_operand("v", v, (plan.n_params,))
-    if not plan.tangent_ok:
-        raise ValueError(
-            "fused Taylor tangent kernel: the chain's weights, their tangent "
-            f"and four tile states need {plan.smem_bytes(*_JVP_SMEM)} bytes "
-            f"of shared memory, more than a block has ({MAX_SHARED_BYTES})")
     shape = (n, plan.n_streams * plan.out_dim)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     tangent = torch.empty(shape, dtype=x.dtype, device=x.device)
     if n == 0:
         return out, tangent
     lib = _lib()
-    grid, _ = plan.launch_shape(n, _sm_count(x.device), *_JVP_SMEM)
+    grid, _ = plan.jvp_launch_shape(n, _sm_count(x.device))
     err = lib.pdt_taylor_jvp(
         x.data_ptr(), packed.data_ptr(), v.data_ptr(),
         plan.device_table(x.device).data_ptr(), out.data_ptr(),
-        tangent.data_ptr(), n, plan.n_params, plan.n_streams, plan.wmax,
-        plan.out_dim, grid, torch.cuda.current_stream(x.device).cuda_stream)
+        tangent.data_ptr(), n, plan.n_streams, plan.wmax, plan.out_dim,
+        plan.jvp_tile, grid, torch.cuda.current_stream(x.device).cuda_stream)
     launch_checked("pdt_taylor_jvp", err)
     fused_taylor_jvp.launches += 1
     return out, tangent

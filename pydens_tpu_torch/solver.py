@@ -27,6 +27,7 @@ ported slice (``__init__`` / ``fit`` / ``predict`` / ``reshape_and_concat``
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
 import re
 import sys
@@ -243,8 +244,12 @@ class _FitStep:
 
     def _capture(self, fn):
         # Capture records fn without running it: theta, the state and the
-        # index move only when the graph is replayed.
+        # index move only when the graph is replayed.  The cyclic garbage
+        # collector is held off meanwhile: collecting a dead solver there
+        # frees its graphs and their memory, which invalidates the capture.
         graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with staging(self.constants), torch.cuda.graph(graph):
                 fn()
@@ -255,6 +260,9 @@ class _FitStep:
                 f"{first}. A step must not read a device value on the host "
                 "(.item(), float(), .tolist(), a Python `if` on a tensor), "
                 "e.g. in an equation, a condition or an lr schedule") from err
+        finally:
+            if collecting:
+                gc.enable()
         return graph
 
 
@@ -895,7 +903,7 @@ class Solver:
                 "False/'never' (nested gradients)")
         use_plan = bool(self._plan_ok) and fast_taps not in (False, "never")
         if isinstance(self._opt, LMConfig):
-            self._check_lm(criterion_key, use_plan)
+            self._check_lm(criterion_key)
         batch_size = int(batch_size)
         chunk = max(1, min(niters, int(chunk_size)))
         step = self._fit_step(loss_terms, criterion_fn, use_plan, batch_size,
@@ -1025,24 +1033,14 @@ class Solver:
             self.history[-1]["converged_at"] = int(converged_at)
         return self
 
-    def _check_lm(self, criterion_key, use_plan):
-        """Levenberg-Marquardt's conditions (``pydens_tpu``'s ``fit``): the
-        MSE criterion, so that ``loss == |r|^2``; on the plan path through
-        the fused Taylor op, a chain whose tangent kernel fits a block."""
+    def _check_lm(self, criterion_key):
+        """Levenberg-Marquardt's condition (``pydens_tpu``'s ``fit``): the
+        MSE criterion, so that ``loss == |r|^2``."""
         if (isinstance(criterion_key, str)
                 and criterion_key not in ("mseloss", "mse")):
             raise ValueError(
                 "optimizer='LM' (Gauss-Newton) is defined for the MSE "
                 "criterion (loss == ||residual||^2)")
-        if use_plan:
-            plan = self.model._fused_taylor_plan(
-                self.model.plan_closure(self._plan_derivs))
-            if plan is not None and not plan.tangent_ok:
-                raise ValueError(
-                    "optimizer='LM' takes J.v through the fused Taylor "
-                    "tangent kernel, and this chain's tangent state does "
-                    "not fit one block's shared memory; pass "
-                    "fast_taps=False for nested gradients")
 
     def _fit_step(self, loss_terms, criterion_fn, use_plan, batch_size,
                   chunk, resample, guard):

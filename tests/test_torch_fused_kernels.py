@@ -261,14 +261,17 @@ def test_scope_guards():
                                      shapes, 2, dtype=torch.float64)
     assert not fused_taylor.supports(["f", "a", "f"], [tanh], [(0,)],
                                      [(2, 1024), (1024, 1)], 2)  # too wide
-    # 128 wide: the forward and backward fit a block, the tangent kernel's
-    # weights, their tangent and four tile states do not.
+    # 128 wide: the forward and backward fit a block, and so does the
+    # tangent kernel's (16 points a tile, the weights streamed, one block
+    # an SM).
     wide = [(2, 128), (128, 128), (128, 1)]
     tokens = ["f", "a", "f", "a", "f"]
     assert fused_taylor.supports(tokens, [tanh, tanh], POISSON_CLOSURE,
                                  wide, 2)
-    assert not fused_taylor.supports(tokens, [tanh, tanh], POISSON_CLOSURE,
-                                     wide, 2, tangent=True)
+    plan = fused_taylor.TaylorPlan(tokens, [tanh, tanh], POISSON_CLOSURE,
+                                   wide, 2)
+    assert plan.jvp_tile == 16 and plan.jvp_blocks_per_sm == 1
+    assert plan.jvp_smem == 196_704 <= MAX_SHARED_BYTES
     assert fused_mlp.supports(["f", "a", "R", "f", "+"], [tanh],
                               [(2, 8), (8, 8)], 2)
     assert not fused_mlp.supports(["f", "a", "f"], [relu], shapes, 2)
@@ -350,6 +353,8 @@ def test_taylor_plan_table_matches_the_cuda_source(layout, features, act,
     assert fused_taylor._TILE_POINTS == _cu_constant("TILE_POINTS")
     assert fused_taylor._ROW_PAD == _cu_constant("ROW_PAD")
     assert fused_taylor._BLOCKS_PER_SM == _cu_constant("MIN_BLOCKS_PER_SM")
+    for name in ("THREADS", "RING_SLOTS", "RING_ROWS"):
+        assert getattr(fused_taylor, f"_{name}") == _cu_constant(name)
     plan = _plan(layout, features, act, in_dim, closure)
     header, op_ints = _cu_constant("HEADER_INTS"), _cu_constant("OP_INTS")
     tab = plan.table
@@ -378,15 +383,74 @@ def test_taylor_plan_table_matches_the_cuda_source(layout, features, act,
 def test_supports_keeps_the_kernels_scope(layout, features, act, in_dim,
                                           closure):
     # Every configuration the kernels were built and checked for stays in
-    # scope, and its backward (the larger block) fits shared memory; so
-    # does the tangent kernel's block (the LM path).
+    # scope, and its backward (the larger block) fits shared memory; the
+    # tangent kernel's block (the LM path) fits at 16 points a tile, two
+    # blocks an SM (four tile states and the ring of weight slices: at the
+    # 64-wide chain 98,400 B with 5 streams, 114,784 B with 6).
     net = make_layout_network(layout, features, act, in_dim=in_dim)
     assert fused_taylor.supports(net.tokens, net.activations, closure,
-                                 net.layer_shapes, in_dim, tangent=True)
+                                 net.layer_shapes, in_dim)
     plan = _plan(layout, features, act, in_dim, closure)
     assert plan.smem_bytes(2) < plan.smem_bytes(3) <= MAX_SHARED_BYTES
-    assert plan.tangent_ok
-    assert plan.smem_bytes(*fused_taylor._JVP_SMEM) <= MAX_SHARED_BYTES
+    assert plan.jvp_tile == 16 and plan.jvp_blocks_per_sm == 2
+    assert plan.jvp_smem <= MAX_SHARED_BYTES
+    if features[0] == 64:
+        assert plan.jvp_smem == {5: 98_400, 6: 114_784}[plan.n_streams]
+
+
+def _sweep_closure(in_dim, n_streams):
+    """``n_streams - 1`` multi-indices of order <= 2 over ``in_dim``
+    inputs (the first-order ones first), or None where there are fewer."""
+    firsts = [(d,) for d in range(in_dim)]
+    pairs = [(a, b) for a in range(in_dim) for b in range(a, in_dim)]
+    closure = (firsts + pairs)[:n_streams - 1]
+    return closure if len(closure) == n_streams - 1 else None
+
+
+@pytest.mark.parametrize("n_streams", range(2, 7))
+def test_tangent_kernel_fits_wherever_supports_holds(n_streams):
+    # Widths 4-160, 1-3 hidden layers, in_dim 1-4: supports() decides as
+    # the forward's and backward's blocks always did (the packed weights
+    # and three 16-point tile states within a block's shared memory), and
+    # wherever it holds the tangent kernel's block fits at the plan's
+    # points a tile: 16 at every chain up to 64 wide (two blocks an SM),
+    # 8 or 4 only where the states at 16 do not fit.
+    tanh = torch.tanh
+    tiles = set()
+    for in_dim in range(1, 5):
+        closure = _sweep_closure(in_dim, n_streams)
+        if closure is None:
+            continue
+        for hidden in range(1, 4):
+            for width in range(4, 161):
+                shapes = ([(in_dim, width)] + [(width, width)] * (hidden - 1)
+                          + [(width, 1)])
+                tokens = ["f", "a"] * hidden + ["f"]
+                acts = [tanh] * hidden
+                wmax = max(in_dim, width)
+                n_params = sum(k * n + n for k, n in shapes)
+                ld = 16 * n_streams + 4
+                fwd = 4 * (-(-n_params // 4) * 4 + 2 * wmax * ld)
+                bwd = 4 * (-(-n_params // 4) * 4 + 3 * wmax * ld)
+                ok = fused_taylor.supports(tokens, acts, closure, shapes,
+                                           in_dim)
+                assert ok == (bwd <= MAX_SHARED_BYTES), (in_dim, hidden,
+                                                        width)
+                if not ok:
+                    continue
+                plan = fused_taylor.TaylorPlan(tokens, acts, closure, shapes,
+                                               in_dim)
+                assert (plan.smem_bytes(2), plan.smem_bytes(3)) == (fwd, bwd)
+                assert plan.jvp_smem <= MAX_SHARED_BYTES
+                tiles.add(plan.jvp_tile)
+                if plan.jvp_tile < 16:
+                    # The states at 16 points, with the ring, do not fit.
+                    assert fused_taylor._jvp_smem_bytes(
+                        n_streams, wmax, 16) > MAX_SHARED_BYTES
+                if width <= 64:
+                    assert plan.jvp_tile == 16
+                    assert plan.jvp_blocks_per_sm == 2
+    assert 16 in tiles
 
 
 @pytest.mark.parametrize("n_streams", range(2, 9))

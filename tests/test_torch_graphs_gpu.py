@@ -11,6 +11,8 @@ its first 20 steps (where Adam's steps are still large and any
 disagreement would show) and to rtol 1e-3 at its end.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -287,6 +289,55 @@ def test_finisher_graph_matches_eager(optimizer, make):
         # The tangent kernel ran: its wrapper counts the eager steps and
         # the graph's capture.
         assert fused_taylor.fused_taylor_jvp.launches > fw
+
+
+@pytest.mark.gpu
+def test_capture_survives_the_collection_of_a_dead_solver():
+    # A dead solver with a captured graph, reachable only through a
+    # cycle, and the cyclic collector run at every allocation: it must
+    # not free that solver's graphs during the next solver's capture.
+    _require_cuda()
+    eq, kw = _poisson()
+    dead = Solver(eq, seed=0, device="cuda", **kw)
+    dead.fit(niters=3, batch_size=100, progress=False)
+    assert list(dead._step_cache.values())[0].graph is not None
+    dead.cycle = dead
+    del dead
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        s = Solver(eq, seed=0, device="cuda", **kw)
+        s.fit(niters=3, batch_size=100, progress=False)
+    finally:
+        gc.set_threshold(*thresholds)
+    (step,) = s._step_cache.values()
+    assert step.graph is not None and step.eager_steps == 1
+    assert step.replays == 2
+    assert gc.isenabled()
+
+
+def _wide128():
+    eq, kw = _poisson()
+    return eq, dict(kw, layout="fa fa f", units=[128, 128, 1])
+
+
+@pytest.mark.gpu
+def test_lm_graph_matches_eager_on_the_128_wide_chain():
+    # LM on the 128-wide Poisson chain (which the first tangent kernel did
+    # not fit) through its graph against the same fit eagerly: losses rtol
+    # 1e-5 over the first steps (_assert_agree), the same live CG
+    # iterations, and the tangent kernel ran in both.
+    _require_cuda()
+    fw = fused_taylor.fused_taylor_jvp.launches
+    graph, eager = _finisher_pair(_wide128, "LM", 6, 1024)
+    _assert_agree(graph, eager)
+    g, e = (list(s._step_cache.values())[-1] for s in (graph, eager))
+    assert int(g.live) == int(e.live) > 0
+    # Its wrapper counts each CG iteration of every eager step and of the
+    # graph's capture.
+    assert fused_taylor.fused_taylor_jvp.launches - fw == g.opt.cg_iters * (
+        g.eager_steps + 1 + e.eager_steps)
+    assert e.eager_steps == 6
 
 
 @pytest.mark.gpu

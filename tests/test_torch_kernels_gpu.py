@@ -99,11 +99,18 @@ def test_taylor_kernels_match_plain_on_cuda(layout, features, act, in_dim,
     ("fa fa f", [16, 16, 1], "Sigmoid", 3, [(0,), (2,), (0, 2)], 257),
     ("fa fa f", [16, 16, 1], "Sin", 2, [(0,), (1,), (0, 0), (0, 1)], 96),
     ("fafaf", [30, 40, 1], "Sigmoid", 4, HEAT_CLOSURE, 1500),
+    ("fa fa fa f", [64, 64, 64, 1], "Tanh", 3, HEAT_CLOSURE, 65537),
+    ("fa fa f", [128, 128, 1], "Tanh", 2, POISSON_CLOSURE, 65537),
+    ("fa fa f", [128, 128, 1], "Tanh", 2, POISSON_CLOSURE, 1000),
+    ("fa f", [160, 1], "Tanh", 3, HEAT_CLOSURE, 3001),   # 8 points a tile
+    ("fa f", [480, 1], "Sin", 1, [(0,)], 3001),           # 4 points a tile
 ])
 def test_taylor_jvp_kernel_matches_plain_on_cuda(layout, features, act,
                                                  in_dim, closure, n):
     # The tangent kernel against its plain twin (torch.func.jvp of the
-    # plain forward) on the card: streams and tangent rtol/atol 2e-5.
+    # plain forward) on the card: streams and tangent rtol/atol 2e-5, at
+    # every points-per-tile the plan takes; a second launch on the same
+    # inputs is bitwise equal.
     _require_cuda()
     dev = torch.device("cuda")
     net = make_layout_network(layout, features, act, in_dim=in_dim,
@@ -122,6 +129,11 @@ def test_taylor_jvp_kernel_matches_plain_on_cuda(layout, features, act,
     ref, tref = fused_taylor.fused_taylor_jvp_plain(packed, x, v, plan)
     torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(tout, tref, rtol=2e-5, atol=2e-5)
+    out2, tout2 = fused_taylor.fused_taylor_jvp(packed, x, v, plan)
+    assert torch.equal(out, out2) and torch.equal(tout, tout2)
+    lib = load_library()
+    assert lib.pdt_taylor_jvp_smem_bytes(
+        plan.n_streams, plan.wmax, plan.jvp_tile) == plan.jvp_smem
 
 
 @pytest.mark.gpu

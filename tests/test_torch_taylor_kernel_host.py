@@ -28,6 +28,16 @@ POISSON_CLOSURE = [(0,), (1,), (0, 0), (1, 1)]
 # source and what the host build puts in their place.
 _HOST_EDITS = [
     ("#include <cuda_runtime.h>", '#include "emulation.h"', 1),
+    # The tangent kernel's ring: cp.async held until its group is waited
+    # for (emulation.h).
+    ('asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" '
+     '::"r"(smem_addr(dst)), "l"(src));', "host_cp_async(dst, src, 16);", 1),
+    ('asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\\n" '
+     '::"r"(smem_addr(dst)), "l"(src));', "host_cp_async(dst, src, 4);", 1),
+    ('void cp_async_commit() { asm volatile("cp.async.commit_group;\\n" '
+     '::); }', "void cp_async_commit() { host_cp_commit(); }", 1),
+    ('asm volatile("cp.async.wait_group %0;\\n" ::"n"(N));',
+     "host_cp_wait(N);", 1),
     ("extern __shared__ float4 smem4[];", "float4* smem4 = host_smem;", 3),
     (re.compile(r"const unsigned base = [^;]*__cvta_generic_to_shared[^;]*;"),
      "", 1),
@@ -156,29 +166,80 @@ def test_taylor_kernels_on_the_host_match_plain(host_lib, layout, features,
     np.testing.assert_allclose(dx, rdx.numpy(), rtol=2e-3, atol=2e-5)
 
 
-@pytest.mark.parametrize("layout,features,act,in_dim,closure,n,sm_count",
-                         HOST_CASES)
+# The tangent kernel's own cases: (layout, features, act, in_dim, closure,
+# n, sm_count, float offset of the weights and their tangent in their
+# buffers).
+JVP_CASES = [
+    # several ring slices a layer: K = 64 (8 slices of 8 rows) and K = 20
+    # (8, 8 and 4 rows)
+    ("fa fa f", [64, 64, 1], "Tanh", 2, POISSON_CLOSURE, 40, 2, 0),
+    ("fa fa f", [20, 20, 1], "Sigmoid", 2, POISSON_CLOSURE, 70, 2, 0),
+    # odd widths, the weights at every 16-byte shift of their buffers
+    ("fa fa f", [13, 7, 1], "Tanh", 2, [(0,), (1,), (0, 1)], 45, 3, 1),
+    ("fa fa f", [13, 7, 1], "Sin", 2, [(0,), (1,), (0, 1)], 45, 3, 2),
+    ("fa fa f", [13, 7, 1], "Tanh", 2, [(0,), (1,), (0, 1)], 45, 3, 3),
+    # split K: the output layer N = 1 and N = 2
+    ("fa fa f", [64, 48, 1], "Tanh", 2, [(0,), (1,)], 33, 2, 0),
+    ("fa fa f", [32, 24, 2], "Sigmoid", 2, POISSON_CLOSURE, 33, 2, 1),
+    # 6 streams (the heat closure), the 64-wide chain
+    ("fa fa fa f", [64, 64, 64, 1], "Tanh", 3,
+     [(0,), (1,), (2,), (0, 0), (1, 1)], 40, 2, 0),
+    # 128 wide: two passes over the row groups a layer
+    ("fa fa f", [128, 128, 1], "Tanh", 2, POISSON_CLOSURE, 20, 2, 0),
+    # 8 points a tile (6 streams, 160 wide) and 4 (480 wide)
+    ("fa f", [160, 1], "Tanh", 3, [(0,), (1,), (2,), (0, 0), (1, 1)], 30,
+     2, 0),
+    ("fa f", [480, 1], "Sin", 1, [(0,)], 13, 2, 1),
+]
+
+
+@pytest.mark.parametrize(
+    "layout,features,act,in_dim,closure,n,sm_count,offset",
+    [case + (0,) for case in HOST_CASES] + JVP_CASES)
 def test_taylor_jvp_kernel_on_the_host_matches_plain(
-        host_lib, layout, features, act, in_dim, closure, n, sm_count):
+        host_lib, layout, features, act, in_dim, closure, n, sm_count,
+        offset):
     # The tangent kernel (taylor_jvp_kernel) on a seeded tangent of the
     # packed weights against fused_taylor_jvp_plain (torch.func.jvp of the
     # plain forward): streams and tangent rtol/atol 2e-5 (f32, other
-    # summation order), from NaN-filled shared memory and outputs.
+    # summation order), from NaN-filled shared memory and outputs, at the
+    # plan's points per tile and the grid the wrapper would launch; run
+    # twice, bitwise equal.
     plan, packed = _host_case(layout, features, act, in_dim, closure)
     S, W, P = plan.n_streams, plan.wmax, plan.n_params
-    assert host_lib.host_taylor_jvp_smem_bytes(P, S, W) == plan.smem_bytes(
-        *fused_taylor._JVP_SMEM)
+    assert host_lib.host_taylor_jvp_smem_bytes(S, W, plan.jvp_tile) == \
+        plan.jvp_smem <= fused_taylor.MAX_SHARED_BYTES
     rng = np.random.default_rng(2)
     x = rng.uniform(size=(n, in_dim)).astype(np.float32)
     v = rng.normal(size=P).astype(np.float32)
-    w = packed.numpy()
+    # The weights and their tangent `offset` floats into their buffers.
+    wbuf = np.full(P + offset, np.nan, np.float32)
+    vbuf = np.full(P + offset, np.nan, np.float32)
+    wbuf[offset:], vbuf[offset:] = packed.numpy(), v
     tab = np.asarray(plan.table, np.int32)
-    out = np.full((n, S * plan.out_dim), np.nan, np.float32)
-    tout = np.full_like(out, np.nan)
-    grid, _ = plan.launch_shape(n, sm_count, *fused_taylor._JVP_SMEM)
-    host_lib.host_taylor_jvp(_ptr(x), _ptr(w), _ptr(v), _ptr(tab), _ptr(out),
-                             _ptr(tout), n, P, S, W, plan.out_dim, grid)
+    grid, _ = plan.jvp_launch_shape(n, sm_count)
+    runs = []
+    for _ in range(2):
+        out = np.full((n, S * plan.out_dim), np.nan, np.float32)
+        tout = np.full_like(out, np.nan)
+        host_lib.host_taylor_jvp(_ptr(x), _ptr(wbuf[offset:]),
+                                 _ptr(vbuf[offset:]), _ptr(tab), _ptr(out),
+                                 _ptr(tout), n, S, W, plan.out_dim,
+                                 plan.jvp_tile, grid)
+        runs.append((out, tout))
     ref, tref = fused_taylor.fused_taylor_jvp_plain(
         packed, torch.from_numpy(x), torch.from_numpy(v), plan)
+    out, tout = runs[0]
     np.testing.assert_allclose(out, ref.numpy(), rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(tout, tref.numpy(), rtol=2e-5, atol=2e-5)
+    assert all(np.array_equal(a, b) for a, b in zip(runs[0], runs[1]))
+
+
+def test_jvp_cases_take_the_designs_paths():
+    # JVP_CASES reach what they are named for: 8 and 4 points a tile, more
+    # than one ring slice a layer, split K, more than one pass.
+    tiles = {_host_case(*case[:5])[0].jvp_tile for case in JVP_CASES}
+    assert tiles == {16, 8, 4}
+    plan, _ = _host_case("fa fa f", [128, 128, 1], "Tanh", 2,
+                         POISSON_CLOSURE)
+    assert plan.jvp_tile == 16 and plan.jvp_blocks_per_sm == 1
