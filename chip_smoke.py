@@ -403,19 +403,24 @@ def check_taylor_jvp(features, n, reps, seed=0, closure=POISSON_CLOSURE,
                        lambda: ft.fused_taylor_jvp_plain(packed, x, v, plan),
                        reps)
     b, by, work = taylor_bounds(plan, n)["jvp"]
+    # Blocks per SM from the CUDA occupancy calculator (registers and shared
+    # memory), at least what the plan sized the block for.
+    per_sm = ft.jvp_blocks_per_sm(plan, x.device)
+    assert per_sm >= plan.jvp_blocks_per_sm, (per_sm, plan.jvp_blocks_per_sm)
     grid, slots = plan.jvp_launch_shape(
-        n, torch.cuda.get_device_properties(0).multi_processor_count)
+        n, torch.cuda.get_device_properties(0).multi_processor_count, per_sm)
     log(f"taylor jvp {layout!r} {act} {features} in_dim {in_dim} closure "
         f"{len(closure)} n={n}: max|err| {err:.3e} (streams and tangent; "
         f"{100 * max(_tol_used(out, ref), _tol_used(tout, tref)):.1f}% of "
         f"VALUE_TOL), jvp {times['jvp']:.4f} ms (plain "
         f"{times['jvp_plain']:.4f} ms); {work}, {_share(times['jvp'], b)} "
-        f"({by}); {plan.jvp_tile} points a tile, {grid} blocks of {slots} "
-        f"slots, {plan.jvp_blocks_per_sm} blocks per SM, {plan.jvp_smem} B "
-        "shared memory each")
-    times.update(jvp_tile=plan.jvp_tile,
-                 jvp_blocks_per_sm=plan.jvp_blocks_per_sm,
-                 jvp_smem_bytes=plan.jvp_smem)
+        f"({by}); {plan.jvp_tile} points a tile, weights "
+        f"{'resident' if plan.jvp_resident else 'streamed'}, {grid} blocks "
+        f"of {slots} slots, {per_sm} blocks per SM on the card (occupancy "
+        f"calculator; the plan sized for {plan.jvp_blocks_per_sm}), "
+        f"{plan.jvp_smem} B shared memory each")
+    times.update(jvp_tile=plan.jvp_tile, jvp_resident=plan.jvp_resident,
+                 jvp_blocks_per_sm=per_sm, jvp_smem_bytes=plan.jvp_smem)
     times["jvp_bound"], times["jvp_bound_by"] = b, by
     return err, times
 
@@ -1303,17 +1308,19 @@ def run_finisher(solver, optimizer, niters, batch, tag, **kw):
 
 def finisher_profile(solver, batch, steps, tag, windows=3):
     """``torch.profiler`` over a window of ``steps`` replayed steps of the
-    solver's finisher (after two unprofiled fits of that configuration, a
-    timed one and a profiled warm-up fit, as ``step_profile``): each Taylor
+    solver's finisher (after two unprofiled fits of that configuration, two
+    timed ones and a profiled warm-up fit, as ``step_profile``): each Taylor
     kernel's device records, against what the live trials (L-BFGS: one
     forward and one backward at theta and at each trial) or the CG loop
     (LM: two forwards, ``cg_iters + 1`` backwards and ``cg_iters`` tangents
     a step) say every step launched.  Returns the counts per step, host ms
-    per step (the timed fit), device busy ms per step (summed device
-    records) and the busy share, each Taylor kernel's device ms per step
-    and, for LM, per CG iteration: the step's busy ms and the tangent
-    kernel's ms over ``cg_iters`` (a step is its CG iterations plus two
-    residuals, one J^T r and the update) and the tangent's share."""
+    per step (each timed fit of ``steps`` steps: a fit's fixed host cost is
+    spread over its steps, so take several) and their mean, device busy ms
+    per step (summed device records) and the busy share against each timed
+    fit, each Taylor kernel's device ms per step and, for LM, per CG
+    iteration: the step's busy ms and the tangent kernel's ms over
+    ``cg_iters`` (a step is its CG iterations plus two residuals, one J^T r
+    and the update) and the tangent's share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     names = ("taylor_fwd_kernel", "taylor_bwd_kernel", "taylor_jvp_kernel")
@@ -1325,11 +1332,14 @@ def finisher_profile(solver, batch, steps, tag, windows=3):
     solver.fit(**fit)
     step = _finisher_step(solver)
     lm = hasattr(step.opt, "cg_iters")
-    sync()
-    t0 = time.perf_counter()
-    solver.fit(**fit)
-    sync()
-    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    timed = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        solver.fit(**fit)
+        sync()
+        timed.append((time.perf_counter() - t0) * 1e3 / steps)
+    step_ms = sum(timed) / len(timed)
     for taken in range(1, windows + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
@@ -1354,8 +1364,10 @@ def finisher_profile(solver, batch, steps, tag, windows=3):
     row = {f"{k}_per_step": c / steps for k, c in zip(names, counts)}
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / steps
     row.update(windows_taken=taken, device_ops_per_step=len(dev) / steps,
-               live_per_step=live / steps, step_ms=step_ms,
-               device_busy_ms=busy_ms, busy_share=busy_ms / step_ms)
+               live_per_step=live / steps, steps=steps, step_ms=step_ms,
+               step_ms_timed=timed, device_busy_ms=busy_ms,
+               busy_share=busy_ms / step_ms,
+               busy_share_timed=[busy_ms / ms for ms in timed])
     for k in names:
         row[f"{k}_ms_per_step"] = sum(e.time_range.elapsed_us() for e in dev
                                       if k in e.name) / 1e3 / steps
@@ -1447,10 +1459,11 @@ def _finishers():
     then 3 LM steps, each timed on a second fit of replays); (iv) LM on the
     128-wide chain at 65,536 (20 Adam, then 3 + 3 LM steps): the loss
     falls and every CG iteration launches the tangent kernel.  Profiler
-    windows of one replayed LM step on the README ladder and the 64- and
-    128-wide arms give the step's device busy share and the tangent
-    kernel's share of a CG iteration.  Then the two L-BFGS graph designs
-    in turns, and profiler windows of the ODE finishers' replayed steps.
+    windows of replayed LM steps (5 on the README ladder, 3 on the 64- and
+    128-wide arms, each against two timed fits as long) give the step's
+    device busy share and the tangent kernel's share of a CG iteration.
+    Then the two L-BFGS graph designs in turns, and profiler windows of
+    the ODE finishers' replayed steps.
     Every kernel's plain version raises throughout (``_plain_refused``)."""
     from pydens_tpu_torch import Solver
     counters = _finisher_counters()
@@ -1471,7 +1484,7 @@ def _finishers():
         "7.0e-4, 6.2e-6)")
     assert rows["ladder"]["lbfgs"] < adam, rows["ladder"]
     assert rows["ladder"]["lm"] < 1.9e-5, rows["ladder"]
-    rows["ladder_lm_profile"] = finisher_profile(s, 1024, 1, "README LM")
+    rows["ladder_lm_profile"] = finisher_profile(s, 1024, 5, "README LM")
     del s
     free_card()
 
@@ -1494,8 +1507,7 @@ def _finishers():
             row = run_finisher(s, opt, niters, 512, f"ODE {opt} seed {seed}")
             row.update(adam=adam, max_error=_ode_error(s))
             if seed == ODE_SEEDS[0]:
-                row.update(finisher_profile(s, 512, 5 if opt == "LBFGS"
-                                            else 1, f"ODE {opt}"))
+                row.update(finisher_profile(s, 512, 5, f"ODE {opt}"))
             seeds[seed] = row
             log(f"ODE finisher {opt}, seed {seed}: Adam {adam:.4e} -> "
                 f"{row['final_loss']:.4e}, max error {row['max_error']:.4e} "
@@ -1521,7 +1533,7 @@ def _finishers():
         run_finisher(s, opt, niters, WIDE_BATCH, f"wide {opt} first fit")
         rows[f"wide_{opt.lower()}"] = run_finisher(
             s, None, niters, WIDE_BATCH, f"wide {opt}")
-    rows["wide_lm_profile"] = finisher_profile(s, WIDE_BATCH, 1, "wide LM")
+    rows["wide_lm_profile"] = finisher_profile(s, WIDE_BATCH, 3, "wide LM")
     del s
     free_card()
 
@@ -1538,7 +1550,7 @@ def _finishers():
     assert row["final_loss"] <= first["final_loss"], (first, row)
     assert first["taylor_jvp_per_step"] == row["taylor_jvp_per_step"] == cg
     row.update(adam=adam, first_fit=first,
-               profile=finisher_profile(s, WIDE_BATCH, 1, "wide128 LM"))
+               profile=finisher_profile(s, WIDE_BATCH, 3, "wide128 LM"))
     rows["wide128_lm"] = row
     log(f"wide128 LM: Adam 20 {adam:.4e} -> LM {first['final_loss']:.4e} "
         f"-> {row['final_loss']:.4e}")
@@ -1809,7 +1821,8 @@ def jvp_turns(old_source, reps=20):
         tab = plan.device_table(x.device)
         stream = torch.cuda.current_stream().cuda_stream
         old_grid, old_per_sm, old_smem = _old_jvp_grid(plan, n, sm_count)
-        grid, _ = plan.jvp_launch_shape(n, sm_count)
+        per_sm = ft.jvp_blocks_per_sm(plan, x.device)
+        grid, _ = plan.jvp_launch_shape(n, sm_count, per_sm)
 
         def old_call():
             assert old.pdt_taylor_jvp(
@@ -1822,8 +1835,9 @@ def jvp_turns(old_source, reps=20):
         def new_call():
             assert lib.pdt_taylor_jvp(
                 x.data_ptr(), packed.data_ptr(), v.data_ptr(), tab.data_ptr(),
-                outs[2].data_ptr(), outs[3].data_ptr(), n, plan.n_streams,
-                plan.wmax, plan.out_dim, plan.jvp_tile, grid, stream) == 0
+                outs[2].data_ptr(), outs[3].data_ptr(), n, plan.n_params,
+                plan.n_streams, plan.wmax, plan.out_dim, plan.jvp_tile,
+                int(plan.jvp_resident), grid, stream) == 0
             return outs[2], outs[3]
         ref, tref = ft.fused_taylor_jvp_plain(packed, x, v, plan)
         for fn in (old_call, new_call):
@@ -1839,13 +1853,14 @@ def jvp_turns(old_source, reps=20):
         rows[tag] = dict(old=[o1, o2], new=[n1, n2], wrapper=wrapped,
                          bound_ms=b, bound_by=by, old_blocks_per_sm=old_per_sm,
                          old_smem_bytes=old_smem, tile=plan.jvp_tile,
-                         blocks_per_sm=plan.jvp_blocks_per_sm,
+                         resident=plan.jvp_resident, blocks_per_sm=per_sm,
                          smem_bytes=plan.jvp_smem)
         log(f"jvp turns {tag} {case['features']} closure "
             f"{plan.n_streams - 1} n={n}: old {o1:.4f} / {o2:.4f} ms "
             f"({old_per_sm} blocks/SM, {old_smem} B), new {n1:.4f} / "
-            f"{n2:.4f} ms ({plan.jvp_blocks_per_sm} blocks/SM, "
-            f"{plan.jvp_smem} B, {plan.jvp_tile} points a tile); speed-up "
+            f"{n2:.4f} ms ({per_sm} blocks/SM on the card, "
+            f"{plan.jvp_smem} B, {plan.jvp_tile} points a tile, weights "
+            f"{'resident' if plan.jvp_resident else 'streamed'}); speed-up "
             f"{(o1 + o2) / (n1 + n2):.2f}x; {work}: old "
             f"{_share((o1 + o2) / 2, b)}, new {_share((n1 + n2) / 2, b)} "
             f"({by}); through fused_taylor_jvp {wrapped:.4f} ms")
@@ -1998,7 +2013,8 @@ def main():
            for tag, (_, times) in jvp.items()
            for kind, suffix in (("", ""), ("plain_", "_plain"),
                                 ("bound_", "_bound"))},
-        "plan": {tag: {k: times[k] for k in ("jvp_tile", "jvp_blocks_per_sm",
+        "plan": {tag: {k: times[k] for k in ("jvp_tile", "jvp_resident",
+                                             "jvp_blocks_per_sm",
                                              "jvp_smem_bytes")}
                  for tag, (_, times) in jvp.items()},
         "path_launches": finisher_launches,

@@ -16,8 +16,9 @@
 // Levenberg-Marquardt step, which the JAX package takes by XLA autodiff of
 // its plan), the forward's recurrences on dual numbers.  It is reached as the
 // backward of the backward: the VJP of g -> J^T g is J.v.  Its design (one
-// fused dual product a layer, the weights streamed through a cp.async ring,
-// two blocks an SM at the 64-wide chain, any chain the backward takes) and
+// fused dual product a layer, the weights streamed through a cp.async ring
+// or, on small chains, resident; two blocks an SM at the 64-wide chain, any
+// chain the backward takes) and
 // its times are in the note above it, "The tangent kernel".
 //
 // What bounds it on an H100: latency and occupancy, not FMAs or bytes.  At
@@ -518,29 +519,37 @@ taylor_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
 //   points a tile, or 8 or 4 where the states at 16 do not fit: the kernel
 //   takes every chain the forward and backward take (the 128-wide chain:
 //   196,704 B, one block at 16 points).
+// * Small chains keep the weights resident: where W and Wv together are at
+//   most 32 KB (the plan's `jvp_resident`: the README and ODE chains, a
+//   few KB), each block loads both whole once and a layer is one slice
+//   with no waits and no per-slice barriers.  Streaming them cost those
+//   launch-bound chains a slice wait and a barrier a layer (the times
+//   below).
 // * No tensor cores.  Plain TF32 keeps 10 mantissa bits and breaks the
 //   values' 2e-5 tolerance; 3xTF32 triples the tensor work, and the gap to
 //   the FMA bound is not the FMA rate (below).
 //
 // Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py --jvp-turns runs
 // the first design and this one in turns): at the 64-wide chain and 65,537
-// points about 1.38 ms against 1.58 (18% of the bound), with 6 streams
-// 1.53 against 1.61.  The gap is not the FMA rate.  In a variant (the map
-// below, the stream across layers), the products without their FMAs and
-// loads still took 0.58 ms of 1.59 (barriers, slice waits, epilogues) and
-// the activations 0.18 ms.  Maps with fewer shared loads a FMA were slower:
-// lanes along the row groups with a tile of 1 row group x 8 columns (18
-// loads per 96 FMAs, 160 busy threads: 1.47 ms), that map at 192 threads
-// with the next K row's loads in registers (164 registers: 1.65 ms), and a
-// weight stream running on across layers and tiles (1.59 ms).  Launch-bound
-// shapes (a tile or two a block) lost: 0.021 ms against 0.016 on the README
-// chain at 1,024 points, a slice wait and a barrier a layer where the first
-// design loaded the weights once.
+// points 1.415 ms against 1.583 (17.4% of the bound), with 6 streams 1.564
+// against 1.614; the occupancy calculator gives 2 blocks an SM at both.
+// The gap is not the FMA rate.  In a variant (the map below, the stream
+// across layers), the products without their FMAs and loads still took
+// 0.58 ms of 1.59 (barriers, slice waits, epilogues) and the activations
+// 0.18 ms.  Maps with fewer shared loads a FMA were slower: lanes along the
+// row groups with a tile of 1 row group x 8 columns (18 loads per 96 FMAs,
+// 160 busy threads: 1.47 ms), that map at 192 threads with the next K
+// row's loads in registers (164 registers: 1.65 ms), and a weight stream
+// running on across layers and tiles (1.59 ms).  Launch-bound shapes (a
+// tile or two a block): streamed, 0.021 ms against 0.015 on the README
+// chain at 1,024 points; with the weights resident 0.017 (0.89-0.92x), and
+// the ODE chain at 512 points 0.011 against 0.011 (0.96-1.01x).
 
 constexpr int RING_SLOTS = 3;
 constexpr int RING_ROWS = 8;       // K rows of a slice at the widest layer
 constexpr int MAX_ROW_TILES = 6;   // row groups a thread holds a pass
-// The split-K partials (at most THREADS pairs of float4) alias the ring.
+// The split-K partials (at most THREADS pairs of float4) alias the ring,
+// or follow the weights where those are resident.
 constexpr int SPLIT_FLOATS = 2 * 4 * THREADS;
 
 __host__ __device__ int jvp_slot_floats(int wmax) {
@@ -651,36 +660,49 @@ __device__ void start_head(const Plan& p, const int* op,
     start_slice(p, op, s, w_glob, v_glob, ring, slot_floats);
 }
 
-// The dense layer on dual numbers, from (in, tin) into (out, tout), its
-// first two slices already started (start_head).  Ends after a barrier.
+// The dense layer on dual numbers, from (in, tin) into (out, tout).  With
+// the weights resident (wres and vres, W and Wv whole in shared memory) a
+// pass is one slice and waits for nothing; else its first two slices are
+// already started (start_head) and `ring` is the ring.  `ring` holds the
+// split-K partials in both.  Ends after a barrier.
 template <int TP>
 __device__ void dense_dual(const Plan& p, const int* op,
                            const float* __restrict__ w_glob,
-                           const float* __restrict__ v_glob, float* ring,
-                           int slot_floats, const float* in, const float* tin,
-                           float* out, float* tout) {
+                           const float* __restrict__ v_glob, const float* wres,
+                           const float* vres, float* ring, int slot_floats,
+                           const float* in, const float* tin, float* out,
+                           float* tout) {
   const int K = op[1], N = op[2], w_off = op[3], b_off = op[4];
   const int groups = p.rows / 4;
   const DualMap m = dual_map(N, groups);
-  const int ksr = slice_rows(K, N, p.wmax);
+  const bool resident = wres != nullptr;
+  const int ksr = resident ? K : slice_rows(K, N, p.wmax);
   const int nsl = (K + ksr - 1) / ksr;
   const int total = m.passes * nsl;
   const bool busy = m.ks < m.sk;
   float4 acc[MAX_ROW_TILES], tacc[MAX_ROW_TILES];
   int roff[MAX_ROW_TILES];
   int c = 0, nb = 0;
+  float bias = 0.f, tbias = 0.f;
   for (int s = 0; s < total; ++s) {
     const int pass = s / nsl, j = s - pass * nsl;
-    if (s + 1 < total)
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
-    __syncthreads();  // slice s is in; every thread is past slice s - 1
-    if (s + 2 < total)
-      start_slice(p, op, s + 2, w_glob, v_glob, ring, slot_floats);
+    if (!resident) {
+      if (s + 1 < total)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();  // slice s is in; every thread is past slice s - 1
+      if (s + 2 < total)
+        start_slice(p, op, s + 2, w_glob, v_glob, ring, slot_floats);
+    }
     if (j == 0) {
       const int a = pass / m.chunks, bc = pass - a * m.chunks;
       c = m.tc + a * m.tcn;
+      // The column's bias and its tangent, read now so that the read's
+      // latency passes under the pass's products.
+      const int bc_col = b_off + min(c, N - 1);
+      bias = resident ? wres[bc_col] : w_glob[bc_col];
+      tbias = resident ? vres[bc_col] : v_glob[bc_col];
       nb = min(MAX_ROW_TILES, m.rb - bc * MAX_ROW_TILES);
 #pragma unroll
       for (int b = 0; b < MAX_ROW_TILES; ++b) {
@@ -693,9 +715,12 @@ __device__ void dense_dual(const Plan& p, const int* op,
     const int k0 = j * ksr, rows = min(ksr, K - k0);
     const int cc = min(c, N - 1);
     const float* slot = ring + (s % RING_SLOTS) * 2 * slot_floats;
-    const float* ws = slot + align_shift(w_glob + w_off + k0 * N) + cc;
+    const float* ws =
+        resident ? wres + w_off + cc
+                 : slot + align_shift(w_glob + w_off + k0 * N) + cc;
     const float* vs =
-        slot + slot_floats + align_shift(v_glob + w_off + k0 * N) + cc;
+        resident ? vres + w_off + cc
+                 : slot + slot_floats + align_shift(v_glob + w_off + k0 * N) + cc;
     if (busy) {
       for (int t = m.ks; t < rows; t += m.sk) {
         const float w = ws[t * N], wv = vs[t * N];
@@ -720,8 +745,9 @@ __device__ void dense_dual(const Plan& p, const int* op,
     }
     if (j + 1 < nsl) continue;
     // The pass's epilogue.  Split K: the partials of ks > 0 go to shared
-    // memory (aliasing the ring, which every thread is done reading), and
-    // ks == 0 adds them in ks order.
+    // memory (aliasing the ring, which every thread is done reading; the
+    // first barrier also keeps the previous pass's partials until read),
+    // and ks == 0 adds them in ks order.
     if (m.sk > 1) {
       float4* part = reinterpret_cast<float4*>(ring);
       const int plane = m.trn * m.tcn, own = m.tr * m.tcn + m.tc;
@@ -754,7 +780,6 @@ __device__ void dense_dual(const Plan& p, const int* op,
         if (b < nb && g < groups) {
           float4 o = acc[b], to = tacc[b];
           if (4 * g < TP) {  // the V rows
-            const float bias = w_glob[b_off + c], tbias = v_glob[b_off + c];
             o.x += bias;
             o.y += bias;
             o.z += bias;
@@ -782,13 +807,14 @@ __device__ int next_dense(const Plan& p, int o) {
 
 // TP points a tile (16, or 8 or 4 where the states at 16 do not fit: the
 // plan's choice); the block holds four tile states (primal and tangent, in
-// and out) and the ring.
+// and out) and the ring, or, with `resident` (the plan's choice for small
+// chains), W and Wv whole (P floats each) and the split-K partials.
 template <int TP>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS_PER_SM)
 taylor_jvp_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
                   const float* __restrict__ v_glob, const int* __restrict__ tab,
                   float* __restrict__ out, float* __restrict__ tout, int n,
-                  int out_dim) {
+                  int out_dim, int P, int resident) {
   extern __shared__ float4 smem4[];
   const Plan p = read_plan(tab, TP);
   float* buf[2];
@@ -798,10 +824,19 @@ taylor_jvp_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
   tbuf[0] = buf[1] + p.wmax * p.ld;
   tbuf[1] = tbuf[0] + p.wmax * p.ld;
   float* ring = tbuf[1] + p.wmax * p.ld;
+  float* wres = nullptr;
+  float* vres = nullptr;
+  if (resident) {
+    wres = ring;
+    vres = wres + weights_floats(P);
+    ring = vres + weights_floats(P);
+    load_weights_async(wres, w_glob, P);
+    load_weights_async(vres, v_glob, P);
+  }
   const int slot_floats = jvp_slot_floats(p.wmax);
   const int tiles = (n + TP - 1) / TP;
   const int first = next_dense(p, -1);
-  if (first >= 0 && (int)blockIdx.x < tiles)
+  if (!resident && first >= 0 && (int)blockIdx.x < tiles)
     start_head(p, p.ops + first * OP_INTS, w_glob, v_glob, ring, slot_floats);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     init_state<TP>(p, buf[0], x, n, tile);
@@ -809,21 +844,22 @@ taylor_jvp_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
       const int k = idx / p.rows;
       tbuf[0][k * p.ld + idx - k * p.rows] = 0.f;
     }
+    if (resident) wait_weights();
     __syncthreads();
     int cur = 0, width = p.in_dim;
     for (int o = 0; o < p.n_ops; ++o) {
       const int* op = p.ops + o * OP_INTS;
       if (op[0] == 0) {
-        dense_dual<TP>(p, op, w_glob, v_glob, ring, slot_floats, buf[cur],
-                       tbuf[cur], buf[1 - cur], tbuf[1 - cur]);
+        dense_dual<TP>(p, op, w_glob, v_glob, wres, vres, ring, slot_floats,
+                       buf[cur], tbuf[cur], buf[1 - cur], tbuf[1 - cur]);
         cur = 1 - cur;
         width = op[2];
         // The next dense layer's head, this tile's or the next tile's.
         const int nd = next_dense(p, o);
-        if (nd >= 0)
+        if (!resident && nd >= 0)
           start_head(p, p.ops + nd * OP_INTS, w_glob, v_glob, ring,
                      slot_floats);
-        else if (tile + (int)gridDim.x < tiles)
+        else if (!resident && tile + (int)gridDim.x < tiles)
           start_head(p, p.ops + first * OP_INTS, w_glob, v_glob, ring,
                      slot_floats);
       } else {
@@ -940,11 +976,15 @@ size_t taylor_smem_bytes(int P, int n_streams, int wmax, int n_bufs) {
 }
 
 // The tangent kernel's block: four tile states of `tile` points and the
-// ring (or the split-K partials it holds, where they are larger).
-size_t taylor_jvp_smem_bytes(int n_streams, int wmax, int tile) {
+// ring (or the split-K partials it holds, where they are larger); with
+// `resident`, W and Wv whole and the split-K partials.
+size_t taylor_jvp_smem_bytes(int n_streams, int wmax, int tile, int P,
+                             int resident) {
   const size_t ld = (size_t)n_streams * tile + ROW_PAD;
   const size_t ring = (size_t)RING_SLOTS * 2 * jvp_slot_floats(wmax);
-  const size_t region = ring > SPLIT_FLOATS ? ring : (size_t)SPLIT_FLOATS;
+  const size_t region =
+      resident ? 2 * (size_t)weights_floats(P) + SPLIT_FLOATS
+               : (ring > SPLIT_FLOATS ? ring : (size_t)SPLIT_FLOATS);
   return sizeof(float) * (4 * (size_t)wmax * ld + region);
 }
 
@@ -957,12 +997,25 @@ cudaError_t allow_smem(const void* kernel, size_t smem) {
 template <int TP>
 int launch_jvp(const float* x, const float* w, const float* v, const int* tab,
                float* out, float* tout, int n, size_t smem, int out_dim,
-               int grid, cudaStream_t stream) {
+               int P, int resident, int grid, cudaStream_t stream) {
   cudaError_t err = allow_smem((const void*)taylor_jvp_kernel<TP>, smem);
   if (err != cudaSuccess) return (int)err;
-  taylor_jvp_kernel<TP><<<grid, THREADS, smem, stream>>>(x, w, v, tab, out,
-                                                         tout, n, out_dim);
+  taylor_jvp_kernel<TP><<<grid, THREADS, smem, stream>>>(
+      x, w, v, tab, out, tout, n, out_dim, P, resident);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the tangent kernel at `smem` bytes that one SM holds at once,
+// from the occupancy calculator (registers and shared memory), or a
+// negative CUDA error code.
+template <int TP>
+int jvp_blocks_per_sm(size_t smem) {
+  cudaError_t err = allow_smem((const void*)taylor_jvp_kernel<TP>, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, taylor_jvp_kernel<TP>, THREADS, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 }  // namespace
@@ -971,8 +1024,16 @@ extern "C" {
 
 int pdt_taylor_tile_points() { return TILE_POINTS; }
 
-int pdt_taylor_jvp_smem_bytes(int n_streams, int wmax, int tile) {
-  return (int)taylor_jvp_smem_bytes(n_streams, wmax, tile);
+// Blocks of the tangent kernel one SM holds at once at this plan's sizes
+// (`tile` points a tile, weights `resident` or streamed), or a negative
+// CUDA error code.
+int pdt_taylor_jvp_blocks_per_sm(int n_streams, int wmax, int tile, int P,
+                                 int resident) {
+  const size_t smem = taylor_jvp_smem_bytes(n_streams, wmax, tile, P, resident);
+  if (tile == 16) return jvp_blocks_per_sm<16>(smem);
+  if (tile == 8) return jvp_blocks_per_sm<8>(smem);
+  if (tile == 4) return jvp_blocks_per_sm<4>(smem);
+  return -(int)cudaErrorInvalidValue;
 }
 
 // x (n, in_dim), w (P,), tab (device op table), out (n, n_streams*out_dim);
@@ -989,19 +1050,23 @@ int pdt_taylor_forward(const float* x, const float* w, const int* tab,
 }
 
 // x (n, in_dim), w and v (P,), tab, out and tout (n, n_streams*out_dim);
-// `tile` points a tile (16, 8 or 4), `grid` persistent blocks.
+// `tile` points a tile (16, 8 or 4), the weights `resident` (1) or
+// streamed (0), `grid` persistent blocks.
 int pdt_taylor_jvp(const float* x, const float* w, const float* v,
-                   const int* tab, float* out, float* tout, int n,
-                   int n_streams, int wmax, int out_dim, int tile, int grid,
-                   void* stream) {
-  const size_t smem = taylor_jvp_smem_bytes(n_streams, wmax, tile);
+                   const int* tab, float* out, float* tout, int n, int P,
+                   int n_streams, int wmax, int out_dim, int tile,
+                   int resident, int grid, void* stream) {
+  const size_t smem = taylor_jvp_smem_bytes(n_streams, wmax, tile, P, resident);
   const cudaStream_t st = (cudaStream_t)stream;
   if (tile == 16)
-    return launch_jvp<16>(x, w, v, tab, out, tout, n, smem, out_dim, grid, st);
+    return launch_jvp<16>(x, w, v, tab, out, tout, n, smem, out_dim, P,
+                          resident, grid, st);
   if (tile == 8)
-    return launch_jvp<8>(x, w, v, tab, out, tout, n, smem, out_dim, grid, st);
+    return launch_jvp<8>(x, w, v, tab, out, tout, n, smem, out_dim, P,
+                         resident, grid, st);
   if (tile == 4)
-    return launch_jvp<4>(x, w, v, tab, out, tout, n, smem, out_dim, grid, st);
+    return launch_jvp<4>(x, w, v, tab, out, tout, n, smem, out_dim, P,
+                         resident, grid, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -39,8 +39,8 @@ from ._build import (MAX_SHARED_BYTES, check_operand, launch_checked,
 __all__ = ["supports", "TaylorPlan", "FusedTaylor", "fused_taylor_taps",
            "fused_taylor_forward", "fused_taylor_forward_plain",
            "fused_taylor_backward", "fused_taylor_backward_plain",
-           "fused_taylor_jvp", "fused_taylor_jvp_plain", "pack_weights",
-           "split_streams", "act_kind", "sigma_table"]
+           "fused_taylor_jvp", "fused_taylor_jvp_plain", "jvp_blocks_per_sm",
+           "pack_weights", "split_streams", "act_kind", "sigma_table"]
 
 TANH, SIGMOID, SIN = 0, 1, 2
 _ACT_KINDS = {id(ACTIVATIONS["tanh"]): TANH,
@@ -58,10 +58,14 @@ _RING_ROWS = 8
 _SPLIT_FLOATS = 2 * 4 * _THREADS
 # The tangent kernel's points per tile, the largest first.
 _JVP_TILES = (16, 8, 4)
+# W and its tangent, together, at most this many floats (32 KB): the
+# tangent kernel keeps them resident instead of streaming them.
+_JVP_RESIDENT_FLOATS = 8192
 # Shared memory of one H100 SM, and what CUDA reserves of it per block.
 _SM_SHARED_BYTES = 233_472
 _BLOCK_RESERVED_BYTES = 1024
 _SM_COUNTS = {}
+_JVP_BLOCKS_PER_SM = {}
 
 
 def act_kind(act):
@@ -99,34 +103,62 @@ def _taylor_smem_bytes(n_params, n_streams, wmax, n_bufs):
     features x ``n_streams * TILE_POINTS`` rows (the forward 2, the
     backward 3) — ``taylor_smem_bytes`` of the CUDA source."""
     ld = n_streams * _TILE_POINTS + _ROW_PAD
-    return 4 * (-(-n_params // 4) * 4 + n_bufs * wmax * ld)
+    return 4 * (_weights_floats(n_params) + n_bufs * wmax * ld)
 
 
-def _jvp_smem_bytes(n_streams, wmax, tile):
+def _weights_floats(n_params):
+    return -(-n_params // 4) * 4
+
+
+def _jvp_smem_bytes(n_streams, wmax, tile, n_params, resident):
     """Shared memory of one tangent-kernel block at ``tile`` points a tile:
     four tile states and the ring of weight slices (``RING_SLOTS`` slots of
     ``RING_ROWS * wmax`` floats of W and of its tangent, each with room for
     a 16-byte alignment shift), or the split-K partials it holds where they
-    are larger — ``taylor_jvp_smem_bytes`` of the CUDA source."""
+    are larger; with ``resident``, W and its tangent whole and the split-K
+    partials — ``taylor_jvp_smem_bytes`` of the CUDA source."""
     ld = n_streams * tile + _ROW_PAD
-    slot = -(-_RING_ROWS * wmax // 4) * 4 + 4
-    region = max(_RING_SLOTS * 2 * slot, _SPLIT_FLOATS)
+    if resident:
+        region = 2 * _weights_floats(n_params) + _SPLIT_FLOATS
+    else:
+        slot = -(-_RING_ROWS * wmax // 4) * 4 + 4
+        region = max(_RING_SLOTS * 2 * slot, _SPLIT_FLOATS)
     return 4 * (4 * wmax * ld + region)
 
 
-def _jvp_tile(n_streams, wmax):
+def _jvp_tile(n_streams, wmax, n_params, resident):
     """The tangent kernel's points per tile: the largest of ``_JVP_TILES``
     whose block fits shared memory.  The smallest fits wherever the
     backward's block does (tests/test_torch_fused_kernels.py sweeps it)."""
     for tile in _JVP_TILES[:-1]:
-        if _jvp_smem_bytes(n_streams, wmax, tile) <= MAX_SHARED_BYTES:
+        if _jvp_smem_bytes(n_streams, wmax, tile, n_params,
+                           resident) <= MAX_SHARED_BYTES:
             return tile
     return _JVP_TILES[-1]
 
 
+def _jvp_mode(n_streams, wmax, n_params):
+    """``(resident, tile)`` of the tangent kernel: W and its tangent kept
+    whole in shared memory where together they take at most
+    ``_JVP_RESIDENT_FLOATS`` and the block then holds as many points a
+    tile and blocks per SM as with the weights streamed; else streamed
+    through the ring."""
+    tile = _jvp_tile(n_streams, wmax, n_params, False)
+    per_sm = _blocks_per_sm(_jvp_smem_bytes(n_streams, wmax, tile, n_params,
+                                            False))
+    if 2 * _weights_floats(n_params) <= _JVP_RESIDENT_FLOATS:
+        res_tile = _jvp_tile(n_streams, wmax, n_params, True)
+        res_smem = _jvp_smem_bytes(n_streams, wmax, res_tile, n_params, True)
+        if (res_tile >= tile and res_smem <= MAX_SHARED_BYTES
+                and _blocks_per_sm(res_smem) >= per_sm):
+            return True, res_tile
+    return False, tile
+
+
 def _blocks_per_sm(smem):
     """``MIN_BLOCKS_PER_SM`` where that many blocks of ``smem`` bytes fit an
-    SM's shared memory, else one."""
+    SM's shared memory, else one: the forward's and backward's blocks per
+    SM, and what the tangent kernel's block is sized for."""
     per_block = smem + _BLOCK_RESERVED_BYTES
     return (_BLOCKS_PER_SM if _BLOCKS_PER_SM * per_block <= _SM_SHARED_BYTES
             else 1)
@@ -209,11 +241,15 @@ class TaylorPlan:
         for a, b in self.pairs:
             table += [pos[a], pos[b]]
         self.table = table + records
-        # The tangent kernel: its points per tile, shared memory and
-        # blocks per SM.
-        self.jvp_tile = _jvp_tile(self.n_streams, self.wmax)
+        # The tangent kernel: its weights resident or streamed, its points
+        # per tile, shared memory, and the blocks per SM that shared memory
+        # allows (the card's count, registers included, is
+        # :func:`jvp_blocks_per_sm`).
+        self.jvp_resident, self.jvp_tile = _jvp_mode(
+            self.n_streams, self.wmax, self.n_params)
         self.jvp_smem = _jvp_smem_bytes(self.n_streams, self.wmax,
-                                        self.jvp_tile)
+                                        self.jvp_tile, self.n_params,
+                                        self.jvp_resident)
         self.jvp_blocks_per_sm = _blocks_per_sm(self.jvp_smem)
         self._device_tables = {}
 
@@ -230,10 +266,17 @@ class TaylorPlan:
         slots = sm_count * _blocks_per_sm(self.smem_bytes(n_bufs))
         return min(-(-n // _TILE_POINTS), slots), slots
 
-    def jvp_launch_shape(self, n, sm_count):
-        """``(grid, slots)`` of a tangent-kernel launch, as
-        :meth:`launch_shape` with its own block and tile."""
-        slots = sm_count * self.jvp_blocks_per_sm
+    def jvp_kernel_args(self):
+        """The sizes the tangent kernel's C entries take:
+        ``(n_streams, wmax, tile, n_params, resident)``."""
+        return (self.n_streams, self.wmax, self.jvp_tile, self.n_params,
+                int(self.jvp_resident))
+
+    def jvp_launch_shape(self, n, sm_count, blocks_per_sm):
+        """``(grid, slots)`` of a tangent-kernel launch of ``blocks_per_sm``
+        blocks on each of ``sm_count`` SMs: as :meth:`launch_shape` with its
+        own block and tile."""
+        slots = sm_count * blocks_per_sm
         return min(-(-n // self.jvp_tile), slots), slots
 
     def backward_workspace(self, n, sm_count):
@@ -258,6 +301,20 @@ def _lib():
         raise RuntimeError("csrc/fused_taylor.cu and fused_taylor.py "
                            "disagree on the points per tile")
     return lib
+
+
+def jvp_blocks_per_sm(plan, device):
+    """Blocks of the plan's tangent kernel that one SM of ``device`` holds
+    at once: the CUDA occupancy calculator (registers and shared memory),
+    cached per device and sizes."""
+    key = (device, plan.jvp_kernel_args())
+    if key not in _JVP_BLOCKS_PER_SM:
+        blocks = _lib().pdt_taylor_jvp_blocks_per_sm(*plan.jvp_kernel_args())
+        if blocks <= 0:
+            raise RuntimeError("pdt_taylor_jvp_blocks_per_sm: no block of the "
+                               f"tangent kernel fits an SM (code {blocks})")
+        _JVP_BLOCKS_PER_SM[key] = blocks
+    return _JVP_BLOCKS_PER_SM[key]
 
 
 def _sm_count(device):
@@ -377,7 +434,8 @@ def fused_taylor_jvp(packed, x, v, plan):
     and their tangent for the tangent ``v`` of ``packed`` (same layout), each
     ``(n, n_streams * out_dim)``: the CUDA tangent kernel for CUDA tensors,
     the plain version for CPU tensors.  The kernel takes every plan
-    (``TaylorPlan.jvp_tile`` points a tile)."""
+    (``TaylorPlan.jvp_tile`` points a tile); its grid is what the card holds
+    at once (:func:`jvp_blocks_per_sm`)."""
     if x.device.type == "cpu":
         return fused_taylor_jvp_plain(packed, x, v, plan)
     n = _check_kernel_args(packed, x, plan)
@@ -388,12 +446,14 @@ def fused_taylor_jvp(packed, x, v, plan):
     if n == 0:
         return out, tangent
     lib = _lib()
-    grid, _ = plan.jvp_launch_shape(n, _sm_count(x.device))
+    grid, _ = plan.jvp_launch_shape(n, _sm_count(x.device),
+                                    jvp_blocks_per_sm(plan, x.device))
     err = lib.pdt_taylor_jvp(
         x.data_ptr(), packed.data_ptr(), v.data_ptr(),
         plan.device_table(x.device).data_ptr(), out.data_ptr(),
-        tangent.data_ptr(), n, plan.n_streams, plan.wmax, plan.out_dim,
-        plan.jvp_tile, grid, torch.cuda.current_stream(x.device).cuda_stream)
+        tangent.data_ptr(), n, plan.n_params, plan.n_streams, plan.wmax,
+        plan.out_dim, plan.jvp_tile, int(plan.jvp_resident), grid,
+        torch.cuda.current_stream(x.device).cuda_stream)
     launch_checked("pdt_taylor_jvp", err)
     fused_taylor_jvp.launches += 1
     return out, tangent

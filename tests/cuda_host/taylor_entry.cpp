@@ -15,25 +15,26 @@ void host_taylor_forward(const float* x, const float* w, const int* tab,
               [&] { taylor_fwd_kernel(x, w, tab, out, n, P, out_dim); });
 }
 
-int host_taylor_jvp_smem_bytes(int S, int W, int tile) {
-  return (int)taylor_jvp_smem_bytes(S, W, tile);
+int host_taylor_jvp_smem_bytes(int S, int W, int tile, int P, int resident) {
+  return (int)taylor_jvp_smem_bytes(S, W, tile, P, resident);
 }
 
 void host_taylor_jvp(const float* x, const float* w, const float* v,
-                     const int* tab, float* out, float* tout, int n, int S,
-                     int W, int out_dim, int tile, int grid) {
-  const size_t smem = taylor_jvp_smem_bytes(S, W, tile);
+                     const int* tab, float* out, float* tout, int n, int P,
+                     int S, int W, int out_dim, int tile, int resident,
+                     int grid) {
+  const size_t smem = taylor_jvp_smem_bytes(S, W, tile, P, resident);
   if (tile == 16)
     host_launch(grid, THREADS, smem, [&] {
-      taylor_jvp_kernel<16>(x, w, v, tab, out, tout, n, out_dim);
+      taylor_jvp_kernel<16>(x, w, v, tab, out, tout, n, out_dim, P, resident);
     });
   else if (tile == 8)
     host_launch(grid, THREADS, smem, [&] {
-      taylor_jvp_kernel<8>(x, w, v, tab, out, tout, n, out_dim);
+      taylor_jvp_kernel<8>(x, w, v, tab, out, tout, n, out_dim, P, resident);
     });
   else
     host_launch(grid, THREADS, smem, [&] {
-      taylor_jvp_kernel<4>(x, w, v, tab, out, tout, n, out_dim);
+      taylor_jvp_kernel<4>(x, w, v, tab, out, tout, n, out_dim, P, resident);
     });
 }
 

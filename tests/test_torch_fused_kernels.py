@@ -271,6 +271,7 @@ def test_scope_guards():
     plan = fused_taylor.TaylorPlan(tokens, [tanh, tanh], POISSON_CLOSURE,
                                    wide, 2)
     assert plan.jvp_tile == 16 and plan.jvp_blocks_per_sm == 1
+    assert not plan.jvp_resident
     assert plan.jvp_smem == 196_704 <= MAX_SHARED_BYTES
     assert fused_mlp.supports(["f", "a", "R", "f", "+"], [tanh],
                               [(2, 8), (8, 8)], 2)
@@ -386,7 +387,8 @@ def test_supports_keeps_the_kernels_scope(layout, features, act, in_dim,
     # scope, and its backward (the larger block) fits shared memory; the
     # tangent kernel's block (the LM path) fits at 16 points a tile, two
     # blocks an SM (four tile states and the ring of weight slices: at the
-    # 64-wide chain 98,400 B with 5 streams, 114,784 B with 6).
+    # 64-wide chain 98,400 B with 5 streams, 114,784 B with 6; narrower
+    # chains keep the weights resident instead).
     net = make_layout_network(layout, features, act, in_dim=in_dim)
     assert fused_taylor.supports(net.tokens, net.activations, closure,
                                  net.layer_shapes, in_dim)
@@ -395,7 +397,10 @@ def test_supports_keeps_the_kernels_scope(layout, features, act, in_dim,
     assert plan.jvp_tile == 16 and plan.jvp_blocks_per_sm == 2
     assert plan.jvp_smem <= MAX_SHARED_BYTES
     if features[0] == 64:
+        assert not plan.jvp_resident
         assert plan.jvp_smem == {5: 98_400, 6: 114_784}[plan.n_streams]
+    else:
+        assert plan.jvp_resident
 
 
 def _sweep_closure(in_dim, n_streams):
@@ -414,7 +419,9 @@ def test_tangent_kernel_fits_wherever_supports_holds(n_streams):
     # and three 16-point tile states within a block's shared memory), and
     # wherever it holds the tangent kernel's block fits at the plan's
     # points a tile: 16 at every chain up to 64 wide (two blocks an SM),
-    # 8 or 4 only where the states at 16 do not fit.
+    # 8 or 4 only where the states at 16 do not fit.  The weights stay
+    # resident where they and their tangent take at most 32 KB and the
+    # block holds as many blocks an SM and points a tile as streamed.
     tanh = torch.tanh
     tiles = set()
     for in_dim in range(1, 5):
@@ -443,10 +450,25 @@ def test_tangent_kernel_fits_wherever_supports_holds(n_streams):
                 assert (plan.smem_bytes(2), plan.smem_bytes(3)) == (fwd, bwd)
                 assert plan.jvp_smem <= MAX_SHARED_BYTES
                 tiles.add(plan.jvp_tile)
+                weights = 2 * (-(-n_params // 4) * 4)
+                streamed = fused_taylor._jvp_smem_bytes(
+                    n_streams, wmax, plan.jvp_tile, n_params, False)
+                if plan.jvp_resident:
+                    assert weights <= 8192
+                elif weights <= 8192:
+                    # Resident, the block would hold fewer blocks an SM
+                    # or fewer points a tile.
+                    resident = fused_taylor._jvp_smem_bytes(
+                        n_streams, wmax, plan.jvp_tile, n_params, True)
+                    assert (resident > MAX_SHARED_BYTES
+                            or fused_taylor._blocks_per_sm(resident)
+                            < fused_taylor._blocks_per_sm(streamed))
                 if plan.jvp_tile < 16:
-                    # The states at 16 points, with the ring, do not fit.
+                    # The states at 16 points, with the ring or the
+                    # resident weights, do not fit.
                     assert fused_taylor._jvp_smem_bytes(
-                        n_streams, wmax, 16) > MAX_SHARED_BYTES
+                        n_streams, wmax, 16, n_params,
+                        plan.jvp_resident) > MAX_SHARED_BYTES
                 if width <= 64:
                     assert plan.jvp_tile == 16
                     assert plan.jvp_blocks_per_sm == 2

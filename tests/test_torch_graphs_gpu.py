@@ -12,6 +12,7 @@ disagreement would show) and to rtol 1e-3 at its end.
 """
 
 import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -293,27 +294,68 @@ def test_finisher_graph_matches_eager(optimizer, make):
 
 @pytest.mark.gpu
 def test_capture_survives_the_collection_of_a_dead_solver():
-    # A dead solver with a captured graph, reachable only through a
-    # cycle, and the cyclic collector run at every allocation: it must
-    # not free that solver's graphs during the next solver's capture.
+    # A solver with a captured graph dies in the middle of the next
+    # solver's capture: the equation drops the last reference to it there,
+    # makes every generation of the cyclic collector due and allocates.
+    # (The objects older than the test are frozen and a full collection
+    # runs first, so that the oldest generation is not held back by its
+    # size.)  No collection may start inside the capture, and the capture
+    # succeeds; the dead solver is collected after it.
     _require_cuda()
     eq, kw = _poisson()
-    dead = Solver(eq, seed=0, device="cuda", **kw)
-    dead.fit(niters=3, batch_size=100, progress=False)
-    assert list(dead._step_cache.values())[0].graph is not None
-    dead.cycle = dead
-    del dead
     thresholds = gc.get_threshold()
-    gc.set_threshold(1)
+    gc.collect()
+    gc.freeze()
+    gc.collect()
     try:
-        s = Solver(eq, seed=0, device="cuda", **kw)
-        s.fit(niters=3, batch_size=100, progress=False)
+        dead = Solver(eq, seed=0, device="cuda", **kw)
+        dead.fit(niters=3, batch_size=100, progress=False)
+        assert list(dead._step_cache.values())[0].graph is not None
+        dead.cycle = dead
+        dead.marker = _Marker()
+        freed = []
+        weakref.finalize(dead.marker, freed.append, True)
+        held = [dead]
+        del dead
+        started = []
+        watching = []
+
+        def watch(phase, info):
+            if phase == "start" and watching:
+                started.append(info["generation"])
+
+        def pde(f, x, y):
+            if held and torch.cuda.is_current_stream_capturing():
+                held.clear()
+                watching.append(True)
+                gc.set_threshold(1, 1, 1)
+                junk = [[] for _ in range(1000)]
+                gc.set_threshold(*thresholds)
+                watching.clear()
+                del junk
+            return eq(f, x, y)
+
+        gc.callbacks.append(watch)
+        try:
+            s = Solver(pde, seed=0, device="cuda", **kw)
+            s.fit(niters=3, batch_size=100, progress=False)
+        finally:
+            gc.callbacks.remove(watch)
+        assert not held, "the equation did not run inside the capture"
+        assert started == [], f"collections inside the capture: {started}"
+        (step,) = s._step_cache.values()
+        assert step.graph is not None and step.eager_steps == 1
+        assert step.replays == 2
+        assert gc.isenabled()
+        gc.collect()
+        assert freed == [True]
     finally:
         gc.set_threshold(*thresholds)
-    (step,) = s._step_cache.values()
-    assert step.graph is not None and step.eager_steps == 1
-    assert step.replays == 2
-    assert gc.isenabled()
+        gc.unfreeze()
+
+
+class _Marker:
+    pass
 
 
 def _wide128():

@@ -81,8 +81,8 @@ def host_lib(tmp_path_factory):
     lib.host_taylor_forward.argtypes = [P, P, P, P] + [I] * 6
     lib.host_taylor_backward.argtypes = [P] * 8 + [I] * 6
     lib.host_taylor_smem_bytes.argtypes = [I] * 4
-    lib.host_taylor_jvp.argtypes = [P] * 6 + [I] * 6
-    lib.host_taylor_jvp_smem_bytes.argtypes = [I] * 3
+    lib.host_taylor_jvp.argtypes = [P] * 6 + [I] * 8
+    lib.host_taylor_jvp_smem_bytes.argtypes = [I] * 5
     lib.host_taylor_forward.restype = None
     lib.host_taylor_backward.restype = None
     lib.host_taylor_jvp.restype = None
@@ -186,7 +186,8 @@ JVP_CASES = [
      [(0,), (1,), (2,), (0, 0), (1, 1)], 40, 2, 0),
     # 128 wide: two passes over the row groups a layer
     ("fa fa f", [128, 128, 1], "Tanh", 2, POISSON_CLOSURE, 20, 2, 0),
-    # 8 points a tile (6 streams, 160 wide) and 4 (480 wide)
+    # 8 points a tile (6 streams, 160 wide), and 8 with the weights
+    # resident and 4 streamed (480 wide)
     ("fa f", [160, 1], "Tanh", 3, [(0,), (1,), (2,), (0, 0), (1, 1)], 30,
      2, 0),
     ("fa f", [480, 1], "Sin", 1, [(0,)], 13, 2, 1),
@@ -203,29 +204,54 @@ def test_taylor_jvp_kernel_on_the_host_matches_plain(
     # packed weights against fused_taylor_jvp_plain (torch.func.jvp of the
     # plain forward): streams and tangent rtol/atol 2e-5 (f32, other
     # summation order), from NaN-filled shared memory and outputs, at the
-    # plan's points per tile and the grid the wrapper would launch; run
-    # twice, bitwise equal.
+    # plan's points per tile and a grid of the blocks per SM that shared
+    # memory allows; run twice, bitwise equal.  A JVP_CASES chain whose
+    # plan keeps the weights resident runs streamed too, at the ring's tile.
     plan, packed = _host_case(layout, features, act, in_dim, closure)
+    assert host_lib.host_taylor_jvp_smem_bytes(
+        *plan.jvp_kernel_args()) == plan.jvp_smem <= \
+        fused_taylor.MAX_SHARED_BYTES
+    case = (layout, features, act, in_dim, closure, n, sm_count, offset)
+    modes = _jvp_modes(plan) if case in JVP_CASES else _jvp_modes(plan)[:1]
+    for resident, tile in modes:
+        _check_host_jvp(host_lib, plan, packed, n, sm_count, offset,
+                        resident, tile)
+
+
+def _jvp_modes(plan):
+    """``(resident, tile)`` of each way the host test runs the tangent
+    kernel: the plan's, and streamed where the plan keeps the weights
+    resident."""
+    modes = [(plan.jvp_resident, plan.jvp_tile)]
+    if plan.jvp_resident:
+        modes.append((False, fused_taylor._jvp_tile(
+            plan.n_streams, plan.wmax, plan.n_params, False)))
+    return modes
+
+
+def _check_host_jvp(host_lib, plan, packed, n, sm_count, offset, resident,
+                    tile):
     S, W, P = plan.n_streams, plan.wmax, plan.n_params
-    assert host_lib.host_taylor_jvp_smem_bytes(S, W, plan.jvp_tile) == \
-        plan.jvp_smem <= fused_taylor.MAX_SHARED_BYTES
+    smem = fused_taylor._jvp_smem_bytes(S, W, tile, P, resident)
+    assert host_lib.host_taylor_jvp_smem_bytes(S, W, tile, P,
+                                               int(resident)) == smem
     rng = np.random.default_rng(2)
-    x = rng.uniform(size=(n, in_dim)).astype(np.float32)
+    x = rng.uniform(size=(n, plan.in_dim)).astype(np.float32)
     v = rng.normal(size=P).astype(np.float32)
     # The weights and their tangent `offset` floats into their buffers.
     wbuf = np.full(P + offset, np.nan, np.float32)
     vbuf = np.full(P + offset, np.nan, np.float32)
     wbuf[offset:], vbuf[offset:] = packed.numpy(), v
     tab = np.asarray(plan.table, np.int32)
-    grid, _ = plan.jvp_launch_shape(n, sm_count)
+    grid = min(-(-n // tile), sm_count * fused_taylor._blocks_per_sm(smem))
     runs = []
     for _ in range(2):
         out = np.full((n, S * plan.out_dim), np.nan, np.float32)
         tout = np.full_like(out, np.nan)
         host_lib.host_taylor_jvp(_ptr(x), _ptr(wbuf[offset:]),
                                  _ptr(vbuf[offset:]), _ptr(tab), _ptr(out),
-                                 _ptr(tout), n, S, W, plan.out_dim,
-                                 plan.jvp_tile, grid)
+                                 _ptr(tout), n, P, S, W, plan.out_dim, tile,
+                                 int(resident), grid)
         runs.append((out, tout))
     ref, tref = fused_taylor.fused_taylor_jvp_plain(
         packed, torch.from_numpy(x), torch.from_numpy(v), plan)
@@ -236,10 +262,14 @@ def test_taylor_jvp_kernel_on_the_host_matches_plain(
 
 
 def test_jvp_cases_take_the_designs_paths():
-    # JVP_CASES reach what they are named for: 8 and 4 points a tile, more
-    # than one ring slice a layer, split K, more than one pass.
-    tiles = {_host_case(*case[:5])[0].jvp_tile for case in JVP_CASES}
-    assert tiles == {16, 8, 4}
+    # JVP_CASES reach what they are named for: 16, 8 and 4 points a tile,
+    # the weights resident and streamed, more than one ring slice a layer,
+    # split K, more than one pass.
+    modes = {mode for case in JVP_CASES
+             for mode in _jvp_modes(_host_case(*case[:5])[0])}
+    assert {tile for _, tile in modes} == {16, 8, 4}
+    assert {resident for resident, _ in modes} == {True, False}
     plan, _ = _host_case("fa fa f", [128, 128, 1], "Tanh", 2,
                          POISSON_CLOSURE)
     assert plan.jvp_tile == 16 and plan.jvp_blocks_per_sm == 1
+    assert not plan.jvp_resident
