@@ -5,6 +5,7 @@
     python3 chip_smoke.py --mlp-turns OLD.cu   # MLP kernel: OLD.cu vs this
     python3 chip_smoke.py --jvp-turns OLD.cu   # tangent kernel: OLD.cu vs this
     python3 chip_smoke.py --finishers  # phases 1, 2 and 9 only
+    python3 chip_smoke.py --collocation   # phases 1, 2 and 10 only
     python3 chip_smoke.py --w3-repeat  # w3's eager fit, repeated
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -70,7 +71,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    iteration (``torch.profiler`` over a replayed step: the README ladder,
    the 64- and 128-wide arms); the two L-BFGS graph designs (the host
    reading the linesearch's flag between a step graph and a trial graph,
-   or every trial masked in one graph) timed in turns.
+   or every trial masked in one graph) timed in turns;
+10. the collocation features (``phase_collocation``) through the public
+   Solver at their sources' widths, steps and batches: adaptive
+   (``examples/09``) against uniform fits and RBA (BENCHMARKS.md:722-745)
+   against the fixed batch alone, on seeds 0-5; causal ``w3`` at eps 0
+   (equal to the plain fit) and eps 5 (its plain MSE in ``w3``'s band),
+   then eps 20 on the cached graph (no capture); grad balancing on the raw
+   beam of ``tests/test_loss_balancing.py`` (order 4: the plain
+   traversal) against unbalanced fits; NTK and grad balancing on
+   ``examples/31``'s Helmholtz equation; Deep Ritz (``examples/23``)
+   against the strong form.  Each arm holds its accuracy bound and its
+   Taylor launches on every step of each kind, and ``torch.profiler`` over
+   replays of each new step kind's graph gives its launches, device ops
+   and busy ms per step.
 
 Every fit of phases 4-8 runs the package's path: on the card a fit step
 is captured as a CUDA graph once per configuration and replayed.  A
@@ -128,6 +142,7 @@ tangent kernel three times that.
 import contextlib
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1430,7 +1445,7 @@ def _plain_refused():
     saved = [getattr(mod, name) for mod, name in names]
 
     def refuse(*args, **kwargs):
-        raise AssertionError("a plain version ran on the finisher path")
+        raise AssertionError("a plain version ran where the kernels must")
     try:
         for mod, name in names:
             setattr(mod, name, refuse)
@@ -1565,6 +1580,461 @@ def _finishers():
     rows["designs_wide"] = _design_turns(
         (_pde(), WIDE), wide_adam, WIDE_BATCH, 5, "wide")
     return launches, rows
+
+
+# Phase 10: the collocation features and the objective (ROADMAP Queue 1
+# item 10) through the public Solver.  The stiff ODE of examples/09 and of
+# the RBA study in BENCHMARKS.md:722-745, and its exact solution.
+STIFF = dict(ndims=1, initial_condition=0.0, activation="Tanh",
+             layout="fafaf", features=[32, 32, 1])
+COLLOCATION_SEEDS = tuple(range(6))
+# pydens_tpu on the CPU, seeds 0-5 (seed_study.py jax): the median and the
+# largest mean |residual| of examples/09's adaptive fit.  The example's own
+# assert (adaptive < 0.6 x uniform) holds there on seeds 0 and 5 only, so
+# the arm holds the port to 3x these figures, as the RBA arm is held to 3x
+# pydens_tpu's (BENCHMARKS.md:740: median 0.026, max 0.069).
+ADAPTIVE_JAX = dict(median=0.1998, max=0.7611)
+RBA_BOUNDS = dict(median=0.078, max=0.207)
+HELMHOLTZ_K = 12.0
+BEAM_LT = {"equation": 1.0, "constraint_0": 1.0, "constraint_1": 1.0}
+
+
+def _stiff_ode():
+    from pydens_tpu_torch import D, exp
+
+    def ode(f, x):
+        return D(f, x) - 100 * exp(-2000 * (x - 0.8) ** 2)
+    return ode
+
+
+def _stiff_exact(xs):
+    a = np.sqrt(2000.0)
+    erf = np.vectorize(math.erf)
+    return 50 * np.sqrt(np.pi / 2000) * (erf(a * (xs - 0.8)) + erf(a * 0.8))
+
+
+def _kind_tally(solver):
+    """Steps of each kind over the solver's cached fit steps: eager runs,
+    replays and captured graphs of the training step and of the rebalance
+    step of loss balancing."""
+    steps = list(solver._step_cache.values())
+    return dict(eager=sum(s.eager_steps for s in steps),
+                replays=sum(s.replays for s in steps),
+                graph=sum(s.graph is not None for s in steps),
+                rebalance_eager=sum(s.rebalance_eager for s in steps),
+                rebalance_replays=sum(s.rebalance_replays for s in steps),
+                rebalance_graph=sum(s.rebalance_graph is not None
+                                    for s in steps))
+
+
+def _kind_launches(step):
+    """Taylor forward and backward launches of one training step and of one
+    rebalance step of ``step``, by its design: adaptive adds a forward pass
+    over the candidate pool; a grad rebalance pulls each term back once
+    (the equation term through the backward kernel; the constraints go
+    through the plain network), an NTK rebalance the equation block once a
+    probe (phase 10's equation blocks are larger than 4 entries, so they
+    take probes)."""
+    opts = step.options
+    train = (2 if opts.adaptive else 1, 1)
+    if not opts.balance_every:
+        return train, (0, 0)
+    pulls = len(step.probes[0]) if opts.balance_mode == "ntk" else 1
+    return train, (1, 1 + pulls)
+
+
+def collocation_fit(solver, tag, kernels=True, **fit):
+    """One fit through graphs, checked by its tallies: every step ran once
+    (eagerly or replayed, of its kind), and each eager step and each
+    capture launched the Taylor kernels as its kind's design says, or
+    never when the chain is outside the kernels' scope (``kernels``).
+    Returns it/s (host clock ending in a synchronize, warm-ups and
+    captures included), the tally and the launches."""
+    from pydens_tpu_torch.ops import fused_taylor as ft
+    counters = (ft.fused_taylor_forward, ft.fused_taylor_backward)
+    before, counts = _kind_tally(solver), [c.launches for c in counters]
+    sync()
+    t0 = time.perf_counter()
+    solver.fit(progress=False, **fit)
+    sync()
+    wall = time.perf_counter() - t0
+    after = _kind_tally(solver)
+    d = {k: after[k] - before[k] for k in after}
+    launches = [c.launches - n for c, n in zip(counters, counts)]
+    steps = (d["eager"] + d["replays"] + d["rebalance_eager"]
+             + d["rebalance_replays"])
+    assert steps == fit["niters"], (tag, d)
+    assert d["replays"] > 0 or after["graph"] > 0, (tag, d)
+    step = list(solver._step_cache.values())[-1]
+    train, rebalance = _kind_launches(step)
+    wrapper = [(d["eager"] + d["graph"]) * t
+               + (d["rebalance_eager"] + d["rebalance_graph"]) * r
+               for t, r in zip(train, rebalance)]
+    device = [(d["eager"] + d["replays"]) * t
+              + (d["rebalance_eager"] + d["rebalance_replays"]) * r
+              for t, r in zip(train, rebalance)]
+    if kernels:
+        assert launches == wrapper, (tag, launches, wrapper, d)
+    else:
+        assert launches == [0, 0], (tag, launches)
+    losses = np.asarray(solver.losses[-fit["niters"]:])
+    assert np.isfinite(losses).all(), tag
+    row = dict(it_s=fit["niters"] / wall, tally=d, wrapper_launches=launches,
+               device_launches=device if kernels else [0, 0],
+               first_loss=float(losses[0]), final_loss=float(losses[-1]))
+    log(f"collocation {tag}: {fit['niters']} steps in {wall:.3f} s, "
+        f"{row['it_s']:.1f} it/s, loss {losses[0]:.4e} -> {losses[-1]:.4e}; "
+        f"tally {d}; Taylor wrapper launches {launches}"
+        + ("" if kernels else " (the plain traversal: the chain is outside "
+           "the kernels' scope)"))
+    return row
+
+
+def graph_launches(step, rebalance=False, kernels=True, reps=5,
+                   windows=5):
+    """``torch.profiler`` over ``reps`` replays of one kind's graph of a
+    fit step (its training step, or its rebalance step): the Taylor
+    kernels' launches, the device ops and busy ms per replay.  The device
+    index is set to 0 before each replay (one fill more per replay,
+    counted in the ops).  A warm-up round is recorded and dropped, as in
+    ``step_profile``, and a window whose Taylor counts are not those of
+    the kind's design (``_kind_launches``; none without ``kernels``) is
+    taken again, up to ``windows`` times (``windows_taken``): the profiler
+    now and then drops a window's records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    graph = step.rebalance_graph if rebalance else step.graph
+    assert graph is not None
+    expect = (_kind_launches(step)[int(rebalance)] if kernels else (0, 0))
+    for taken in range(1, windows + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    step.index.zero_()
+                    graph.replay()
+                sync()
+                prof.step()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]
+        counts = [sum(k in e.name for e in dev) / reps
+                  for k in TAYLOR_KERNELS]
+        if counts == list(expect):
+            break
+        log(f"profiler window {taken}: {len(dev)} device records, Taylor "
+            f"kernels {counts} per replay, {list(expect)} by design; "
+            "taking another")
+    row = {f"{k}_per_step": c for k, c in zip(TAYLOR_KERNELS, counts)}
+    row.update(device_ops=len(dev) / reps, device_busy_ms=sum(
+        e.time_range.elapsed_us() for e in dev) / 1e3 / reps,
+        windows_taken=taken)
+    return row
+
+
+def _in_turns(arms, make, fit_of, tag, seeds=(0,), metric=None):
+    """Each seed's arms on fresh solvers, in turns (the arm order reversed
+    on every other seed): ``collocation_fit`` rows and ``metric(solver)``
+    per arm and seed; the last solver of each arm is kept."""
+    rows, kept = {a: [] for a in arms}, {}
+    for i, seed in enumerate(seeds):
+        for arm in (arms if i % 2 == 0 else arms[::-1]):
+            solver = make(arm, seed)
+            fit, kernels = fit_of(arm)
+            row = collocation_fit(solver, f"{tag} {arm} seed {seed}",
+                                  kernels, **fit)
+            if metric is not None:
+                row["metric"] = metric(solver)
+            rows[arm].append(row)
+            kept[arm] = solver
+    return rows, kept
+
+
+def phase_collocation():
+    """Phase 10, the collocation features through the public Solver with
+    graphs, each arm at its source's width, steps and batch, the launch
+    counters set to 0 just before and read just after each arm:
+    adaptive (examples/09) against uniform fits, RBA (the stiff ODE of
+    BENCHMARKS.md:722-745 on a fixed batch) against the fixed batch alone,
+    both on seeds 0-5; causal ``w3`` at eps 0 and 5 against its plain fit,
+    then eps annealed on the cached step; grad balancing on the raw beam of
+    tests/test_loss_balancing.py (order 4: the plain traversal) against
+    unbalanced fits; NTK balancing on examples/31's Helmholtz equation and
+    grad balancing on it through the kernels; Deep Ritz (examples/23)
+    against the strong form.  Launches per step of the new step kinds
+    from ``torch.profiler`` over replays of their graphs."""
+    from pydens_tpu_torch import D, HaltonSampler, Solver, sign
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    from pydens_tpu_torch.ops import fused_taylor as ft
+    from pydens_tpu_torch.utils.criteria import mse_loss
+    counters = (ft.fused_taylor_forward, ft.fused_taylor_backward,
+                fm.fused_mlp_forward)
+    out, path = {}, {}
+
+    def start():
+        for c in counters:
+            c.launches = 0
+
+    def read(arm):
+        path[arm] = {c.__name__: c.launches for c in counters}
+
+    def rates(rows):
+        return {arm: [r["it_s"] for r in rs] for arm, rs in rows.items()}
+
+    # Adaptive: examples/09 and its uniform fit, seeds 0-5.
+    xs = np.linspace(0, 1, 2000, dtype=np.float32)
+
+    def mean_residual(solver):
+        before = ft.fused_taylor_forward.launches
+        r = solver.residual(xs)
+        assert r.shape == (2000, 1) and np.isfinite(r).all()
+        assert ft.fused_taylor_forward.launches == before + 1
+        return float(r.mean())
+
+    start()
+    rows, kept = _in_turns(
+        ("adaptive", "uniform"),
+        lambda arm, seed: Solver(_stiff_ode(), seed=seed, **STIFF),
+        lambda arm: (dict(niters=1500, batch_size=128, lr=0.01,
+                          **(dict(adaptive=8) if arm == "adaptive" else {})),
+                     True),
+        "adaptive", COLLOCATION_SEEDS, mean_residual)
+    read("adaptive")
+    res = {arm: [r["metric"] for r in rs] for arm, rs in rows.items()}
+    ratio = [a / u for a, u in zip(res["adaptive"], res["uniform"])]
+    adaptive = dict(mean_residual=res, adaptive_over_uniform=ratio,
+                    it_s=rates(rows),
+                    step=graph_launches(list(
+                        kept["adaptive"]._step_cache.values())[0]),
+                    uniform_step=graph_launches(list(
+                        kept["uniform"]._step_cache.values())[0]))
+    log(f"adaptive: mean |residual| {json.dumps(res)}; adaptive / uniform "
+        f"{[round(x, 3) for x in ratio]} (the example's 0.6 held on "
+        f"{sum(x < 0.6 for x in ratio)} of {len(ratio)} seeds; pydens_tpu "
+        "on the CPU: 2 of 6); launches per replayed step "
+        f"{json.dumps(adaptive['step'])}")
+    assert adaptive["step"]["taylor_fwd_kernel_per_step"] == 2.0
+    assert adaptive["step"]["taylor_bwd_kernel_per_step"] == 1.0
+    med, top = float(np.median(res["adaptive"])), max(res["adaptive"])
+    assert med < 3 * ADAPTIVE_JAX["median"], (med, ADAPTIVE_JAX)
+    assert top < 3 * ADAPTIVE_JAX["max"], (top, ADAPTIVE_JAX)
+    out["adaptive"] = adaptive
+    del kept
+    free_card()
+
+    # RBA: the fixed batch of 256 with and without rba=(0.01, 0.99).
+    truth = _stiff_exact(xs.astype(np.float64))
+
+    def max_error(solver):
+        return float(np.abs(solver.predict(xs).ravel() - truth).max())
+
+    start()
+    rows, kept = _in_turns(
+        ("rba", "fixed"),
+        lambda arm, seed: Solver(_stiff_ode(), seed=seed, **STIFF),
+        lambda arm: (dict(niters=2000, batch_size=256, lr=0.01,
+                          resample=False,
+                          **(dict(rba=(0.01, 0.99)) if arm == "rba"
+                             else {})), True),
+        "rba", COLLOCATION_SEEDS, max_error)
+    read("rba")
+    err = {arm: [r["metric"] for r in rs] for arm, rs in rows.items()}
+    rba = dict(max_error=err, it_s=rates(rows),
+               median={a: float(np.median(v)) for a, v in err.items()},
+               max={a: float(np.max(v)) for a, v in err.items()},
+               step=graph_launches(list(
+                   kept["rba"]._step_cache.values())[0]),
+               fixed_step=graph_launches(list(
+                   kept["fixed"]._step_cache.values())[0]))
+    log(f"rba: max error {json.dumps(err)}; median {rba['median']}, max "
+        f"{rba['max']} (bounds {RBA_BOUNDS}); launches per replayed step "
+        f"{json.dumps(rba['step'])}")
+    assert rba["step"]["taylor_fwd_kernel_per_step"] == 1.0
+    assert rba["step"]["taylor_bwd_kernel_per_step"] == 1.0
+    assert rba["median"]["rba"] < RBA_BOUNDS["median"], rba["median"]
+    assert rba["max"]["rba"] < RBA_BOUNDS["max"], rba["max"]
+    out["rba"] = rba
+    del kept
+    free_card()
+
+    # Causal: w3 at full batch and steps, plain, eps 0 and eps 5, in turns;
+    # then eps 20 on the eps-5 solver, which replays the cached graph.
+    eq, kw, fits = _tutorial("w3")
+    w3_fit = fits[0][1]
+    start()
+    rows, kept = _in_turns(
+        ("plain", "causal0", "causal5"),
+        lambda arm, seed: Solver(eq, seed=0, device="cuda", **kw),
+        lambda arm: (dict(w3_fit, **({} if arm == "plain" else dict(
+            causal=float(arm[6:])))), True),
+        "causal w3", (0, 1))
+    plain = np.asarray(kept["plain"].losses)
+    zero = np.asarray(kept["causal0"].losses)
+    np.testing.assert_allclose(zero[:20], plain[:20], rtol=1e-5)
+    np.testing.assert_allclose(zero[-1], plain[-1], rtol=1e-3)
+    solver = kept["causal5"]
+    five = np.asarray(solver.losses)
+    assert _falling(five), "causal 5 fit not falling"
+    # The eps-5 solver's plain MSE over 50 fresh batches (pydens_tpu on the
+    # CPU, seed_study.py: 9.53-9.63 on seeds 0-2; plain w3 6.50-6.60).
+    loss_fn = solver._build_loss_fn((("equation", 1.0),), mse_loss,
+                                    use_plan=True)
+    theta = loss_fn.spec.flatten(solver.model.params).detach()
+    gen = torch.Generator(device="cuda").manual_seed(123)
+    mse = float(np.mean([float(loss_fn(theta, w3_fit["sampler"].sample_device(
+        gen, w3_fit["batch_size"])).detach()) for _ in range(50)]))
+    # Annealing: eps 20 on the eps-5 solver replays its graph.
+    graphs = _kind_tally(solver)["graph"]
+    before = [c.launches for c in counters[:2]]
+    anneal = collocation_fit(solver, "causal w3 eps 20", True,
+                             **dict(w3_fit, niters=500, causal=20.0))
+    assert _kind_tally(solver)["graph"] == graphs
+    assert [c.launches for c in counters[:2]] == before, \
+        "annealing recaptured the step"
+    assert len(solver._step_cache) == 1
+    read("causal")
+    causal = dict(it_s=rates(rows), anneal_it_s=anneal["it_s"],
+                  eps0_max_rel_diff=float(np.max(np.abs(zero - plain)
+                                                 / np.abs(plain))),
+                  eps0_bitwise=bool(np.array_equal(zero, plain)),
+                  eps5_plain_mse_50_batches=mse,
+                  step=graph_launches(list(solver._step_cache.values())[0]),
+                  plain_step=graph_launches(list(
+                      kept["plain"]._step_cache.values())[0]))
+    log(f"causal w3: {json.dumps(causal)} (band {TUTORIAL_BANDS['w3']})")
+    assert mse < TUTORIAL_BANDS["w3"], mse
+    assert causal["step"]["taylor_fwd_kernel_per_step"] == 1.0
+    out["causal"] = causal
+    del kept, solver
+    free_card()
+
+    # Grad balancing: tests/test_loss_balancing.py's raw beam, order 4.
+    xs_b = np.linspace(0, 1, 101, dtype=np.float32)
+    beam_true = 16.0 * xs_b ** 2 * (1 - xs_b) ** 2
+    left, right = np.zeros(1, np.float32), np.ones(1, np.float32)
+
+    def beam(arm, seed):
+        return Solver(lambda f, x: D(D(D(D(f, x), x), x), x) - 384.0,
+                      ndims=1, boundary_condition=0, seed=0,
+                      layout="fa fa f", features=[24, 24, 1],
+                      activation="Tanh",
+                      constraints=(lambda f, x: f.grad(left, wrt=0),
+                                   lambda f, x: f.grad(right, wrt=0)))
+
+    start()
+    rows, kept = _in_turns(
+        ("balanced", "unbalanced"), beam,
+        lambda arm: (dict(niters=2500, batch_size=512, lr=0.01,
+                          loss_terms=BEAM_LT,
+                          **(dict(loss_balancing=True)
+                             if arm == "balanced" else {})), False),
+        "grad balancing beam", (0, 1),
+        lambda s: float(np.abs(s.predict(xs_b).ravel() - beam_true).max()))
+    read("grad_beam")
+    wts = kept["balanced"].history[-1]["balanced_weights"]
+    step = list(kept["balanced"]._step_cache.values())[0]
+    assert step.rebalance_eager + step.rebalance_replays == 10
+    grad_beam = dict(
+        max_error={a: [r["metric"] for r in rs] for a, rs in rows.items()},
+        it_s=rates(rows), balanced_weights=wts,
+        route="plain traversal (order 4, outside the Taylor kernels)",
+        step=graph_launches(step, kernels=False),
+        rebalance_step=graph_launches(step, rebalance=True, kernels=False))
+    log(f"grad balancing beam: {json.dumps(grad_beam)}")
+    assert all(e > 0.05 for e in grad_beam["max_error"]["unbalanced"])
+    assert all(e < 0.01 for e in grad_beam["max_error"]["balanced"])
+    assert wts[0] == 1.0 and min(wts[1:]) > 10.0, wts
+    out["grad_beam"] = grad_beam
+    del kept, step
+    free_card()
+
+    # NTK balancing: examples/31, and grad balancing through the kernels.
+    k = HELMHOLTZ_K
+    zero = np.array([0.0], np.float32)
+    xs_h = np.linspace(0.0, 1.0, 201, dtype=np.float32)
+
+    def helmholtz(arm, seed):
+        return Solver(lambda f, x: D(D(f, x), x) + k * k * f, ndims=1,
+                      seed=0, layout="fa fa fa f", features=[48, 48, 48, 1],
+                      activation="Tanh",
+                      constraints=(lambda f, x: f(zero),
+                                   lambda f, x: f.grad(zero, wrt=0) - k))
+
+    start()
+    rows, kept = _in_turns(
+        ("ntk", "grad"), helmholtz,
+        lambda arm: (dict(niters=4000, batch_size=1024, lr=0.002,
+                          loss_terms=BEAM_LT,
+                          loss_balancing="ntk" if arm == "ntk" else True),
+                     True),
+        "helmholtz", (0, 1),
+        lambda s: float(np.abs(s.predict(xs_h).ravel()
+                               - np.sin(k * xs_h)).max()))
+    read("helmholtz")
+    ntk = dict(max_error={a: [r["metric"] for r in rs]
+                          for a, rs in rows.items()},
+               it_s=rates(rows),
+               balanced_weights={a: s.history[-1]["balanced_weights"]
+                                 for a, s in kept.items()})
+    for arm, s in kept.items():
+        step = list(s._step_cache.values())[0]
+        assert step.rebalance_eager + step.rebalance_replays == 10
+        ntk[f"{arm}_rebalance_step"] = graph_launches(step, rebalance=True)
+        ntk[f"{arm}_step"] = graph_launches(step)
+    log(f"helmholtz balancing: {json.dumps(ntk)}")
+    w = np.asarray(ntk["balanced_weights"]["ntk"])
+    assert w[0] == 1.0 and np.all(np.isfinite(w)) and np.all(w > 0), w
+    assert max(ntk["max_error"]["ntk"]) < 0.03, ntk["max_error"]
+    for arm, bwd in (("ntk", 5.0), ("grad", 2.0)):
+        row = ntk[f"{arm}_rebalance_step"]
+        assert row["taylor_fwd_kernel_per_step"] == 1.0, (arm, row)
+        assert row["taylor_bwd_kernel_per_step"] == bwd, (arm, row)
+    out["helmholtz"] = ntk
+    del kept, step, s
+    free_card()
+
+    # Deep Ritz: examples/23, variational and strong form.
+    xs_r = np.linspace(0, 1, 401, dtype=np.float32)
+    u_true = np.where(xs_r <= 0.5, -xs_r ** 2 / 2 + xs_r / 4,
+                      xs_r ** 2 / 2 - 3 * xs_r / 4 + 0.25)
+
+    def source(x):
+        return sign(0.5 - x)
+
+    equations = {"variational": lambda f, x: 0.5 * D(f, x) ** 2
+                 - source(x) * f,
+                 "residual": lambda f, x: D(D(f, x), x) + source(x)}
+    start()
+    ritz = {"rel_l2": {}, "adam_it_s": {}, "lbfgs": {}}
+    for arm in ("variational", "residual"):
+        s = Solver(equations[arm], ndims=1, seed=0, boundary_condition=0,
+                   layout="fa fa f", features=[24, 24, 1], activation="Tanh",
+                   **({"formulation": "variational"}
+                      if arm == "variational" else {}))
+        qmc = HaltonSampler(dim=1)
+        row = collocation_fit(s, f"deep ritz {arm} Adam", True, niters=4000,
+                              batch_size=2048, lr=5e-3, sampler=qmc)
+        lbfgs = run_finisher(s, "LBFGS", 500, 4096, f"deep ritz {arm}",
+                             sampler=qmc)
+        pred = s.predict(xs_r).ravel()
+        ritz["rel_l2"][arm] = float(np.linalg.norm(pred - u_true)
+                                    / np.linalg.norm(u_true))
+        ritz["adam_it_s"][arm] = row["it_s"]
+        ritz["lbfgs"][arm] = {k: lbfgs[k] for k in (
+            "it_s", "final_loss", "per_step_mean", "taylor_fwd_per_step")}
+        del s
+        free_card()
+    read("deep_ritz")
+    log(f"deep ritz: {json.dumps(ritz)} (pydens_tpu, BENCHMARKS.md:564: "
+        "0.0008 vs 0.0164)")
+    rel = ritz["rel_l2"]
+    assert rel["variational"] < 0.005, rel
+    assert rel["variational"] < rel["residual"] / 3, rel
+    out["deep_ritz"] = ritz
+    log(f"collocation path launches (counters from 0 at each arm): "
+        f"{json.dumps(path)}")
+    return path, out
 
 
 def _clone_tree(tree):
@@ -1930,6 +2400,12 @@ def main():
         print(json.dumps({"finishers": phase_finishers()[1]}), flush=True)
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--collocation"]:
+        with _plain_refused():
+            print(json.dumps({"collocation": phase_collocation()[1]}),
+                  flush=True)
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--profile"]:
         profile_steps()
         print(smi, flush=True)
@@ -1950,8 +2426,13 @@ def main():
                       "loop_features": phase_loop_features()}), flush=True)
     finisher_launches, finishers = phase_finishers()
     print(json.dumps({"finishers": finishers}), flush=True)
+    with _plain_refused():
+        collocation_launches, collocation = phase_collocation()
+    print(json.dumps({"collocation": collocation}), flush=True)
     path_launches = {k: {"w1": launches[k],
-                         **{w: t[0][k] for w, t in tutorials.items()}}
+                         **{w: t[0][k] for w, t in tutorials.items()},
+                         **{f"p10_{arm}": n[k] for arm, n
+                            in collocation_launches.items()}}
                      for k in launches}
     # Launches on the card: the Taylor kernels once per fit step (eager or
     # replayed), the MLP kernel once per predict (never captured).

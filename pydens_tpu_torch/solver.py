@@ -34,6 +34,7 @@ import sys
 import time
 import traceback
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -102,10 +103,63 @@ class _FlatSpec:
         return tree
 
 
-# Keyword arguments of pydens_tpu's fit that this package does not take
-# yet, with their ROADMAP.md Queue 1 item.
-_FIT_NOT_PORTED = {"adaptive": 10, "rba": 10, "causal": 10,
-                   "causal_axis": 10, "loss_balancing": 10}
+# Rademacher probes per NTK-trace estimate (fit(loss_balancing='ntk')),
+# pydens_tpu/solver.py:59-69.  A term whose residual block has at most this
+# many entries enumerates its basis instead: its trace is exact.
+_NTK_PROBES = 4
+
+# Loss balancing rebalances in the fit's first 10 intervals only
+# (pydens_tpu/solver.py:1305-1330).
+_REBALANCES = 10
+
+
+class _Collocation(NamedTuple):
+    """A fit's collocation and objective options, part of its step's cache
+    key: ``adaptive`` (the candidate factor, or None), ``rba`` (``(eta,
+    gamma)`` or None), ``causal`` (``(time column, lo, hi)`` or None),
+    ``balance_every`` (the rebalance interval; 0 is off) and
+    ``balance_mode`` (``'grad'`` or ``'ntk'``)."""
+    adaptive: int | None = None
+    rba: tuple | None = None
+    causal: tuple | None = None
+    balance_every: int = 0
+    balance_mode: str = "grad"
+
+    def rebalances(self, local):
+        """Whether the fit-local step ``local`` rebalances the term
+        weights."""
+        every = self.balance_every
+        return bool(every) and local % every == 0 and local < (
+            _REBALANCES * every)
+
+
+def _adaptive_pick(r, u, m_pool):
+    """The refinement half of an adaptive batch: indices into the candidate
+    pool drawn with probability proportional to ``r`` (``(m_pool,)``), by
+    the inverse CDF at the uniforms ``u``, and their importance weights
+    ``1 / (m_pool p)``.  ``pydens_tpu/solver.py:1236-1262`` draws from the
+    same distribution with a Gumbel categorical."""
+    probs = r / (torch.sum(r) + 1e-30)
+    idx = torch.searchsorted(torch.cumsum(probs, 0), u, right=True)
+    idx = idx.clamp_(max=m_pool - 1)
+    return idx, 1.0 / (m_pool * probs[idx] + 1e-30)
+
+
+def _rba_update(rba_w, r, eta, gamma):
+    """Residual-based attention's EMA of the normalized |residual| ``r``
+    (``pydens_tpu/solver.py:1280-1294``)."""
+    return gamma * rba_w + eta * r / (torch.max(r) + 1e-30)
+
+
+def _anchored_ema(stat, wts, anchor):
+    """Inverse-statistic term weights anchored at the first term's static
+    weight ``anchor``, clipped to two decades around it, the anchor pinned,
+    then EMA-smoothed into ``wts`` (``_anchored_ema``,
+    ``pydens_tpu/solver.py:1098-1118``)."""
+    lam = (stat[0] / (stat + 1e-12) * anchor).clamp(0.01 * anchor,
+                                                   100.0 * anchor)
+    lam = torch.cat([lam.new_full((1,), anchor), lam[1:]])
+    return 0.7 * wts + 0.3 * lam
 
 
 def _capture_error(err):
@@ -133,11 +187,24 @@ class _FitStep:
     state and no host read (counterpart of ``run_chunk``'s ``body``,
     ``pydens_tpu/solver.py:1205-1450``).
 
+    The collocation options (:class:`_Collocation`) add buffers of their
+    own, all written outside the step: with ``adaptive`` the points rows
+    hold each step's ``adaptive * batch`` candidates and ``uniforms``
+    ``(chunk, batch // 2)`` the draws that pick the refinement half;
+    ``rba_w`` holds RBA's per-point weights, ``causal_eps`` the causal
+    temperature (0-d, so that a new value needs no new graph), ``wts`` the
+    balanced term weights and ``probes`` the NTK probes of the term blocks
+    larger than ``_NTK_PROBES``, drawn before each rebalance.  Nothing is
+    drawn at random inside a step.
+
     :meth:`run` takes steps: eagerly on the CPU, or when ``capture`` is off;
     on the card the configuration's first step runs eagerly on a side
     stream (the warm-up, a real step), the next one captures the closure as
-    a CUDA graph, and every step from then on replays it.  Host values the
-    step reads are staged on the device by the warm-up
+    a CUDA graph, and every step from then on replays it.  A rebalance step
+    of loss balancing (``step(rebalance=True)``) is a kind of its own, with
+    ``rebalance_eager``, ``rebalance_replays`` and ``rebalance_graph``,
+    which the host picks by the fit-local step.  Host values the step reads
+    are staged on the device by the warm-up
     (:func:`~pydens_tpu_torch.ops.tokens.staging`).  A capture that fails
     raises with its first error and the site; nothing falls back.
 
@@ -147,12 +214,16 @@ class _FitStep:
     sums the live CG iterations on the device."""
 
     def __init__(self, loss_fn, opt, mask, theta, chunk, batch_size,
-                 resample, guard, capture):
+                 resample, guard, capture, options=_Collocation(),
+                 generator=None):
         dev, dtype = theta.device, theta.dtype
         total = loss_fn.total
         self.loss_fn = loss_fn
         self.opt = opt
         self.mask = mask
+        self.options = options
+        self.generator = generator
+        self.batch_size = batch_size
         self.theta = theta.detach().clone().requires_grad_(True)
         self.state = opt.init(self.theta.detach())
         self.armed = (torch.ones((), dtype=torch.bool, device=dev)
@@ -160,9 +231,23 @@ class _FitStep:
         self.tol = (torch.full((), -np.inf, dtype=dtype, device=dev)
                     if guard else None)
         self.index = torch.zeros((), dtype=torch.int64, device=dev)
-        self.resample = resample
-        self.points = torch.zeros((chunk if resample else 1, batch_size,
-                                   total), dtype=dtype, device=dev)
+        # Adaptive sampling draws new candidates every step.
+        self.resample = resample or bool(options.adaptive)
+        self.points = torch.zeros(
+            (chunk if self.resample else 1,
+             (options.adaptive or 1) * batch_size, total),
+            dtype=dtype, device=dev)
+        self.uniforms = (torch.zeros((chunk, batch_size // 2), dtype=dtype,
+                                     device=dev)
+                         if options.adaptive else None)
+        self.causal_eps = (torch.zeros((), dtype=dtype, device=dev)
+                           if options.causal else None)
+        self.rba_w = (torch.ones((batch_size,), dtype=dtype, device=dev)
+                      if options.rba else None)
+        self.wts = (torch.tensor([w for _, w in loss_fn.term_order],
+                                 dtype=dtype, device=dev)
+                    if options.balance_every else None)
+        self.probes = None
         self.losses = torch.zeros((chunk,), dtype=dtype, device=dev)
         self.live = torch.zeros((), dtype=torch.int64, device=dev)
         self.capture = capture
@@ -170,11 +255,102 @@ class _FitStep:
         self.constants = {}
         self.eager_steps = 0     # steps run eagerly (the warm-up, or all)
         self.replays = 0         # steps run as replays of the graph
+        self.rebalance_graph = None
+        self.rebalance_eager = 0
+        self.rebalance_replays = 0
 
     def _points_row(self):
         if self.resample:
             return self.points.index_select(0, self.index)[0]
         return self.points[0]
+
+    def _batch(self):
+        """This step's points and their weights (None: all 1): the points
+        row, or with ``adaptive`` the hybrid batch from the row's
+        candidates, a uniform half (the last ``batch - batch // 2``) and a
+        half picked from the others in proportion to their |residual|
+        (``pydens_tpu/solver.py:1215-1262``).  The pool's residual is a
+        forward pass only."""
+        pts = self._points_row()
+        if not self.options.adaptive:
+            return pts, None
+        n_uni = self.batch_size - self.batch_size // 2
+        m_pool = pts.shape[0] - n_uni
+        r = self.loss_fn.point_residual(self.theta.detach(),
+                                        pts[:m_pool])[:, 0].detach()
+        idx, w_sel = _adaptive_pick(
+            r, self.uniforms.index_select(0, self.index)[0], m_pool)
+        return (torch.cat([pts[m_pool:], pts[idx]]),
+                torch.cat([w_sel.new_ones((n_uni,)), w_sel]))
+
+    def _masked(self, g):
+        g = torch.zeros_like(self.theta) if g is None else g
+        return g if self.mask is None else g * self.mask
+
+    def _grad_norms(self, terms):
+        """Each term's mean |gradient| (``rebalance``,
+        ``pydens_tpu/solver.py:1120-1139``): a pullback per term through
+        the step's one forward pass."""
+        return torch.stack([torch.mean(torch.abs(self._masked(
+            torch.autograd.grad(t, self.theta, retain_graph=True,
+                                allow_unused=True)[0]))) for t in terms])
+
+    def _draw_probes(self):
+        for p in (self.probes or {}).values():
+            p.copy_(torch.randint(0, 2, p.shape, generator=self.generator,
+                                  device=p.device).to(p.dtype) * 2 - 1)
+
+    def _ntk_traces(self, blocks):
+        """Each term's NTK trace ``|d block / d theta|_F^2`` without the
+        frozen coordinates (``rebalance_ntk``,
+        ``pydens_tpu/solver.py:1141-1204``): the mean of ``|J^T u|^2`` over
+        the Rademacher ``probes``, or the sum over the basis for a block of
+        at most ``_NTK_PROBES`` entries (exact); a pullback each.  The
+        probes are made (and drawn) when the first rebalance step, which
+        runs eagerly, meets the blocks."""
+        if self.probes is None:
+            self.probes = {j: b.new_empty((_NTK_PROBES, b.numel()))
+                           for j, b in enumerate(blocks)
+                           if b.numel() > _NTK_PROBES}
+            self._draw_probes()
+        traces = []
+        for j, b in enumerate(blocks):
+            cts = self.probes.get(j)
+            if cts is None:
+                cts = torch.eye(b.numel(), dtype=b.dtype, device=b.device)
+            acc = 0.0
+            for ct in cts:
+                g = self._masked(torch.autograd.grad(
+                    b, self.theta, ct, retain_graph=True,
+                    allow_unused=True)[0])
+                acc = acc + torch.sum(g * g)
+            traces.append(acc / _NTK_PROBES if j in self.probes else acc)
+        return torch.stack(traces)
+
+    def _loss(self, rebalance=False):
+        """The step's loss at ``theta``, after the per-step updates of the
+        options: RBA's weights from this forward pass's residual, and on a
+        rebalance step the term weights (left as they are once the guard
+        has tripped)."""
+        pts, weight = self._batch()
+        residuals, values, leaf = self.loss_fn.evaluate(self.theta, pts)
+        if self.rba_w is not None:
+            eta, gamma = self.options.rba
+            r = _abs_residual(residuals, leaf)[:, 0].detach()
+            self.rba_w.copy_(_rba_update(self.rba_w, r, eta, gamma))
+            weight = self.rba_w * self.rba_w
+        terms = self.loss_fn.terms(residuals, values, leaf, pts, weight,
+                                   self.causal_eps)
+        if rebalance:
+            stat = (self._ntk_traces(self.loss_fn.blocks(residuals, values))
+                    if self.options.balance_mode == "ntk"
+                    else self._grad_norms(terms))
+            new = _anchored_ema(stat, self.wts,
+                                self.loss_fn.term_order[0][1])
+            if self.armed is not None:
+                new = torch.where(self.armed, new, self.wts)
+            self.wts.copy_(new)
+        return self.loss_fn.combine(self.theta, terms, self.wts)
 
     def _record(self, loss):
         """The guard's flag, the loss slot and the index after a step whose
@@ -186,18 +362,18 @@ class _FitStep:
         self.losses.index_copy_(0, self.index, loss)
         self.index.add_(1)
 
-    def step(self):
+    def step(self, rebalance=False):
         """One training step; reads and writes only the buffers above.  The
         update of the iteration that trips the guard is kept; every later
         one is a no-op."""
-        pts = self._points_row()
         if isinstance(self.opt, LMConfig):
+            pts = self._points_row()
             loss, live = self.opt.update(
                 self.theta, lambda th: self.loss_fn.resvec(th, pts),
                 self.state, mask=self.mask, gate=self.armed)
             self.live.add_(live)
         else:
-            loss = self.loss_fn(self.theta, pts)
+            loss = self._loss(rebalance)
             grad, = torch.autograd.grad(loss, self.theta)
             if self.mask is not None:
                 grad = grad * self.mask
@@ -205,34 +381,53 @@ class _FitStep:
             self.opt.update(self.theta, grad, self.state, gate=self.armed)
         self._record(loss)
 
-    def run(self, n):
-        """Take ``n`` steps from the device index 0.  If one raises (a
-        capture that fails), ``theta`` and the state are put back as they
-        were before the first, so the fit commits the last whole chunk."""
-        buffers = (self.theta, *self.state.values())
+    def run(self, n, start=0):
+        """Take ``n`` steps from the device index 0, the first being the
+        fit's step ``start`` (the rebalance window counts from the fit's
+        first step).  If one raises (a capture that fails), ``theta``, the
+        state and the weights are put back as they were before the first,
+        so the fit commits the last whole chunk."""
+        buffers = [self.theta, *self.state.values()] + [
+            t for t in (self.wts, self.rba_w) if t is not None]
         saved = [t.detach().clone() for t in buffers]
         self.index.zero_()
         try:
-            for _ in range(n):
-                self._one_step()
+            for i in range(n):
+                if self.options.rebalances(start + i):
+                    self._draw_probes()
+                    self._one_step(rebalance=True)
+                else:
+                    self._one_step()
         except BaseException:
             with torch.no_grad():
                 for dst, src in zip(buffers, saved):
                     dst.copy_(src)
             raise
 
-    def _one_step(self):
-        if not self.capture:
-            self.step()
-            self.eager_steps += 1
-        elif not self.eager_steps:
-            self._warm_up(self.step)
-            self.eager_steps += 1
+    def _one_step(self, rebalance=False):
+        if rebalance:
+            (self.rebalance_eager, self.rebalance_replays,
+             self.rebalance_graph) = self._take(
+                lambda: self.step(rebalance=True), self.rebalance_eager,
+                self.rebalance_replays, self.rebalance_graph)
         else:
-            if self.graph is None:
-                self.graph = self._capture(self.step)
-            self.graph.replay()
-            self.replays += 1
+            self.eager_steps, self.replays, self.graph = self._take(
+                self.step, self.eager_steps, self.replays, self.graph)
+
+    def _take(self, fn, eager, replays, graph):
+        """One step of ``fn``, its kind's tally being ``(eager, replays,
+        graph)``: run eagerly, as the warm-up, or as a replay of the kind's
+        graph (captured on first need).  Returns the new tally."""
+        if not self.capture:
+            fn()
+            return eager + 1, replays, graph
+        if not eager:
+            self._warm_up(fn)
+            return 1, replays, graph
+        if graph is None:
+            graph = self._capture(fn)
+        graph.replay()
+        return eager, replays + 1, graph
 
     def _warm_up(self, fn):
         dev = self.theta.device
@@ -274,17 +469,22 @@ class _LinesearchFitStep(_FitStep):
     reads after each, holds.  On the card each of the two is a captured
     graph (``graph`` and ``trial_graph``); the configuration's first step
     and its trials run eagerly as the warm-up.  Every trial evaluates the
-    loss and its gradient on the step's points (``step_points``); ``live``
-    sums the trials on the device.
+    loss and its gradient on the step's points (``step_points``, with
+    ``adaptive`` their weights ``step_weight``); ``live`` sums the trials on
+    the device.
 
     ``masked`` puts every trial a step may take (``max_linesearch_steps``,
     each a no-op once the search has ended) into the one step graph, which
     then needs no host read (the design timed against this one)."""
 
-    def __init__(self, *args, masked=False):
-        super().__init__(*args)
+    def __init__(self, *args, masked=False, **kwargs):
+        super().__init__(*args, **kwargs)
         self.ls = self.opt.scratch(self.theta.detach())
-        self.step_points = torch.zeros_like(self.points[0])
+        theta = self.theta.detach()
+        self.step_points = theta.new_zeros((self.batch_size,
+                                            self.points.shape[2]))
+        self.step_weight = (theta.new_zeros((self.batch_size,))
+                            if self.options.adaptive else None)
         self.masked = masked
         self.trial_graph = None
         self.eager_trials = 0    # trials after a step's first, run eagerly
@@ -292,7 +492,8 @@ class _LinesearchFitStep(_FitStep):
 
     def _value_and_grad(self, point):
         point = point.detach().requires_grad_(True)
-        loss = self.loss_fn(point, self.step_points)
+        loss = self.loss_fn(point, self.step_points, self.step_weight,
+                            causal_eps=self.causal_eps)
         grad, = torch.autograd.grad(loss, point)
         return loss.detach(), grad
 
@@ -302,9 +503,13 @@ class _LinesearchFitStep(_FitStep):
         self.live.add_(was.to(torch.int64))
 
     def step(self):
+        pts, weight = self._batch()
         with torch.no_grad():
-            self.step_points.copy_(self._points_row())
-        loss = self.loss_fn(self.theta, self.step_points)
+            self.step_points.copy_(pts)
+            if weight is not None:
+                self.step_weight.copy_(weight)
+        loss = self.loss_fn(self.theta, self.step_points, self.step_weight,
+                            causal_eps=self.causal_eps)
         grad, = torch.autograd.grad(loss, self.theta)
         if self.mask is not None:
             grad = grad * self.mask
@@ -323,7 +528,7 @@ class _LinesearchFitStep(_FitStep):
             self.trial()
             self.eager_trials += 1
 
-    def _one_step(self):
+    def _one_step(self, rebalance=False):
         if self.masked:
             return super()._one_step()
         if not self.capture:
@@ -343,6 +548,15 @@ class _LinesearchFitStep(_FitStep):
                 self.trial_graph = self._capture(self.trial)
             self.trial_graph.replay()
             self.trial_replays += 1
+
+
+def _abs_residual(residuals, leaf):
+    """Per-point |residual| ``(batch, 1)``, summed over a system's
+    residuals and their components."""
+    acc = torch.zeros_like(leaf)
+    for res in residuals:
+        acc = acc + torch.sum(torch.abs(res), dim=1, keepdim=True)
+    return acc
 
 
 def _is_number(x):
@@ -429,6 +643,13 @@ class Solver:
     device : str or torch.device, optional
         Where parameters live and training runs; default the CUDA card
         (an error without one: pass ``device="cpu"`` for the CPU).
+    formulation : str
+        ``'residual'`` (default): the equation returns a strong-form
+        residual, trained to zero in mean square.  ``'variational'``: the
+        equation returns a Deep Ritz energy density whose mean is minimized
+        directly, e.g. ``0.5 * D(f, x)**2 - source * f`` for ``-u'' =
+        source``; incompatible with ``fit(adaptive=, causal=, rba=)``,
+        NTK balancing and LM.
     """
 
     # False runs every step on the card eagerly, for comparisons with the
@@ -445,12 +666,18 @@ class Solver:
         # pydens_tpu's defaults are taken; any other value is a feature of
         # a later slice (ROADMAP.md Queue 1 item).
         for name, value, default, item in (
-                ("formulation", formulation, "residual", 10),
                 ("n_models", n_models, 1, 11), ("mesh", mesh, None, 15)):
             if value is not default and value != default:
                 raise NotImplementedError(
                     f"Solver({name}={value!r}) is not ported to "
                     f"pydens_tpu_torch yet (ROADMAP.md, Queue 1 item {item})")
+        if formulation not in ("residual", "variational"):
+            raise ValueError(
+                f"formulation must be 'residual' or 'variational', got "
+                f"{formulation!r}")
+        # 'variational' is Deep Ritz: the equation returns an energy
+        # density whose mean is minimized.
+        self.formulation = formulation
         self.equation = equation
         if constraints is None:
             self.constraints = ()
@@ -461,6 +688,7 @@ class Solver:
         self.device = resolve_device(device)
         self.losses = []
         self.history = []   # one record per fit call
+        self.last_balanced_weights = None   # set by load() from a snapshot
         self._step_counter = 0
         self.model = model(**kwargs, ndims=ndims,
                            initial_condition=initial_condition,
@@ -476,6 +704,7 @@ class Solver:
         self._pending_opt_state = None   # set by a checkpoint load
         self._opt_cache = {}
         self._step_cache = {}
+        self._residual_fn = None
 
         # Discovery: one real forward of model + equation + constraints on a
         # single row of domain midpoints registers the V variables and
@@ -676,11 +905,30 @@ class Solver:
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
-    def _build_loss_fn(self, loss_terms, criterion, use_plan=False):
+    def _build_loss_fn(self, loss_terms, criterion, use_plan=False,
+                       causal=None):
         """The total loss as a function of the flat parameter vector and a
         ``(batch, total)`` batch of points: the equation term first, then
         each requested constraint as ``criterion(c, zeros((1,)))``, each
-        times its weight.
+        times its weight (``term_order``: ``(name, weight)`` pairs).
+
+        ``loss_fn(theta, pts, point_weight=None, term_weights=None,
+        causal_eps=None)``: ``point_weight`` ``(batch,)`` scales the
+        equation residual by its square root (adaptive sampling, RBA);
+        ``term_weights`` ``(n_terms,)`` replaces the static weights (loss
+        balancing); ``causal_eps`` (a float or 0-d tensor) is the causal
+        temperature when ``causal`` = ``(time column, lo, hi)`` is given.
+        Under ``formulation='variational'`` the equation term is the plain
+        mean of the energy density.  The same loss in parts, for steps
+        that read the residuals in between: ``loss_fn.evaluate`` (the
+        residuals and constraint values), ``loss_fn.terms`` (the
+        unweighted terms from them), ``loss_fn.combine`` (their weighted
+        sum) and ``loss_fn.blocks`` (``term_blocks`` from them).
+        ``loss_fn.point_residual(theta, pts)`` is the per-point
+        |residual| ``(batch, 1)``, summed over a system's residuals;
+        ``loss_fn.term_blocks(theta, pts)`` the per-term residual blocks,
+        each scaled by ``1/sqrt(size)`` (a system's residuals form one
+        block), whose squared sums are the unweighted MSE terms.
 
         ``use_plan=True`` computes every pure field tap the equation takes
         in ONE Taylor traversal (``Model.full_taps``) and the equation reads
@@ -691,21 +939,25 @@ class Solver:
         """
         eq_weight = dict(loss_terms).get("equation")
         nums = _constraint_terms(loss_terms, len(self.constraints))
+        term_order = ((["equation"] if eq_weight is not None else [])
+                      + [f"constraint_{num}" for num, _ in nums])
         weights = (([eq_weight] if eq_weight is not None else [])
                    + [w for _, w in nums])
         constraints = self.constraints
         model = self.model
         equation = self.equation
         total = model.total
+        variational = self.formulation == "variational"
         spec = _FlatSpec(model.params)
         plan_derivs = self._plan_derivs if use_plan else None
-        leaf_grad = plan_derivs is None or bool(nums)
 
-        def term_values(theta, pts):
-            """The equation's residuals (None without an equation term) and
-            the requested constraints' values at ``theta``."""
+        def term_values(theta, pts, with_equation=eq_weight is not None,
+                        with_constraints=True):
+            """The equation's residuals (None without ``with_equation``)
+            and the requested constraints' values at ``theta``."""
             params = spec.unflatten(theta)
-            if leaf_grad:
+            with_constraints = with_constraints and bool(nums)
+            if plan_derivs is None or with_constraints:
                 leaves = [pts[:, k:k + 1].detach().requires_grad_(True)
                           for k in range(total)]
             else:
@@ -719,32 +971,91 @@ class Solver:
                          deriv=())
                 coords = [Expr(_leaf_fn(ctx, k), ctx, leaf_index=k)
                           for k in range(total)]
-                if eq_weight is not None:
+                if with_equation:
                     residuals = [as_array(res) for res in
                                  _as_residual_list(equation(f, *coords))]
-                if nums:
+                if with_constraints:
                     fwd = self._make_forward(params, ctx)
                     values = [as_array(constraints[num](fwd, *coords))
                               for num, _ in nums]
             return residuals, values, leaves[0]
 
-        def loss_fn(theta, pts):
-            residuals, values, leaf = term_values(theta, pts)
-            terms = []
-            if residuals is not None:
-                acc = theta.new_zeros(())
+        def causal_term(residuals, pts, eps):
+            """The 32-bin pointwise causal weighting of the squared
+            residual (``pydens_tpu/solver.py:749-801``): bin i's mean L_i,
+            weights ``exp(-eps * sum_{j<i} L_j / sum_j L_j)`` without
+            gradient, self-normalized, so eps = 0 is the plain MSE.  The bin
+            sums are one-hot reductions, in a fixed order (no atomics)."""
+            t_idx, t_lo, t_hi = causal
+            n_bins = 32
+            sq = 0.0
+            for res in residuals:
+                sq = sq + torch.mean(res * res, dim=1)
+            tcol = ((pts[:, t_idx] - t_lo) / (t_hi - t_lo)).detach()
+            bins = (tcol * n_bins).to(torch.int64).clamp(0, n_bins - 1)
+            onehot = (bins[:, None] == torch.arange(
+                n_bins, device=pts.device)).to(sq.dtype)
+            sums = (onehot * sq.detach()[:, None]).sum(0)
+            L = sums / onehot.sum(0).clamp(min=1.0)
+            earlier = torch.ones((n_bins, n_bins), dtype=sq.dtype,
+                                 device=pts.device).tril(-1)
+            cum = (earlier * L).sum(1)
+            cum = cum / (cum[-1] + L[-1]).clamp(min=1e-30)
+            w_pt = torch.exp(-eps * cum)[bins]
+            return torch.sum(w_pt * sq) / w_pt.sum().clamp(min=1e-30)
+
+        def terms(residuals, values, leaf, pts, point_weight=None,
+                  causal_eps=None):
+            """The unweighted terms, in ``term_order``."""
+            out = []
+            if residuals is not None and causal is not None:
+                out.append(causal_term(residuals, pts, causal_eps))
+            elif residuals is not None and variational:
+                out.append(sum(torch.mean(res) for res in residuals))
+            elif residuals is not None:
+                acc = 0.0
                 for res in residuals:
+                    if point_weight is not None:
+                        res = res * torch.sqrt(point_weight)[:, None]
                     acc = acc + criterion(res, torch.zeros_like(leaf))
-                terms.append(acc)
+                out.append(acc)
             if values:
-                zero = theta.new_zeros((1,))
-                terms += [criterion(c, zero) for c in values]
-            if not terms:   # only unknown names: a zero loss
+                zero = leaf.new_zeros((1,))
+                out += [criterion(c, zero) for c in values]
+            return out
+
+        def combine(theta, parts, term_weights=None):
+            if not parts:   # only unknown names: a zero loss
                 return theta[:0].sum()
             loss = theta.new_zeros(())
-            for w, t in zip(weights, terms):
+            for j, t in enumerate(parts):
+                w = weights[j] if term_weights is None else term_weights[j]
                 loss = loss + w * t
             return loss
+
+        def loss_fn(theta, pts, point_weight=None, term_weights=None,
+                    causal_eps=None):
+            residuals, values, leaf = term_values(theta, pts)
+            return combine(theta, terms(residuals, values, leaf, pts,
+                                        point_weight, causal_eps),
+                           term_weights)
+
+        def point_residual(theta, pts):
+            residuals, _, leaf = term_values(theta, pts, with_equation=True,
+                                             with_constraints=False)
+            return _abs_residual(residuals, leaf)
+
+        def blocks(residuals, values):
+            out = []
+            if residuals is not None:
+                out.append(torch.cat([r.reshape(-1) * (1.0 / r.numel()) ** 0.5
+                                      for r in residuals]))
+            out += [c.reshape(-1) * (1.0 / c.numel()) ** 0.5 for c in values]
+            return tuple(out)
+
+        def term_blocks(theta, pts):
+            residuals, values, _ = term_values(theta, pts)
+            return blocks(residuals, values)
 
         def resvec(theta, pts):
             """The stacked residual vector ``r`` with ``loss_fn == r . r``
@@ -752,16 +1063,23 @@ class Solver:
             ``sqrt(weight / size)`` (``resvec_fn`` of
             ``pydens_tpu/solver.py``), for Levenberg-Marquardt."""
             residuals, values, _ = term_values(theta, pts)
-            blocks = [res.reshape(-1) * (eq_weight / res.numel()) ** 0.5
-                      for res in residuals or ()]
-            blocks += [c.reshape(-1) * (w / c.numel()) ** 0.5
-                       for c, (_, w) in zip(values, nums)]
-            if not blocks:
+            out = [res.reshape(-1) * (eq_weight / res.numel()) ** 0.5
+                   for res in residuals or ()]
+            out += [c.reshape(-1) * (w / c.numel()) ** 0.5
+                    for c, (_, w) in zip(values, nums)]
+            if not out:
                 return theta.new_zeros((1,))
-            return torch.cat(blocks)
+            return torch.cat(out)
 
         loss_fn.spec = spec
         loss_fn.total = total
+        loss_fn.term_order = tuple(zip(term_order, weights))
+        loss_fn.evaluate = term_values
+        loss_fn.terms = terms
+        loss_fn.combine = combine
+        loss_fn.blocks = blocks
+        loss_fn.point_residual = point_residual
+        loss_fn.term_blocks = term_blocks
         loss_fn.resvec = resvec
         return loss_fn
 
@@ -799,9 +1117,10 @@ class Solver:
     def fit(self, niters, batch_size, sampler=None, loss_terms="equation",
             optimizer="Adam", criterion="MSELoss", lr=0.005, losses=None,
             progress="auto", chunk_size=500, profile_dir=None, resample=True,
-            fast_taps="auto", callback=None, checkpoint_path=None,
-            checkpoint_every=None, stop_on_nan=True, until_loss=None,
-            **kwargs):
+            adaptive=None, fast_taps="auto", callback=None,
+            loss_balancing=None, checkpoint_path=None, checkpoint_every=None,
+            stop_on_nan=True, causal=None, causal_axis=None, rba=None,
+            until_loss=None, **kwargs):
         """Train for ``niters`` iterations of ``batch_size`` collocation
         points each (``model_torch.py:364-422``).
 
@@ -859,15 +1178,37 @@ class Solver:
         ``until_loss=tol`` stops the same way at the first loss at or below
         ``tol`` (``history[-1]['converged_at']``); it implies the guard.
         Every fit appends a record to :attr:`history`.
+
+        The collocation and objective options of ``pydens_tpu``'s ``fit``,
+        each drawn outside the step and so under its CUDA graph too:
+
+        * ``adaptive=r`` (int >= 2): each step draws ``r * batch_size``
+          candidates and trains on a hybrid batch, half uniform and half
+          picked in proportion to the |equation residual| of the rest, with
+          importance weights ``1/(M p)`` that keep the MSE unbiased (a
+          device sampler, the equation term and the MSE criterion).
+        * ``rba=True`` / ``eta`` / ``(eta, gamma)`` (defaults 0.01, 0.999):
+          residual-based attention, per-point weights ``w <- gamma w + eta
+          |r| / max |r|`` on the fixed batch (``resample=False``), reset at
+          each fit, loss ``mean((w r)^2)``.
+        * ``causal=eps`` (>= 0): the batch's squared residual in 32 time
+          bins, bin i weighted by ``exp(-eps * cumulative earlier-bin
+          residual / total)`` and self-normalized; ``eps = 0`` is the plain
+          MSE, and a new eps reuses the cached step.  The time column is
+          the last variable (an ``initial_condition`` is needed) or
+          ``causal_axis=k``.
+        * ``loss_balancing=True`` / interval / ``'grad'`` / ``'ntk'`` /
+          ``(mode, interval)`` (default interval 100): in the fit's first
+          10 intervals, one step each rebalances the term weights towards
+          the equation term's per-term statistic (mean |gradient|, or the
+          NTK trace from 4 Rademacher probes a term), clipped to two
+          decades, EMA-smoothed; they start from ``loss_terms`` and land in
+          ``history[-1]['balanced_weights']``.
+
+        ``pydens_tpu``'s exclusivity rules hold, with its ``ValueError``
+        messages.
         """
         fit_t0 = time.perf_counter()
-        not_ported = sorted(set(kwargs) & set(_FIT_NOT_PORTED))
-        if not_ported:
-            items = sorted({_FIT_NOT_PORTED[k] for k in not_ported})
-            raise NotImplementedError(
-                f"fit options {not_ported} are not ported to "
-                "pydens_tpu_torch yet (ROADMAP.md, Queue 1 item "
-                f"{', '.join(map(str, items))})")
         niters = int(niters)
         if niters <= 0:
             return self
@@ -903,11 +1244,23 @@ class Solver:
                 "False/'never' (nested gradients)")
         use_plan = bool(self._plan_ok) and fast_taps not in (False, "never")
         if isinstance(self._opt, LMConfig):
-            self._check_lm(criterion_key)
+            self._check_lm(criterion_key, adaptive, causal, rba,
+                           loss_balancing)
+        options, causal_eps = self._collocation(
+            loss_terms, criterion_key, sampler, resample, adaptive, rba,
+            causal, causal_axis, loss_balancing)
         batch_size = int(batch_size)
         chunk = max(1, min(niters, int(chunk_size)))
         step = self._fit_step(loss_terms, criterion_fn, use_plan, batch_size,
-                              chunk, bool(resample), bool(stop_on_nan))
+                              chunk, bool(resample), bool(stop_on_nan),
+                              options)
+        if step.causal_eps is not None:
+            step.causal_eps.fill_(causal_eps)
+        if step.wts is not None:    # each fit starts from loss_terms
+            step.wts.copy_(torch.as_tensor([w for _, w in
+                                            step.loss_fn.term_order]))
+        if step.rba_w is not None:  # and from no attention
+            step.rba_w.fill_(1.0)
         spec = step.loss_fn.spec
         with torch.no_grad():
             step.theta.copy_(spec.flatten(self.model.params))
@@ -922,7 +1275,7 @@ class Solver:
         if step.armed is not None:
             step.armed.fill_(True)
             step.tol.fill_(float(tol))
-        if not resample:
+        if not step.resample:
             step.points[0].copy_(self._sample(sampler, 1, batch_size)[0])
 
         bounds = range(0, niters, chunk)
@@ -944,6 +1297,9 @@ class Solver:
         iters_run = 0
         nan_stop = converged_at = None
 
+        def balanced_weights():
+            return None if step.wts is None else step.wts.tolist()
+
         def save_checkpoint():
             # Host copies of the step's buffers between chunks: a snapshot
             # never reads them inside a step.
@@ -954,16 +1310,22 @@ class Solver:
                         params=spec.unflatten(step.theta.detach()),
                         opt_state=step.state,
                         losses=self.losses + fit_losses,
-                        step_counter=self._step_counter + iters_run)
+                        step_counter=self._step_counter + iters_run,
+                        balanced_weights=balanced_weights())
 
         try:
             with profiler:
                 for start in bounds:
                     n = min(chunk, niters - start)
-                    if resample:
-                        step.points[:n].copy_(
-                            self._sample(sampler, n, batch_size))
-                    step.run(n)
+                    if step.resample:
+                        step.points[:n].copy_(self._sample(
+                            sampler, n, step.points.shape[1]))
+                    if step.uniforms is not None:
+                        step.uniforms[:n].copy_(torch.rand(
+                            step.uniforms[:n].shape,
+                            generator=self._generator, device=self.device,
+                            dtype=self.model.dtype))
+                    step.run(n, start)
                     # The one host read of this chunk.
                     chunk_losses = step.losses[:n].tolist()
                     if stop_on_nan:
@@ -1027,41 +1389,244 @@ class Solver:
             "first_loss": float(fit_losses[0]),
             "final_loss": float(fit_losses[-1]),
         })
+        if step.wts is not None:
+            self.history[-1]["balanced_weights"] = balanced_weights()
         if nan_stop is not None:
             self.history[-1]["stopped_on_nan"] = int(nan_stop)
         if converged_at is not None:
             self.history[-1]["converged_at"] = int(converged_at)
         return self
 
-    def _check_lm(self, criterion_key):
-        """Levenberg-Marquardt's condition (``pydens_tpu``'s ``fit``): the
-        MSE criterion, so that ``loss == |r|^2``."""
+    def _check_lm(self, criterion_key, adaptive, causal, rba,
+                  loss_balancing):
+        """Levenberg-Marquardt's conditions (``pydens_tpu``'s ``fit``,
+        ``solver.py:1739-1766``): the plain least-squares MSE objective, so
+        that ``loss == |r|^2``."""
+        if self.formulation == "variational":
+            raise ValueError(
+                "optimizer='LM' (Gauss-Newton) minimizes a sum of "
+                "squared residuals; a variational (Deep Ritz) energy "
+                "is not a least-squares objective — use "
+                "formulation='residual'")
         if (isinstance(criterion_key, str)
                 and criterion_key not in ("mseloss", "mse")):
             raise ValueError(
                 "optimizer='LM' (Gauss-Newton) is defined for the MSE "
                 "criterion (loss == ||residual||^2)")
+        if adaptive is not None or causal is not None or (
+                rba is not None and rba is not False):
+            raise ValueError(
+                "optimizer='LM' (Gauss-Newton) targets the plain MSE "
+                "residual; per-point/causal reweighting (adaptive/"
+                "causal/rba) changes the objective every iteration — "
+                "run those during the Adam phase, then polish with LM")
+        if loss_balancing:
+            raise ValueError(
+                "optimizer='LM' (Gauss-Newton) already solves the "
+                "coupled normal equations across all loss terms; "
+                "grad-norm loss_balancing does not apply — bake fixed "
+                "weights into loss_terms instead")
+
+    def _collocation(self, loss_terms, criterion_key, sampler, resample,
+                     adaptive, rba, causal, causal_axis, loss_balancing):
+        """The fit's :class:`_Collocation` and causal temperature from its
+        arguments, with ``pydens_tpu``'s checks and messages
+        (``solver.py:1767-1990``)."""
+        mse = (isinstance(criterion_key, str)
+               and criterion_key in ("mseloss", "mse"))
+        variational = self.formulation == "variational"
+        linesearch = isinstance(self._opt, LBFGS)
+        has_equation = "equation" in dict(loss_terms)
+        if adaptive is not None:
+            adaptive = int(adaptive)
+            if variational:
+                raise ValueError(
+                    "adaptive sampling ranks points by the strong-form "
+                    "residual, which a variational (Deep Ritz) solver does "
+                    "not compute — use formulation='residual'")
+            if adaptive < 2:
+                raise ValueError("adaptive must be an int >= 2 (candidate "
+                                 "oversampling factor)")
+            if sampler is not None and not getattr(sampler,
+                                                   "supports_device", False):
+                raise ValueError(
+                    "adaptive sampling runs device-side; the supplied "
+                    "sampler has no sample_device path")
+            if not has_equation:
+                raise ValueError("adaptive sampling ranks points by the "
+                                 "equation residual; include 'equation' in "
+                                 "loss_terms")
+            if isinstance(criterion_key, str) and not mse:
+                raise ValueError(
+                    "adaptive importance weights scale the residual by "
+                    "sqrt(w), which keeps only the MSE criterion unbiased; "
+                    "use criterion='MSELoss' (or a custom callable you "
+                    "know composes with sqrt-weighting)")
+
+        rba_cfg = None
+        if rba is not None and rba is not False:
+            if rba is True:
+                eta, gamma = 0.01, 0.999
+            elif isinstance(rba, (tuple, list)) and len(rba) == 2:
+                eta, gamma = float(rba[0]), float(rba[1])
+            elif isinstance(rba, (int, float)):
+                eta, gamma = float(rba), 0.999
+            else:
+                raise ValueError(
+                    f"rba={rba!r} not understood; use True, eta, or "
+                    "(eta, gamma)")
+            if not (eta > 0 and 0 <= gamma < 1):
+                raise ValueError("rba needs eta > 0 and 0 <= gamma < 1")
+            if resample:
+                raise ValueError(
+                    "rba weights track FIXED collocation points across "
+                    "iterations; pass resample=False (one batch for the "
+                    "whole fit)")
+            if adaptive is not None:
+                raise ValueError("rba and adaptive are both per-point "
+                                 "residual reweighting schemes — use one")
+            if causal is not None:
+                raise ValueError(
+                    "rba point weights are not applied inside the causal "
+                    "bin weighting — use one of the two")
+            if variational:
+                raise ValueError(
+                    "rba weights the strong-form residual; it is undefined "
+                    "for a variational (Deep Ritz) energy")
+            if not has_equation:
+                raise ValueError("rba weights the equation residual; "
+                                 "include 'equation' in loss_terms")
+            if isinstance(criterion_key, str) and not mse:
+                raise ValueError("rba is defined for the MSE criterion "
+                                 "(loss mean((w*r)^2))")
+            if linesearch:
+                raise ValueError(
+                    "rba changes the objective every iteration; linesearch "
+                    "optimizers (LBFGS) assume a fixed one — run rba during "
+                    "the Adam phase, then polish without it")
+            rba_cfg = (eta, gamma)
+
+        causal_eps = 0.0
+        if causal is None and causal_axis is not None:
+            raise ValueError(
+                "causal_axis names the time column FOR causal training — "
+                "it does nothing on its own; pass fit(causal=eps, "
+                "causal_axis=k)")
+        if causal is not None:
+            causal_eps = float(causal)
+            if variational:
+                raise ValueError(
+                    "causal training weights strong-form residuals over "
+                    "time; it is undefined for a variational (Deep Ritz) "
+                    "energy — use formulation='residual'")
+            if causal_eps < 0:
+                raise ValueError("causal must be a float >= 0 (the "
+                                 "causal-weighting temperature eps)")
+            if self.model.initial_condition is None and causal_axis is None:
+                raise ValueError(
+                    "causal training needs a time axis — construct the "
+                    "Solver with an initial_condition (time is the last "
+                    "variable column, as in the ansatz), or pass "
+                    "fit(causal_axis=k) to name the time column explicitly "
+                    "(penalty-IC workflows, e.g. a non-periodic-compatible "
+                    "initial state bound by a constraint)")
+            if not has_equation:
+                raise ValueError("causal training weights the equation "
+                                 "residual; include 'equation' in "
+                                 "loss_terms")
+            if not mse:
+                raise ValueError("causal training is defined for the MSE "
+                                 "criterion")
+            if adaptive is not None:
+                raise ValueError("causal and adaptive sampling both "
+                                 "reweight the equation residual — use one")
+            t_axis = (self.model.ndims - 1 if causal_axis is None
+                      else int(causal_axis))
+            if not 0 <= t_axis < self.model.ndims:
+                raise ValueError(
+                    f"causal_axis={causal_axis} out of range for "
+                    f"{self.model.ndims} variable columns")
+            t_lo, t_hi = self.model.domain[t_axis]
+            causal = (t_axis, float(t_lo), float(t_hi))
+
+        balance_every, balance_mode = 0, "grad"
+        if loss_balancing:
+            if isinstance(loss_balancing, (tuple, list)):
+                if len(loss_balancing) != 2:
+                    raise ValueError(
+                        "loss_balancing=(mode, interval) takes exactly two "
+                        "elements, e.g. ('ntk', 100)")
+                balance_mode = str(loss_balancing[0])
+                balance_every = int(loss_balancing[1])
+            elif isinstance(loss_balancing, str):
+                balance_mode, balance_every = loss_balancing, 100
+            else:
+                balance_every = (100 if loss_balancing is True
+                                 else int(loss_balancing))
+            if balance_mode not in ("grad", "ntk"):
+                raise ValueError(
+                    f"loss_balancing mode {balance_mode!r} is not "
+                    "recognized; use 'grad' (per-term mean gradient "
+                    "magnitudes) or 'ntk' (per-term NTK traces)")
+            if balance_every < 1:
+                raise ValueError("loss_balancing must be True or a positive "
+                                 "rebalance interval in iterations")
+            if balance_mode == "ntk":
+                if not mse:
+                    raise ValueError(
+                        "loss_balancing='ntk' estimates residual-Jacobian "
+                        "traces, which represent the loss only for the MSE "
+                        "criterion (custom callables included — the traces "
+                        "would balance an objective the fit does not "
+                        "minimize) — use the 'grad' mode otherwise")
+                if variational:
+                    raise ValueError(
+                        "loss_balancing='ntk' needs per-term residual "
+                        "vectors; a variational (Deep Ritz) energy has "
+                        "none — use the 'grad' mode")
+                if (adaptive is not None or causal is not None
+                        or rba_cfg is not None):
+                    raise ValueError(
+                        "loss_balancing='ntk' traces the PLAIN residual "
+                        "operator; per-point/causal reweighting (adaptive/"
+                        "causal/rba) changes the objective it would "
+                        "balance — use the 'grad' mode with those")
+            if len(loss_terms) < 2:
+                raise ValueError(
+                    "loss_balancing needs at least two loss terms (an "
+                    "equation plus constraints) — a single term has nothing "
+                    "to balance against")
+            if linesearch:
+                raise ValueError(
+                    "loss_balancing is not supported with linesearch "
+                    "optimizers (LBFGS) — balance during the Adam phase, "
+                    "then polish with fixed weights")
+        return (_Collocation(adaptive, rba_cfg, causal, balance_every,
+                             balance_mode), causal_eps)
 
     def _fit_step(self, loss_terms, criterion_fn, use_plan, batch_size,
-                  chunk, resample, guard):
+                  chunk, resample, guard, options=_Collocation()):
         """The cached :class:`_FitStep` of a fit configuration, built on
         first use.  The optimizer instance is part of the key, and with it
         its float learning rate (baked into a captured graph) or its
-        schedule."""
+        schedule; so are the collocation ``options``, but not the causal
+        temperature, a buffer of the step."""
         capture = self.device.type == "cuda" and self._capture_steps
         masked = self._masked_linesearch
         key = (loss_terms, criterion_fn, self._opt, use_plan, batch_size,
-               chunk, resample, guard, capture, masked,
+               chunk, resample, guard, capture, masked, options,
                frozenset(self.model._frozen_layers),
                frozenset(self.model._frozen_variables))
         if key not in self._step_cache:
-            loss_fn = self._build_loss_fn(loss_terms, criterion_fn, use_plan)
+            loss_fn = self._build_loss_fn(loss_terms, criterion_fn, use_plan,
+                                          options.causal)
             args = (loss_fn, self._opt, self._flat_mask(loss_fn.spec),
                     loss_fn.spec.flatten(self.model.params), chunk,
                     batch_size, resample, guard, capture)
+            kwargs = dict(options=options, generator=self._generator)
             self._step_cache[key] = (
-                _LinesearchFitStep(*args, masked=masked)
-                if isinstance(self._opt, LBFGS) else _FitStep(*args))
+                _LinesearchFitStep(*args, masked=masked, **kwargs)
+                if isinstance(self._opt, LBFGS) else _FitStep(*args, **kwargs))
         return self._step_cache[key]
 
     def _graft_pending_opt_state(self, state):
@@ -1104,6 +1669,23 @@ class Solver:
     # ------------------------------------------------------------------
     # inference
     # ------------------------------------------------------------------
+    def residual(self, *xs):
+        """The |equation residual| at the supplied points (the inputs of
+        :meth:`predict`), summed over a system's components; under
+        ``formulation='variational'`` the |energy density|.  Returns an
+        ``(N, 1)`` numpy array.  On the planned path it runs the fused
+        Taylor forward on the card."""
+        if self._residual_fn is None:
+            self._residual_fn = self._build_loss_fn(
+                (("equation", 1.0),), lambda a, b: 0.0,
+                use_plan=bool(self._plan_ok)).point_residual
+        x = torch.as_tensor(self._normalize_inputs(xs),
+                            dtype=self.model.dtype, device=self.device)
+        theta = _FlatSpec(self.model.params).flatten(self.model.params)
+        with torch.enable_grad():
+            out = self._residual_fn(theta.detach(), x)
+        return out.detach().cpu().numpy()
+
     def predict(self, *xs):
         """Evaluate the trained solution at the supplied points: arrays,
         numbers (tiled to the batch), lists, or one ``(N, ndims+nparams)``

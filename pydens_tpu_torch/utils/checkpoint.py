@@ -3,9 +3,9 @@
 The training state of a Solver — the parameter tree (network,
 ``log_scale`` and V variables), the optimizer state, the losses, the step
 counter, the sampling generator's state, the fit history, the condition
-modes and the frozen names — in a format that needs neither jax nor flax:
-a ``numpy.savez`` archive of arrays, with a format tag and one JSON member
-for what is not an array.  It is written to a temporary file and renamed
+modes, the frozen names and a balanced fit's live term weights — in a
+format that needs neither jax nor flax: a ``numpy.savez`` archive of
+arrays, with a format tag and one JSON member for what is not an array.  It is written to a temporary file and renamed
 into place, so a crash mid-write keeps the previous checkpoint.  Enough
 state is kept that a resumed run continues the saving run's next fit bit
 for bit on the same device.
@@ -30,10 +30,13 @@ def _host(t):
 
 
 def save_solver(solver, path, *, params=None, opt_state=None, losses=None,
-                step_counter=None):
+                step_counter=None, balanced_weights=None):
     """Write ``solver``'s training state to ``path``.  The keyword
     overrides let ``fit`` snapshot its own buffers mid-fit
-    (``checkpoint_path=``) without changing the solver."""
+    (``checkpoint_path=``) without changing the solver;
+    ``balanced_weights`` (a list, while loss balancing runs) is kept, for
+    ``fit(loss_terms=dict(zip(names, solver.last_balanced_weights)))``
+    after a load."""
     params = solver.model.params if params is None else params
     opt_state = solver._opt_state if opt_state is None else opt_state
     losses = solver.losses if losses is None else losses
@@ -53,6 +56,7 @@ def save_solver(solver, path, *, params=None, opt_state=None, losses=None,
         "frozen_layers": sorted(solver.model._frozen_layers),
         "frozen_variables": sorted(solver.model._frozen_variables),
         "generator_device": solver.device.type,
+        "balanced_weights": balanced_weights,
     }))
     tmp = f"{path}.tmp"
     with open(tmp, "wb") as fh:
@@ -102,6 +106,8 @@ def load_solver(solver, path):
     solver.model._cond_modes = dict(meta["cond_modes"])
     solver.model._frozen_layers = set(meta["frozen_layers"])
     solver.model._frozen_variables = set(meta["frozen_variables"])
+    # Term order: the equation first, then the constraints.
+    solver.last_balanced_weights = meta.get("balanced_weights")
     opt_state = {name[len("opt_state/"):]: value
                  for name, value in data.items()
                  if name.startswith("opt_state/")}

@@ -1,9 +1,9 @@
 """Checkpoint / resume of pydens_tpu_torch, mirroring tests/test_checkpoint.py
-(pydens_tpu's), the balancing-weights case left for the port of
-loss_balancing: a round trip, a bit-exact resume on the CPU, V variables,
+(pydens_tpu's): a round trip, a bit-exact resume on the CPU, V variables,
 a mismatched model and a foreign file rejected with pydens_tpu's messages,
 auto-checkpoints that survive a raising callback, checkpoint_every with the
-final save, and the save at an early callback stop."""
+final save, the save at an early callback stop, and a balanced fit's term
+weights (``Solver.last_balanced_weights``)."""
 
 import json
 
@@ -212,3 +212,52 @@ def test_no_final_checkpoint_after_a_nan_stop(tmp_path):
     loaded.load(path)
     assert np.isfinite(loaded.losses).all()
     assert loaded._step_counter == 2 + 2 * ((stop - 2) // 2)
+
+
+def _beam(seed):
+    left = np.array([0.0], np.float32)
+    return Solver(lambda f, x: D(D(D(D(f, x), x), x), x) - 384.0, ndims=1,
+                  boundary_condition=0, seed=seed, activation="Tanh",
+                  layout="fa fa f", features=[16, 16, 1], device="cpu",
+                  constraints=lambda f, x: f.grad(left, wrt=0))
+
+
+def test_auto_checkpoint_preserves_balancing_weights(tmp_path):
+    # tests/test_checkpoint.py's case: a snapshot written during a balanced
+    # fit holds the live term weights, which a load puts in
+    # last_balanced_weights for a resumed fit's loss_terms.
+    path = str(tmp_path / "bal.npz")
+    s1 = _beam(0)
+    assert s1.last_balanced_weights is None
+    s1.fit(niters=300, batch_size=128, lr=0.01,
+           loss_terms=["equation", "constraint_0"], loss_balancing=50,
+           checkpoint_path=path, progress=False)
+    s2 = _beam(1)
+    s2.load(path)
+    wts = s2.last_balanced_weights
+    assert wts == s1.history[-1]["balanced_weights"] and len(wts) == 2
+    assert wts[0] == 1.0 and wts[1] > 1.5   # the constraint's pushed up
+    s2.fit(niters=10, batch_size=128, lr=0.01, progress=False,
+           loss_terms=dict(zip(["equation", "constraint_0"], wts)))
+    # A mid-fit snapshot holds the weights of its own chunk.
+    s3 = _beam(0)
+    s3.fit(niters=120, batch_size=128, lr=0.01, chunk_size=20,
+           loss_terms=["equation", "constraint_0"], loss_balancing=5,
+           checkpoint_path=path, checkpoint_every=20,
+           callback=lambda it, losses: it >= 20, progress=False)
+    s4 = _beam(1)
+    s4.load(path)
+    assert s4._step_counter == 20
+    assert s4.last_balanced_weights == s3.history[-1]["balanced_weights"]
+
+
+def test_save_without_balancing_stores_no_weights(tmp_path):
+    path = str(tmp_path / "plain.npz")
+    s1 = _solver(0)
+    s1.fit(niters=5, batch_size=16, progress=False)
+    s1.save(path)
+    s2 = _solver(1)
+    s2.last_balanced_weights = [1.0, 2.0]
+    s2.load(path)
+    assert s2.last_balanced_weights is None
+    assert "balanced_weights" not in s2.history[-1]

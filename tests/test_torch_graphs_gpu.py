@@ -8,7 +8,10 @@ only the port is installed:
 Graph and eager run the same kernels on the same inputs in the same order,
 so their losses agree to f32 rounding: each pair is held to rtol 1e-5 over
 its first 20 steps (where Adam's steps are still large and any
-disagreement would show) and to rtol 1e-3 at its end.
+disagreement would show) and to rtol 1e-3 at its end.  The collocation
+options (adaptive, RBA, causal, grad and NTK balancing) are held so too;
+annealing causal eps replays the captured graph, and the rebalance graph
+replays 10 times a fit.
 """
 
 import gc
@@ -426,3 +429,123 @@ def test_finisher_fit_runs_no_plain_function(optimizer, monkeypatch):
           progress=False)
     assert np.isfinite(s.losses).all() and len(s.losses) == 60
     assert s.predict(np.zeros((4, 2), np.float32)).shape == (4, 1)
+
+
+def _stiff():
+    # examples/09's stiff source and solver.
+    def ode(f, x):
+        return D(f, x) - 100 * torch.exp(-2000 * (x - 0.8) ** 2)
+    return ode, dict(ndims=1, initial_condition=0.0, activation="Tanh",
+                     layout="fafaf", features=[32, 32, 1])
+
+
+def _heat_1d():
+    def heat(f, x, t):
+        return D(f, t) - 0.1 * D(D(f, x), x)
+    return heat, dict(ndims=2, initial_condition=lambda x: torch.sin(
+        np.pi * x), activation="Tanh", layout="fa fa f", features=[16, 16, 1])
+
+
+def _helmholtz():
+    # examples/31 at narrower widths: penalty conditions, three terms.
+    zero = np.array([0.0], np.float32)
+
+    def eq(f, x):
+        return D(D(f, x), x) + 144.0 * f
+    return eq, dict(ndims=1, layout="fa fa f", features=[24, 24, 1],
+                    activation="Tanh",
+                    constraints=(lambda f, x: f(zero),
+                                 lambda f, x: f.grad(zero, wrt=0) - 12.0))
+
+
+LT3 = {"equation": 1.0, "constraint_0": 1.0, "constraint_1": 1.0}
+OPTION_FITS = {
+    "adaptive": (_stiff, dict(niters=200, batch_size=128, lr=0.01,
+                              adaptive=8, chunk_size=100)),
+    "rba": (_stiff, dict(niters=200, batch_size=256, lr=0.01,
+                         resample=False, rba=(0.01, 0.99), chunk_size=100)),
+    "causal": (_heat_1d, dict(niters=200, batch_size=512, causal=5.0,
+                              chunk_size=100)),
+    "grad": (_helmholtz, dict(niters=200, batch_size=256, lr=0.002,
+                              loss_terms=LT3, loss_balancing=10,
+                              chunk_size=100)),
+    "ntk": (_helmholtz, dict(niters=200, batch_size=256, lr=0.002,
+                             loss_terms=LT3, loss_balancing=("ntk", 10),
+                             chunk_size=100)),
+}
+
+
+def _all_steps(solver):
+    """Steps run of each kind over the solver's cached fit steps:
+    (eager, replays) of the training step and of the rebalance step."""
+    steps = list(solver._step_cache.values())
+    return (sum(s.eager_steps for s in steps), sum(s.replays for s in steps),
+            sum(s.rebalance_eager for s in steps),
+            sum(s.rebalance_replays for s in steps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("option", list(OPTION_FITS))
+def test_collocation_option_graph_matches_eager(option):
+    # Each option's fit through its graphs against the same fit eagerly:
+    # losses rtol 1e-5 over the first 20 steps and 1e-3 at the end; every
+    # step ran once, of its kind; balanced weights agree (rtol 1e-3).
+    _require_cuda()
+    make, fit = OPTION_FITS[option]
+    graph, eager = _pair(make, [fit])
+    g, e = np.asarray(graph.losses), np.asarray(eager.losses)
+    assert g.shape == e.shape == (200,) and np.isfinite(g).all()
+    np.testing.assert_allclose(g[:20], e[:20], rtol=1e-5)
+    np.testing.assert_allclose(g[-1], e[-1], rtol=1e-3)
+    ge, gr, gre, grr = _all_steps(graph)
+    assert ge + gr + gre + grr == 200 and gr > 0
+    assert _all_steps(eager)[1::2] == (0, 0)
+    if "loss_balancing" in fit:
+        assert gre + grr == 10 and grr == 9
+        np.testing.assert_allclose(graph.history[-1]["balanced_weights"],
+                                   eager.history[-1]["balanced_weights"],
+                                   rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_annealing_causal_reuses_the_captured_graph():
+    # A new eps is written into the step's buffer: the second fit replays
+    # the first fit's graph and captures nothing (the wrappers count
+    # captures: no launch), and its losses differ (eps bites).
+    _require_cuda()
+    eq, kw = _heat_1d()
+    s = Solver(eq, seed=0, device="cuda", **kw)
+    s.fit(niters=100, batch_size=512, causal=5.0, progress=False)
+    (step,) = s._step_cache.values()
+    graph = step.graph
+    fw = fused_taylor.fused_taylor_forward.launches
+    s.fit(niters=100, batch_size=512, causal=50.0, progress=False)
+    assert list(s._step_cache.values()) == [step] and step.graph is graph
+    assert fused_taylor.fused_taylor_forward.launches == fw
+    assert step.eager_steps == 1 and step.replays == 199
+    assert float(step.causal_eps) == 50.0
+    assert np.isfinite(s.losses).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["grad", "ntk"])
+def test_rebalance_graph_replays_ten_times_a_fit(mode):
+    # The rebalance window covers 10 steps of each fit: the first fit runs
+    # its first rebalance eagerly and replays the captured rebalance graph
+    # 9 times; a second fit of the same configuration replays it exactly
+    # 10 times, from the loss_terms weights again.
+    _require_cuda()
+    eq, kw = _helmholtz()
+    s = Solver(eq, seed=0, device="cuda", **kw)
+    fit = dict(niters=120, batch_size=256, lr=0.002, loss_terms=LT3,
+               loss_balancing=(mode, 5), chunk_size=60, progress=False)
+    s.fit(**fit)
+    (step,) = s._step_cache.values()
+    assert (step.rebalance_eager, step.rebalance_replays) == (1, 9)
+    graph = step.rebalance_graph
+    s.fit(**fit)
+    assert step.rebalance_graph is graph
+    assert (step.rebalance_eager, step.rebalance_replays) == (1, 19)
+    assert step.eager_steps == 1 and step.replays == 2 * 110 - 1
+    w = s.history[-1]["balanced_weights"]
+    assert w[0] == 1.0 and np.all(np.isfinite(w))

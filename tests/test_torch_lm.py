@@ -303,16 +303,28 @@ def test_lm_rejects_other_criteria_and_unported_modes():
     with pytest.raises(ValueError, match="MSE"):
         solver.fit(niters=2, batch_size=32, optimizer="LM",
                    criterion="L1Loss", progress=False)
-    for kw in (dict(causal=1.0), dict(adaptive=2), dict(rba=True),
-               dict(loss_balancing=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            solver.fit(niters=2, batch_size=32, optimizer="LM",
-                       progress=False, **kw)
-    # The ensemble, mesh and variational cases of tests/test_gauss_newton
-    # need Solver options of later items; the separable model (item 13) is
-    # not exported yet.
-    for kw, item in ((dict(n_models=2), 11), (dict(mesh=object()), 15),
-                     (dict(formulation="variational"), 10)):
+    # The collocation options and the variational formulation are refused
+    # with pydens_tpu's ValueErrors (tests/test_gauss_newton.py's cases).
+    for kw, match in ((dict(causal=1.0), "reweighting"),
+                      (dict(adaptive=2), "reweighting"),
+                      (dict(rba=True, resample=False), "reweighting"),
+                      (dict(loss_balancing=True), "normal equations")):
+        for pkg, extra in ((tpdt, dict(device="cpu")), (jpdt, {})):
+            s = pkg.Solver(_ode(pkg)[0], ndims=1, initial_condition=.5,
+                           seed=0, **extra)
+            with pytest.raises(ValueError, match=match):
+                s.fit(niters=2, batch_size=32, optimizer="LM",
+                      progress=False, **kw)
+    for pkg, extra in ((tpdt, dict(device="cpu")), (jpdt, {})):
+        v = pkg.Solver(lambda f, x: pkg.D(f, x) ** 2 / 2 - f, ndims=1,
+                       boundary_condition=0.0, seed=0,
+                       formulation="variational", **extra)
+        with pytest.raises(ValueError, match="variational"):
+            v.fit(niters=2, batch_size=32, optimizer="LM", progress=False)
+    # The ensemble and mesh cases of tests/test_gauss_newton need Solver
+    # options of later items; the separable model (item 13) is not exported
+    # yet.
+    for kw, item in ((dict(n_models=2), 11), (dict(mesh=object()), 15)):
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             tpdt.Solver(eq, ndims=1, initial_condition=.5, device="cpu", **kw)
     assert not hasattr(tpdt, "SeparableModel")

@@ -5,7 +5,8 @@ loaded (this image's interpreter imports it at startup), so the package is
 imported and trained in a subprocess where ``import jax`` and ``import
 optax`` fail (the README fit, a w5-like fit with a sampler product, a
 constraint and a freeze, then a fit with a schedule and SGD, a save and a
-load, then L-BFGS and Levenberg-Marquardt fits),
+load, then L-BFGS and Levenberg-Marquardt fits, the collocation options,
+Deep Ritz and ``Solver.residual``),
 and every file of the package is scanned for a jax import."""
 
 import ast
@@ -79,6 +80,26 @@ s2.fit(batch_size=64, niters=3, optimizer="LBFGS", resample=False,
 s2.fit(batch_size=64, niters=2, optimizer="LM", resample=False,
        cg_iters=5, progress=False)
 assert np.isfinite(s2.losses).all() and len(s2.history) == 5
+
+# The collocation options, Deep Ritz and Solver.residual.
+def heat(f, x, t):
+    return D(f, t) - 0.1 * D(D(f, x), x)
+
+s3 = Solver(heat, ndims=2, initial_condition=lambda x: torch.sin(np.pi * x),
+            layout="fa f", features=[8, 1], device="cpu",
+            constraints=lambda f, x, t: f.grad(np.zeros(1), np.zeros(1),
+                                               wrt=0))
+s3.fit(batch_size=32, niters=3, causal=5.0, progress=False)
+s3.fit(batch_size=32, niters=3, adaptive=4, progress=False)
+s3.fit(batch_size=32, niters=3, rba=True, resample=False, progress=False)
+s3.fit(batch_size=32, niters=3, loss_terms=["equation", "constraint_0"],
+       loss_balancing=("ntk", 1), progress=False)
+assert len(s3.history[-1]["balanced_weights"]) == 2
+assert s3.residual(np.zeros(4), np.ones(4)).shape == (4, 1)
+s4 = Solver(lambda f, x: 0.5 * D(f, x) ** 2 - f, ndims=1,
+            boundary_condition=0, formulation="variational", device="cpu")
+s4.fit(batch_size=32, niters=3, progress=False)
+assert np.isfinite(s3.losses).all() and np.isfinite(s4.losses).all()
 loaded = sorted(n for n in sys.modules
                 if n.split(".")[0] in ("jax", "optax")
                 and sys.modules[n] is not None)

@@ -237,15 +237,21 @@ def test_unported_options_raise():
     pde, kw = _poisson(tpdt)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tpdt.Solver(pde, device="cpu", periodic=True, **kw)
-    # pydens_tpu.Solver's formulation / n_models / mesh: their defaults are
-    # taken, other values name their item.
-    for name, value, item in (("formulation", "variational", 10),
-                              ("n_models", 2, 11), ("mesh", object(), 15)):
+    # pydens_tpu.Solver's n_models / mesh: their defaults are taken, other
+    # values name their item.  Both formulations are ported, and any other
+    # raises pydens_tpu's ValueError.
+    for name, value, item in (("n_models", 2, 11), ("mesh", object(), 15)):
         with pytest.raises(NotImplementedError,
                            match=f"{name}.*Queue 1 item {item}"):
             tpdt.Solver(pde, device="cpu", **{name: value}, **kw)
     assert tpdt.Solver(pde, device="cpu", formulation="residual",
                        n_models=1, mesh=None, **kw)._plan_ok
+    assert tpdt.Solver(pde, device="cpu", formulation="variational",
+                       **kw).formulation == "variational"
+    for pkg in (tpdt, jpdt):
+        with pytest.raises(ValueError, match="formulation"):
+            pkg.Solver(pde, formulation="weak",
+                       **(dict(device="cpu") if pkg is tpdt else {}), **kw)
     # The finishers are ported: the registry builds them and a fit runs.
     solver = tpdt.Solver(pde, device="cpu", **kw)
     solver.fit(niters=1, batch_size=4, optimizer="LBFGS", resample=False,
@@ -253,9 +259,11 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="MSE"):
         solver.fit(niters=1, batch_size=4, optimizer="LM",
                    criterion="L1Loss", progress=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    # The collocation options are ported: an invalid one raises
+    # pydens_tpu's ValueError.
+    with pytest.raises(ValueError, match=">= 2"):
         tpdt.Solver(pde, device="cpu", **kw).fit(niters=1, batch_size=4,
-                                                 adaptive=2)
+                                                 adaptive=1)
     with pytest.raises(TypeError, match="weight_decay"):
         tpdt.Solver(pde, device="cpu", **kw).fit(niters=1, batch_size=4,
                                                  weight_decay=0.1)
