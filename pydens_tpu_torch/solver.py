@@ -1059,14 +1059,11 @@ class Solver:
 
         def resvec(theta, pts):
             """The stacked residual vector ``r`` with ``loss_fn == r . r``
-            for the MSE criterion: each block flattened and scaled by
-            ``sqrt(weight / size)`` (``resvec_fn`` of
-            ``pydens_tpu/solver.py``), for Levenberg-Marquardt."""
-            residuals, values, _ = term_values(theta, pts)
-            out = [res.reshape(-1) * (eq_weight / res.numel()) ** 0.5
-                   for res in residuals or ()]
-            out += [c.reshape(-1) * (w / c.numel()) ** 0.5
-                    for c, (_, w) in zip(values, nums)]
+            for the MSE criterion: the term blocks, each scaled by
+            ``sqrt(weight)`` (``resvec_fn`` of ``pydens_tpu/solver.py``),
+            for Levenberg-Marquardt."""
+            out = [b * w ** 0.5 for b, w in zip(
+                blocks(*term_values(theta, pts)[:2]), weights)]
             if not out:
                 return theta.new_zeros((1,))
             return torch.cat(out)

@@ -1,12 +1,13 @@
 """The collocation options' accuracy over seeds on the CPU, for pydens_tpu
 (the reference) or pydens_tpu_torch: the figures that phase 10 of
-chip_smoke.py holds the port to.
+chip_smoke.py holds the port to.  The solvers and fits are phase 10's,
+read from chip_smoke.py.
 
-    python seed_study.py jax      # pydens_tpu on the CPU
-    python seed_study.py torch    # pydens_tpu_torch on the CPU
-    python seed_study.py jax 6 18 uniform   # seeds 6-17, one arm
+    python tests/collocation_seed_study.py jax      # pydens_tpu
+    python tests/collocation_seed_study.py torch    # pydens_tpu_torch
+    python tests/collocation_seed_study.py jax 6 18 uniform   # seeds 6-17
 
-Two studies, seeds 0-5 each unless given:
+Three studies, seeds 0-5 each unless given:
 
 * adaptive (examples/09_adaptive_collocation.py): ``u' = 100 exp(-2000
   (x - 0.8)^2)``, ``fafaf`` [32, 32, 1] Tanh, IC 0, 1500 Adam steps at lr
@@ -26,24 +27,29 @@ Prints one JSON line per fit, then one with the medians and maxima.
 """
 
 import json
-import math
+import pathlib
 import sys
 import time
 
 import numpy as np
 
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
+
 XS = np.linspace(0, 1, 2000, dtype=np.float32)
+ARMS = {
+    "uniform": dict(cs.ADAPTIVE_FIT),
+    "adaptive": dict(cs.ADAPTIVE_FIT, adaptive=cs.ADAPTIVE_POOL),
+    "fixed": dict(cs.RBA_FIT),
+    "rba": dict(cs.RBA_FIT, rba=cs.RBA_ETA_GAMMA),
+    "w3_plain": dict(cs.W3_FIT),
+    "w3_causal5": dict(cs.W3_FIT, causal=cs.CAUSAL_EPS),
+}
 
 
-def exact(xs):
-    """``u(x) = 50 sqrt(pi/2000) (erf(sqrt(2000)(x - 0.8)) + erf(sqrt(2000)
-    0.8))``, the solution with ``u(0) = 0``."""
-    a = math.sqrt(2000.0)
-    return np.array([50 * math.sqrt(math.pi / 2000) * (
-        math.erf(a * (x - 0.8)) + math.erf(a * 0.8)) for x in xs])
-
-
-def main(pkg_name, seeds=range(6), only=None):
+def study(pkg_name, arm, seeds):
+    """``arm``'s metric for each seed of ``seeds`` (a list), printing one
+    JSON line per fit."""
     if pkg_name == "jax":
         import jax
         jax.config.update("jax_platforms", "cpu")
@@ -60,24 +66,24 @@ def main(pkg_name, seeds=range(6), only=None):
         return (pkg.D(pkg.D(f, x), x) + pkg.D(pkg.D(f, y), y)
                 - a * pkg.D(f, t))
 
-    def solver(seed, arm):
+    def solver(seed):
         if arm.startswith("w3"):
+            chain = cs.TUTORIAL_CHAINS["w3"][0]
             return pkg.Solver(heat, ndims=3, nparams=1, seed=seed,
                               initial_condition=lambda x, y: 10 * x * y
                               * (1 - x) * (1 - y), boundary_condition=0,
-                              layout="fafaf", features=[30, 40, 1],
-                              activation="Sigmoid", **extra)
-        return pkg.Solver(ode, ndims=1, initial_condition=0.0,
-                          activation="Tanh", layout="fafaf",
-                          features=[32, 32, 1], seed=seed, **extra)
+                              layout=chain["layout"],
+                              features=chain["features"],
+                              activation=chain["act"], **extra)
+        return pkg.Solver(ode, seed=seed, **cs.STIFF, **extra)
 
-    def w3_sampler():
-        return (pkg.NS("u", dim=2, seed=0) & pkg.NS("u", low=0, high=.5,
-                                                   seed=1)
-                & pkg.NS("u", low=.1, high=4, seed=2))
+    def w3_sampler(first=0):
+        return (pkg.NS("u", dim=2, seed=first)
+                & pkg.NS("u", low=0, high=.5, seed=first + 1)
+                & pkg.NS("u", low=.1, high=4, seed=first + 2))
 
     def plain_mse(s):
-        """The plain MSE over 50 fresh batches of 1500 points."""
+        """The plain MSE over fresh batches of w3's batch size."""
         if pkg_name == "jax":
             import jax.numpy as jnp
             loss_fn, *_ = s._build_loss_fn(
@@ -97,47 +103,40 @@ def main(pkg_name, seeds=range(6), only=None):
 
             def value(pts):
                 return float(loss_fn(theta, torch.from_numpy(pts)).detach())
-        sampler = pkg.NS("u", dim=2, seed=10) & pkg.NS(
-            "u", low=0, high=.5, seed=11) & pkg.NS("u", low=.1, high=4,
-                                                   seed=12)
-        return float(np.mean([value(np.asarray(sampler.sample(1500),
+        sampler = w3_sampler(10)
+        batch = cs.W3_FIT["batch_size"]
+        return float(np.mean([value(np.asarray(sampler.sample(batch),
                                                np.float32))
-                              for _ in range(50)]))
+                              for _ in range(cs.MSE_BATCHES)]))
 
-    arms = {
-        "uniform": dict(niters=1500, batch_size=128),
-        "adaptive": dict(niters=1500, batch_size=128, adaptive=8),
-        "fixed": dict(niters=2000, batch_size=256, resample=False),
-        "rba": dict(niters=2000, batch_size=256, resample=False,
-                    rba=(0.01, 0.99)),
-        "w3_plain": dict(niters=1000, batch_size=1500),
-        "w3_causal5": dict(niters=1000, batch_size=1500, causal=5.0),
-    }
-    truth = exact(XS)
-    results = {}
-    for arm, fit in arms.items():
-        if only is not None and arm != only:
-            continue
-        for seed in seeds:
-            s = solver(seed, arm)
-            t0 = time.perf_counter()
-            if arm.startswith("w3"):
-                s.fit(lr=0.001, sampler=w3_sampler(), progress=False, **fit)
-            else:
-                s.fit(lr=0.01, progress=False, **fit)
-            wall = time.perf_counter() - t0
-            if arm in ("uniform", "adaptive"):
-                value = float(np.mean(s.residual(XS)))
-                metric = "mean_residual"
-            elif arm.startswith("w3"):
-                value = plain_mse(s)
-                metric = "plain_mse_50_batches"
-            else:
-                value = float(np.max(np.abs(s.predict(XS).ravel() - truth)))
-                metric = "max_error"
-            results.setdefault(arm, []).append(value)
-            print(json.dumps({"package": pkg_name, "arm": arm, "seed": seed,
-                              metric: value, "wall_s": wall}), flush=True)
+    truth = cs._stiff_exact(XS.astype(np.float64))
+    values = []
+    for seed in seeds:
+        s = solver(seed)
+        t0 = time.perf_counter()
+        if arm.startswith("w3"):
+            s.fit(sampler=w3_sampler(), progress=False, **ARMS[arm])
+        else:
+            s.fit(progress=False, **ARMS[arm])
+        wall = time.perf_counter() - t0
+        if arm in ("uniform", "adaptive"):
+            value = float(np.mean(s.residual(XS)))
+            metric = "mean_residual"
+        elif arm.startswith("w3"):
+            value = plain_mse(s)
+            metric = "plain_mse_50_batches"
+        else:
+            value = float(np.max(np.abs(s.predict(XS).ravel() - truth)))
+            metric = "max_error"
+        values.append(value)
+        print(json.dumps({"package": pkg_name, "arm": arm, "seed": seed,
+                          metric: value, "wall_s": wall}), flush=True)
+    return values
+
+
+def main(pkg_name, seeds=cs.COLLOCATION_SEEDS, only=None):
+    results = {arm: study(pkg_name, arm, list(seeds)) for arm in ARMS
+               if only is None or arm == only}
     print(json.dumps({"package": pkg_name, "summary": {
         arm: {"median": float(np.median(v)), "max": float(np.max(v)),
               "values": v} for arm, v in results.items()},
@@ -150,5 +149,6 @@ def main(pkg_name, seeds=range(6), only=None):
 if __name__ == "__main__":
     args = sys.argv[1:]
     main(args[0] if args else "torch",
-         range(int(args[1]), int(args[2])) if len(args) > 2 else range(6),
+         range(int(args[1]), int(args[2])) if len(args) > 2
+         else cs.COLLOCATION_SEEDS,
          args[3] if len(args) > 3 else None)

@@ -175,6 +175,10 @@ def test_mlp_kernel_on_the_host_no_points(host_lib):
     ("fa f f a f", [9, 7, 5, 2], "Tanh", 2, 50, 128),
     # Eight features a thread with the last two masked (30 padded to 32).
     ("fafaf", [30, 40, 1], "Sigmoid", 4, 150, 128),
+    # chip_smoke.py phase 10's predicts: examples/09, /31, /23 and the beam.
+    ("fafaf", [32, 32, 1], "Tanh", 1, 200, 128),
+    ("fa fa fa f", [48, 48, 48, 1], "Tanh", 1, 201, 128),
+    ("fa fa f", [24, 24, 1], "Tanh", 1, 101, 128),
 ])
 def test_mlp_kernel_on_the_host_other_chains(host_lib, layout, features, act,
                                              in_dim, n, tile):
@@ -207,6 +211,9 @@ KERNEL_CHAINS = [
     ("fafaf", [30, 40, 1], "Sigmoid", 4),           # w3
     ("fafaf", [20, 30, 1], "Sigmoid", 2),           # w4
     ("fafaf", [20, 30, 1], "Sigmoid", 1),           # w5
+    ("fafaf", [32, 32, 1], "Tanh", 1),              # examples/09
+    ("fa fa fa f", [48, 48, 48, 1], "Tanh", 1),     # examples/31
+    ("fa fa f", [24, 24, 1], "Tanh", 1),            # examples/23, the beam
 ]
 
 

@@ -106,6 +106,11 @@ HOST_CASES = [
     ("f a a f", [6, 3], "Sin", 2, [(0,), (0, 0)], 17, 4),   # act after act
     ("fa ff", [8, 4, 3], "Sigmoid", 2, [(0,), (1,), (0, 1)], 1, 1),
     ("fa fa", [5, 4], "Tanh", 2, [(0,), (1,), (1, 1)], 31, 2),  # ends in `a`
+    # chip_smoke.py phase 10's chains: examples/09, examples/31 (three
+    # hidden layers at order 2), examples/23's strong form
+    ("fafaf", [32, 32, 1], "Tanh", 1, [(0,)], 130, 2),
+    ("fa fa fa f", [48, 48, 48, 1], "Tanh", 1, [(0,), (0, 0)], 40, 1),
+    ("fa fa f", [24, 24, 1], "Tanh", 1, [(0,), (0, 0)], 70, 2),
 ]
 
 
