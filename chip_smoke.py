@@ -6,6 +6,7 @@
     python3 chip_smoke.py --jvp-turns OLD.cu   # tangent kernel: OLD.cu vs this
     python3 chip_smoke.py --finishers  # phases 1, 2 and 9 only
     python3 chip_smoke.py --collocation   # phases 1, 2 and 10 only
+    python3 chip_smoke.py --model-features   # phases 1, 2 and 11 only
     python3 chip_smoke.py --w3-repeat  # w3's eager fit, repeated
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -85,7 +86,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the strong form.  Each arm holds its accuracy bound and its
    Taylor launches on every step of each kind, and ``torch.profiler`` over
    replays of each new step kind's graph gives its launches, device ops
-   and busy ms per step.
+   and busy ms per step;
+11. the model options (``phase_model_features``) through the public
+   Solver at their sources' widths, steps and batches: examples/07's
+   oscillator system and tests/test_wave_second_ic.py's wave (plain
+   chains: both Taylor kernels on every step), examples/14 and /15
+   (periodic), /21 (Fourier features), /16 (the modified MLP with
+   adaptive collocation), /30 (branches) and /32 (adaptive activations),
+   which take the plain traversal; each holds its source's bound, each
+   predict of an embedded model is one MLP launch, and ``torch.profiler``
+   over replays of each arm's Adam step gives its device ops and busy ms.
 
 Every fit of phases 4-8 runs the package's path: on the card a fit step
 is captured as a CUDA graph once per configuration and replayed.  A
@@ -100,7 +110,10 @@ fits and the MLP kernel at the points of its predict calls
 (``TUTORIAL_CHAINS``), each of phase 10's Taylor chains at the point
 counts its fits, candidate pools and ``Solver.residual`` give it and the
 MLP kernel at the points of phase 10's predicts (``COLLOCATION_CHAINS``;
-phase 10 asserts that each solver's chain is the one checked), the MLP
+phase 10 asserts that each solver's chain is the one checked), phase 11's
+two plain chains at their batches and the MLP kernel at the embedded
+widths of its predicts (``FEATURE_CHAINS``: in_dim 3, 5, 21 and 65, out_dim
+2 and 3; phase 11 asserts each solver's chain), the MLP
 kernel at ``w3``'s layout on 1,024 points, and the tangent kernel
 (``taylor_jvp_kernel``, Levenberg-Marquardt's J v) on the README chain at 1,024 points, the 64-wide chain
 and its 6-stream closure at 65,537, the ODE finisher's chain and the
@@ -147,6 +160,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -523,6 +537,10 @@ def phase_kernels():
     tut_taylor.update({f"{c}_n{n}": check_taylor(n=n, reps=200, **chain)
                        for c, (chain, counts, _)
                        in COLLOCATION_CHAINS.items() for n in counts})
+    # Phase 11's plain chains: two outputs, and the second-IC wave.
+    tut_taylor.update({f"p11_{c}_n{n}": check_taylor(n=n, reps=200, **chain)
+                       for c, (chain, counts, _)
+                       in FEATURE_CHAINS.items() for n in counts})
     # The tangent kernel (Levenberg-Marquardt's J v): the README chain at
     # the finishers' 1,024 points, the 64-wide chain and the 6-stream
     # closure, the ODE finisher's chain, and the 128-wide chain of phase
@@ -543,6 +561,12 @@ def phase_kernels():
                                            act=chain["act"])
                     for c, (chain, _, predicts) in COLLOCATION_CHAINS.items()
                     for n in predicts})
+    # Phase 11's predicts, the embedded ones at their embedded widths.
+    tut_mlp.update({f"p11_{c}_n{n}": check_mlp(
+        chain["layout"], chain["features"], chain["in_dim"], n,
+        reps=10 if n > 100_000 else 200, act=chain["act"])
+        for c, (chain, _, predicts) in FEATURE_CHAINS.items()
+        for n in predicts})
     for tag, layout, features in MLP_LAYOUTS:
         check_mlp(layout, features, 3, 2000)
         mlp[f"{tag}_n1048576"] = check_mlp(layout, features, 3, 1_048_576,
@@ -588,16 +612,17 @@ def dense_predict(solver, grid, tag, reps=5):
     a synchronize, mean of ``reps`` after a warm-up), and within it the
     input normalisation, the copy to the card, ``predict_apply`` and the
     copy back (host clock, one call each); ``Model.predict_apply`` on a
-    device tensor and the kernel alone (CUDA events).  Asserts one MLP
-    launch per ``Solver.predict`` and the kernel within VALUE_TOL of its
-    plain version."""
+    device tensor and the kernel alone on the embedded points (CUDA
+    events; the points themselves where the model does not embed).
+    Asserts one MLP launch per ``Solver.predict`` and the kernel within
+    VALUE_TOL of its plain version."""
     from pydens_tpu_torch.ops import fused_mlp as fm
     from pydens_tpu_torch.ops.fused_taylor import pack_weights
     model = solver.model
     before = fm.fused_mlp_forward.launches
     u = solver.predict(grid)
     assert fm.fused_mlp_forward.launches - before == 1
-    assert u.shape == (grid.shape[0], 1) and np.isfinite(u).all()
+    assert u.shape[0] == grid.shape[0] and np.isfinite(u).all()
     walls = []
     for _ in range(reps):
         sync()
@@ -622,17 +647,19 @@ def dense_predict(solver, grid, tag, reps=5):
     out.cpu().numpy()
     split["to_host"] = (time.perf_counter() - t0) * 1e3
     plan = model._mlp_plan
+    plain_fn = _plain_version(fm, "fused_mlp_forward_plain")
     with torch.no_grad():
-        packed = pack_weights(model.params["net"], model.layer_names)
-        kernel = fm.fused_mlp_forward(packed, x, plan)
-        plain = fm.fused_mlp_forward_plain(packed, x, plan)
+        packed = pack_weights(model.params["net"], model.net.dense_names)
+        e = model._embed(x).contiguous()
+        kernel = fm.fused_mlp_forward(packed, e, plan)
+        plain = plain_fn(packed, e, plan)
         sync()
         torch.testing.assert_close(kernel, plain, **VALUE_TOL)
         apply_ms = time_ms(lambda: model.predict_apply(model.params, x), 20)
         times = timed_pair(
-            "kernel", lambda: fm.fused_mlp_forward(packed, x, plan),
-            lambda: fm.fused_mlp_forward_plain(packed, x, plan), 20)
-    bound_ms, by, _ = mlp_bound(plan, x.shape[0])
+            "kernel", lambda: fm.fused_mlp_forward(packed, e, plan),
+            lambda: plain_fn(packed, e, plan), 20)
+    bound_ms, by, _ = mlp_bound(plan, e.shape[0])
     log(f"dense predict {tag}, {grid.shape[0]} points: Solver.predict "
         f"{np.mean(walls):.3f} ms (host clock, mean of {reps}; min "
         f"{min(walls):.3f}), one call split: "
@@ -644,8 +671,10 @@ def dense_predict(solver, grid, tag, reps=5):
         f"{max_err(kernel, plain):.3e} (max|plain| "
         f"{float(plain.abs().max()):.3e}; the worst point uses "
         f"{100 * _tol_used(kernel, plain):.1f}% of VALUE_TOL)")
-    return dict(predict_ms=float(np.mean(walls)), apply_ms=apply_ms,
-                kernel_ms=times["kernel"], **split)
+    return dict(points=grid.shape[0], predict_ms=float(np.mean(walls)),
+                apply_ms=apply_ms, kernel_ms=times["kernel"],
+                kernel_plain_ms=times["kernel_plain"],
+                kernel_bound_ms=bound_ms, **split)
 
 
 def _grid(*fixed):
@@ -1272,11 +1301,12 @@ def _evals(step):
     return (n, n, 0)
 
 
-def run_finisher(solver, optimizer, niters, batch, tag, **kw):
+def run_finisher(solver, optimizer, niters, batch, tag, kernels=True, **kw):
     """One finisher fit through graphs on a fixed batch (``resample=False``:
     one draw of the default sampler), checked by its tallies: every step
     ran once (eagerly or replayed), each eager step and each capture
-    launched the Taylor kernels as the step's design says, and the live
+    launched the Taylor kernels as the step's design says, or never when
+    the chain is outside the kernels' scope (``kernels``), and the live
     trials (L-BFGS) agree with the host's count of trial replays.  Returns
     the row: it/s over the whole fit (host clock ending in a synchronize;
     the configuration's warm-up and capture included on its first fit),
@@ -1313,7 +1343,11 @@ def run_finisher(solver, optimizer, niters, batch, tag, **kw):
         wrapper = [evals + 2 * d["graph"] + d["trial_graph"]] * 2 + [0]
         device = [evals + 2 * d["replays"] + d["trial_replays"]] * 2 + [0]
         assert device[0] == steps + trials, (tag, d)
-    assert launches == wrapper, (tag, launches, wrapper, d)
+    if kernels:
+        assert launches == wrapper, (tag, launches, wrapper, d)
+    else:
+        assert launches == [0, 0, 0], (tag, launches)
+        device = [0, 0, 0]
     losses = np.asarray(solver.losses[-niters:])
     assert np.isfinite(losses).all(), tag
     row = dict(it_s=niters / wall, steps=niters, final_loss=float(losses[-1]),
@@ -1331,7 +1365,9 @@ def run_finisher(solver, optimizer, niters, batch, tag, **kw):
         f"{row['per_step_mean']:.2f}; Taylor launches per step on the card "
         f"fwd {row['taylor_fwd_per_step']:.2f} bwd "
         f"{row['taylor_bwd_per_step']:.2f} jvp "
-        f"{row['taylor_jvp_per_step']:.2f}; tally {d}")
+        f"{row['taylor_jvp_per_step']:.2f}; tally {d}"
+        + ("" if kernels else " (the plain traversal: the chain is outside "
+           "the kernels' scope)"))
     return row
 
 
@@ -1450,7 +1486,8 @@ def _design_turns(make, adam_params, batch, steps, tag):
 @contextlib.contextmanager
 def _plain_refused():
     """Every kernel's plain version raises while this is entered: a run
-    under it shows that no ``*_plain`` function ran."""
+    under it shows that no ``*_plain`` function ran on the path (a check
+    beside it takes the plain version from ``_plain_version``)."""
     from pydens_tpu_torch.ops import fused_mlp as fm
     from pydens_tpu_torch.ops import fused_taylor as ft
     names = [(ft, "fused_taylor_forward_plain"),
@@ -1461,12 +1498,23 @@ def _plain_refused():
     def refuse(*args, **kwargs):
         raise AssertionError("a plain version ran where the kernels must")
     try:
-        for mod, name in names:
+        for (mod, name), fn in zip(names, saved):
+            _SET_ASIDE[(mod.__name__, name)] = fn
             setattr(mod, name, refuse)
         yield
     finally:
         for (mod, name), fn in zip(names, saved):
             setattr(mod, name, fn)
+        _SET_ASIDE.clear()
+
+
+_SET_ASIDE = {}   # (module, name) -> the plain version _plain_refused hides
+
+
+def _plain_version(mod, name):
+    """A kernel's plain version, also while ``_plain_refused`` hides it
+    (for a comparison beside the path's counted launches)."""
+    return _SET_ASIDE.get((mod.__name__, name), getattr(mod, name))
 
 
 def phase_finishers():
@@ -2125,6 +2173,705 @@ def phase_collocation():
     return path, out
 
 
+# Phase 11: the model options through the public Solver.  Each chain that a
+# kernel runs on there (``_assert_chain``, ``_assert_mlp_chain``), the point
+# counts its Taylor kernels take (the fits' batches) and the points of its
+# predicts, held in phase 3 against the plain twins.  The embedded models'
+# Taylor traversal is the plain one, so their chains reach only the MLP
+# kernel, at the embedded width.
+FEATURE_CHAINS = {
+    # examples/07: two outputs from one input, Adam at 512, L-BFGS at 2,048.
+    "ex07": (dict(layout="fa fa f", features=[32, 32, 2], act="Tanh",
+                  in_dim=1, closure=[(0,)]), (512, 2048), (100,)),
+    # tests/test_wave_second_ic.py: u_tt - u_xx, 1,024 then 2,048.
+    "wave": (dict(layout="fa fa f", features=[32, 32, 1], act="Tanh",
+                  in_dim=2, closure=POISSON_CLOSURE), (1024, 2048),
+             (21, 200)),
+    # examples/14: x, y periodic (5 inputs), three outputs; its 32 x 32
+    # grid and a dense 1024 x 1024 one.
+    "ex14": (dict(layout="fa fa fa f", features=[48, 48, 48, 3], act="Tanh",
+                  in_dim=5), (), (1024, 1_048_576)),
+    # examples/15: x periodic (3 inputs), two outputs.
+    "ex15": (dict(layout="fa fa fa f", features=[48, 48, 48, 2], act="Tanh",
+                  in_dim=3), (), (101,)),
+    # examples/21: 32 Fourier features of x (65 inputs).
+    "ex21": (dict(layout="fa fa f", features=[32, 32, 1], act="Tanh",
+                  in_dim=65), (), (400, 401, 1_048_576)),
+    # examples/25's embedding: x with 10 harmonics (21 inputs); not an arm
+    # (its fit is item 10's causal recipe at 12,000 steps), checked here.
+    "ex25": (dict(layout="fa fa fa fa f", features=[64, 64, 64, 64, 1],
+                  act="Tanh", in_dim=21), (), (512, 1_048_576)),
+}
+NS_NU = 0.02                        # examples/14
+NS_DECAY = 2 * (2 * np.pi) ** 2 * NS_NU
+BURGERS_NU = 0.01 / np.pi           # examples/16
+
+
+def _assert_mlp_chain(solver, chain):
+    """The solver's network at its embedded width is ``chain``'s, which
+    ``phase_kernels`` holds against its plain version, and its predict
+    takes the MLP kernel."""
+    m = solver.model
+    got = dict(layout=m.layout, features=m.features, act=m.activation,
+               in_dim=m.net.in_dim)
+    assert got == chain and m._mlp_plan.in_dim == chain["in_dim"], (got,
+                                                                    chain)
+    return solver
+
+
+def _burgers_exact(x, t, n_quad=128):
+    """examples/16's Cole-Hopf solution by Gauss-Hermite quadrature."""
+    x, t = np.asarray(x, np.float64), np.asarray(t, np.float64)
+    z, w = np.polynomial.hermite.hermgauss(n_quad)
+    a = np.sqrt(4.0 * BURGERS_NU * np.maximum(t, 1e-12))[:, None]
+    y = x[:, None] - z[None, :] * a
+    expo = -np.cos(np.pi * y) / (2.0 * np.pi * BURGERS_NU)
+    expo -= expo.max(axis=1, keepdims=True)
+    f = np.exp(expo)
+    out = -np.sum(w * np.sin(np.pi * y) * f, axis=1) / np.sum(w * f, axis=1)
+    return np.where(t < 1e-12, -np.sin(np.pi * x), out)
+
+
+def _timed_predicts(solver, calls, reps=3):
+    """``[(points, output)]`` of ``solver.predict`` on each ``calls`` entry
+    (a tuple of arguments), and the mean host ms of each (a synchronize
+    on both sides; the first call outside the mean), with the MLP
+    launches each made."""
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    outs, times, launches = [], [], []
+    for args in calls:
+        before = fm.fused_mlp_forward.launches
+        outs.append(solver.predict(*args))
+        launches.append(fm.fused_mlp_forward.launches - before)
+        walls = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            solver.predict(*args)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        times.append(float(np.mean(walls)))
+    return outs, times, launches
+
+
+def _flat_params(tree):
+    """A parameter tree's leaves, in key order, as one float64 vector."""
+    if isinstance(tree, dict):
+        return np.concatenate([_flat_params(tree[k]) for k in sorted(tree)]
+                              or [np.zeros(0)])
+    return tree.detach().double().reshape(-1).cpu().numpy()
+
+
+class _Arm:
+    """One arm of phase 11 as its loop sees it: the solver it fits (kept
+    for its loss history) and the launch counts, read by ``done`` where
+    the arm's path ends, before any timing beside it."""
+
+    def __init__(self, counters):
+        self.counters, self.solver, self.launches = counters, None, None
+        self.theta0 = None
+
+    def fit(self, solver):
+        self.solver = solver
+        self.theta0 = _flat_params(solver.model.params)
+        return solver
+
+    def done(self):
+        self.launches = {c.__name__: c.launches for c in self.counters}
+
+    def step(self, kernels):
+        """``torch.profiler`` over replays of the arm's Adam step."""
+        return graph_launches(list(self.solver._step_cache.values())[0],
+                              kernels=kernels)
+
+    def predicts(self, calls, embedded):
+        """Each predict is one MLP launch where the chain is in the
+        kernel's scope (every embedded model here), none otherwise."""
+        outs, times, launches = _timed_predicts(self.solver, calls)
+        want = int(self.solver.model._mlp_plan is not None)
+        assert want or not embedded, "an embedded predict without the kernel"
+        assert launches == [want] * len(calls), launches
+        return outs, dict(predict_ms=times, mlp_launches=launches)
+
+
+def _arm_ex07(arm):
+    """examples/07: the oscillator system, [32, 32, 2], vector IC."""
+    from pydens_tpu_torch import D, Solver
+    omega = 2 * np.pi
+
+    def oscillator(f, x):
+        u, v = f[:, 0:1], f[:, 1:2]
+        return (D(u, x) - v, D(v, x) + omega ** 2 * u)
+
+    s = arm.fit(_assert_chain(
+        Solver(oscillator, ndims=1, seed=0, activation="Tanh",
+               layout="fa fa f", features=[32, 32, 2],
+               initial_condition=np.array([0.0, omega])),
+        FEATURE_CHAINS["ex07"][0]))
+    assert s._plan_ok and s.model._fused_taylor_plan(
+        FEATURE_CHAINS["ex07"][0]["closure"]) is not None
+    row = dict(adam=collocation_fit(s, "ex07 system", True, niters=2000,
+                                    batch_size=512, lr=0.01))
+    row["step"] = arm.step(True)
+    row["lbfgs"] = run_finisher(s, "LBFGS", 150, 2048, "ex07 system")
+    xs = np.linspace(0, 1, 100)
+    (pred,), row_p = arm.predicts([(xs,)], False)
+    row.update(row_p)
+    arm.done()
+    row.update(
+        u_err=float(np.max(np.abs(pred[:, 0] - np.sin(omega * xs)))),
+        v_err=float(np.max(np.abs(pred[:, 1]
+                                  - omega * np.cos(omega * xs)))))
+    log(f"features ex07 system: {json.dumps(row)}")
+    assert row["u_err"] < 0.15 and row["v_err"] < 0.15 * omega, row
+    assert row["step"]["taylor_fwd_kernel_per_step"] == 1.0
+    return row
+
+
+def _arm_wave(arm):
+    """tests/test_wave_second_ic.py: u_tt = u_xx with u(x, 0) = sin(pi x)
+    and u_t(x, 0) = 0."""
+    from pydens_tpu_torch import D, Solver, sin
+
+    def wave(f, x, t):
+        return D(D(f, t), t) - D(D(f, x), x)
+
+    s = arm.fit(_assert_chain(
+        Solver(wave, ndims=2, seed=0,
+               initial_condition=lambda x: sin(np.pi * x),
+               initial_condition_t=0.0, boundary_condition=0.0,
+               layout="fa fa f", features=[32, 32, 1], activation="Tanh"),
+        FEATURE_CHAINS["wave"][0]))
+    assert s._plan_ok
+    row = dict(adam=collocation_fit(s, "wave second IC", True,
+                                    niters=1500, batch_size=1024, lr=0.005))
+    row["step"] = arm.step(True)
+    row["lbfgs"] = run_finisher(s, "LBFGS", 100, 2048, "wave second IC")
+    xs = np.linspace(0, 1, 21)
+    pts = np.random.default_rng(0).uniform(0.05, 0.95, size=(200, 2))
+    (edge, interior), row_p = arm.predicts([(xs, 0.0), (pts,)], False)
+    row.update(row_p)
+    arm.done()
+    t0_pts = torch.tensor(np.stack([xs, np.zeros(21)], -1),
+                          dtype=torch.float32, device=s.device)
+    u_t = s.model.full_taps(s.model.params, t0_pts, [(1,)])[(1,)]
+    true = np.sin(np.pi * pts[:, 0]) * np.cos(np.pi * pts[:, 1])
+    row.update(ic_err=float(np.abs(edge.ravel() - np.sin(np.pi * xs)).max()),
+               ic_t_err=float(u_t.detach().abs().max()),
+               interior_err=float(np.abs(interior.ravel() - true).max()))
+    log(f"features wave (second IC): {json.dumps(row)}")
+    assert row["ic_err"] < 1e-5 and row["ic_t_err"] < 1e-4, row
+    assert row["interior_err"] < 0.1, row
+    assert row["step"]["taylor_fwd_kernel_per_step"] == 1.0
+    return row
+
+
+def _arm_ex14(arm):
+    """examples/14: the periodic Taylor-Green vortex, [48, 48, 48, 3]."""
+    from pydens_tpu_torch import D, Solver, exp
+    k = 2 * np.pi
+
+    def ns(f, x, y, t):
+        u, v, p = f[:, 0:1], f[:, 1:2], f[:, 2:3]
+
+        def lap(w):
+            return D(D(w, x), x) + D(D(w, y), y)
+        return (D(u, t) + u * D(u, x) + v * D(u, y) + D(p, x) - NS_NU * lap(u),
+                D(v, t) + u * D(v, x) + v * D(v, y) + D(p, y) - NS_NU * lap(v),
+                D(u, x) + D(v, y))
+
+    def tg_ic(x, y):
+        return torch.stack(
+            [-torch.cos(k * x) * torch.sin(k * y),
+             torch.sin(k * x) * torch.cos(k * y),
+             -0.25 * (torch.cos(2 * k * x) + torch.cos(2 * k * y))], dim=-1)
+
+    def gauge(f, x, y, t):
+        return f(0.25, 0.25, t)[:, 2:3] - 0.5 * exp(-2 * NS_DECAY * t)
+
+    s = arm.fit(_assert_mlp_chain(Solver(
+        ns, ndims=3, seed=0, periodic=(0, 1), initial_condition=tg_ic,
+        constraints=gauge, layout="fa fa fa f", features=[48, 48, 48, 3],
+        activation="Tanh"), FEATURE_CHAINS["ex14"][0]))
+    assert s._plan_ok
+    terms = {"equation": 1.0, "constraint_0": 10.0}
+    row = dict(adam=collocation_fit(s, "ex14 periodic NS", False,
+                                    niters=1200, batch_size=1024, lr=2e-3,
+                                    loss_terms=terms))
+    row["step"] = arm.step(False)
+    row["adam2"] = collocation_fit(s, "ex14 periodic NS (lr 3e-4)", False,
+                                   niters=400, batch_size=2048, lr=3e-4,
+                                   loss_terms=terms)
+    g = np.linspace(0, 1, 33)[:-1]
+    X, Y = [a.ravel() for a in np.meshgrid(g, g)]
+    times = (0.5, 1.0)
+    preds, row_p = arm.predicts(
+        [(np.stack([X, Y, np.full_like(X, t)], -1),) for t in times], True)
+    row.update(row_p)
+    arm.done()
+    errs = []
+    for t, pred in zip(times, preds):
+        F = np.exp(-NS_DECAY * t)
+        errs.append([
+            float(np.abs(pred[:, 0] + np.cos(k * X) * np.sin(k * Y) * F)
+                  .max()),
+            float(np.abs(pred[:, 1] - np.sin(k * X) * np.cos(k * Y) * F)
+                  .max()),
+            float(np.abs(pred[:, 2] + 0.25 * (np.cos(2 * k * X)
+                                              + np.cos(2 * k * Y)) * F ** 2)
+                  .max())])
+    row["uvp_err"] = errs
+    row["dense"] = dense_predict(s, _grid(0.5), "ex14")
+    log(f"features ex14 periodic NS: {json.dumps(row)}")
+    for u_e, v_e, p_e in errs:
+        assert u_e < 0.03 and v_e < 0.03 and p_e < 0.05, errs
+    return row
+
+
+def _arm_ex15(arm):
+    """examples/15: the periodic Schrodinger soliton, persistent IC
+    binding, [48, 48, 48, 2]."""
+    from pydens_tpu_torch import D, NumpySampler as NS, Solver
+
+    def nls(f, x, t):
+        hr, hi = f[:, 0:1], f[:, 1:2]
+        mag2 = hr * hr + hi * hi
+        return (D(hr, t) + 0.5 * D(D(hi, x), x) + mag2 * hi,
+                -D(hi, t) + 0.5 * D(D(hr, x), x) + mag2 * hr)
+
+    def sech_ic(x):
+        return torch.stack([1.0 / torch.cosh(x), torch.zeros_like(x)], dim=-1)
+
+    s = arm.fit(_assert_mlp_chain(Solver(
+        nls, ndims=2, seed=0, domain=[(-5.0, 5.0), (0.0, float(np.pi / 2))],
+        periodic=(0,), initial_condition=sech_ic, periodic_ic_decay=False,
+        layout="fa fa fa f", features=[48, 48, 48, 2], activation="Tanh"),
+        FEATURE_CHAINS["ex15"][0]))
+    assert s._plan_ok
+    sampler = (NS("u", low=-5, high=5, seed=0)
+               & NS("u", low=0, high=np.pi / 2, seed=1))
+    row = dict(adam=collocation_fit(s, "ex15 periodic NLS", False,
+                                    niters=2500, batch_size=1024, lr=2e-3,
+                                    sampler=sampler))
+    row["step"] = arm.step(False)
+    row["adam2"] = collocation_fit(s, "ex15 periodic NLS (lr 3e-4)", False,
+                                   niters=800, batch_size=2048, lr=3e-4,
+                                   sampler=sampler)
+    xs = np.linspace(-5, 5, 101)
+    times = (np.pi / 4, np.pi / 2)
+    preds, row_p = arm.predicts([(xs, np.full_like(xs, t)) for t in times],
+                                True)
+    row.update(row_p)
+    arm.done()
+    row["err"] = [float(np.max(np.hypot(
+        pred[:, 0] - np.cos(t / 2) / np.cosh(xs),
+        pred[:, 1] - np.sin(t / 2) / np.cosh(xs))))
+        for t, pred in zip(times, preds)]
+    log(f"features ex15 periodic NLS: {json.dumps(row)}")
+    assert max(row["err"]) < 0.05, row["err"]
+    return row
+
+
+def _arm_ex21(arm):
+    """examples/21: random Fourier features, multiscale Poisson."""
+    from pydens_tpu_torch import D, Solver, sin
+    kk = 8.0
+
+    def poisson21(f, x):
+        return (D(D(f, x), x) + (2 * np.pi) ** 2 * sin(2 * np.pi * x)
+                + 0.1 * (2 * np.pi * kk) ** 2 * sin(2 * np.pi * kk * x))
+
+    s = arm.fit(_assert_mlp_chain(Solver(
+        poisson21, ndims=1, seed=0, boundary_condition=0, layout="fa fa f",
+        features=[32, 32, 1], activation="Tanh",
+        fourier_features=(32, kk)), FEATURE_CHAINS["ex21"][0]))
+    row = dict(adam=collocation_fit(s, "ex21 Fourier features", False,
+                                    niters=4000, batch_size=512, lr=3e-3))
+    row["step"] = arm.step(False)
+    xs = np.linspace(0, 1, 400)
+    (pred,), row_p = arm.predicts([(xs,)], True)
+    row.update(row_p)
+    arm.done()
+    exact = np.sin(2 * np.pi * xs) + 0.1 * np.sin(2 * np.pi * kk * xs)
+    row["err"] = float(np.abs(pred.ravel() - exact).max())
+    log(f"features ex21 Fourier features: {json.dumps(row)}")
+    assert row["err"] < 0.05, row["err"]
+    return row
+
+
+def _burgers():
+    """examples/16's solver (the modified MLP) and its sampler."""
+    from pydens_tpu_torch import D, NumpySampler as NS, Solver, sin
+
+    def burgers(f, x, t):
+        return D(f, t) + f * D(f, x) - BURGERS_NU * D(D(f, x), x)
+
+    s = Solver(burgers, ndims=2, seed=0, domain=[(-1.0, 1.0), (0.0, 1.0)],
+               initial_condition=lambda x: -sin(np.pi * x),
+               boundary_condition=0, arch="modified",
+               features=[20] * 8 + [1], activation="Tanh")
+    return s, NS("u", low=-1, high=1, seed=0) & NS("u", low=0, high=1, seed=1)
+
+
+def _arm_ex16(arm):
+    """examples/16: Burgers, modified MLP, adaptive collocation, L-BFGS."""
+    s, sampler = _burgers()
+    s = arm.fit(s)
+    assert s.model._mlp_plan is None and s.model.net.tokens is None
+    row = dict(adam=collocation_fit(s, "ex16 modified MLP", False,
+                                    niters=6000, batch_size=2048, lr=2e-3,
+                                    sampler=sampler, adaptive=8))
+    row["step"] = arm.step(False)
+    row["lbfgs"] = run_finisher(s, "LBFGS", 1000, 10000, "ex16 modified MLP",
+                                kernels=False, sampler=sampler)
+    xs = np.linspace(-1, 1, 401)
+    times = (0.25, 0.5, 1.0)
+    preds, row_p = arm.predicts([(xs, np.full_like(xs, t)) for t in times],
+                                False)
+    row.update(row_p)
+    arm.done()
+    trues = [_burgers_exact(xs, np.full_like(xs, t)) for t in times]
+    row["worst"] = float(max(np.abs(p.ravel() - q).max()
+                             for p, q in zip(preds, trues)))
+    row["rel_l2"] = float(np.linalg.norm(np.concatenate(
+        [p.ravel() for p in preds]) - np.concatenate(trues))
+        / np.linalg.norm(np.concatenate(trues)))
+    log(f"features ex16 modified MLP: {json.dumps(row)}")
+    assert row["worst"] < 0.06 and row["rel_l2"] < 0.008, row
+    return row
+
+
+def _arm_ex30(arm):
+    """examples/30: a branched two-head network for Lotka-Volterra."""
+    from scipy.integrate import solve_ivp
+    from pydens_tpu_torch import D, NumpySampler as NS, Solver
+
+    def lotka_volterra(f, t):
+        u, v = f[:, 0:1], f[:, 1:2]
+        return (D(u, t) - u + u * v, D(v, t) + 1.5 * v - u * v)
+
+    s = arm.fit(Solver(lotka_volterra, ndims=1, seed=0, activation="Tanh",
+                       layout="fa fa B f .", features=[32, 32, 1],
+                       branches=[dict(layout="fa f", features=[16, 1])],
+                       domain=(0.0, 2.0),
+                       initial_condition=np.array([2.0, 1.0])))
+    assert s._plan_ok and "br1_fc1" in s.model.layer_names
+    sampler = NS("u", low=0.0, high=2.0, seed=0)
+    row = dict(adam=collocation_fit(s, "ex30 branches", False, niters=2500,
+                                    batch_size=512, lr=5e-3,
+                                    sampler=sampler))
+    row["step"] = arm.step(False)
+    row["lbfgs"] = run_finisher(s, "LBFGS", 150, 2048, "ex30 branches",
+                                kernels=False, sampler=sampler)
+    ts = np.linspace(0.0, 2.0, 101)
+    (pred,), row_p = arm.predicts([(ts,)], False)
+    row.update(row_p)
+    arm.done()
+    truth = solve_ivp(lambda t, y: [y[0] - y[0] * y[1],
+                                    -1.5 * y[1] + y[0] * y[1]],
+                      (0.0, 2.0), [2.0, 1.0], t_eval=ts, rtol=1e-9,
+                      atol=1e-10)
+    row["u_err"] = float(np.abs(pred[:, 0] - truth.y[0]).max())
+    row["v_err"] = float(np.abs(pred[:, 1] - truth.y[1]).max())
+    log(f"features ex30 branches: {json.dumps(row)}")
+    assert row["u_err"] < 0.05 and row["v_err"] < 0.05, row
+    return row
+
+
+def _arm_ex32(arm):
+    """examples/32: adaptive activations on the README Poisson."""
+    from pydens_tpu_torch import D, Solver, sin
+
+    def poisson32(f, x, y):
+        return (D(D(f, x), x) + D(D(f, y), y)
+                + 5.0 * sin(np.pi * (x + y)))
+
+    s = arm.fit(Solver(poisson32, ndims=2, boundary_condition=1, seed=0,
+                       layout="fa fa fa f", features=[10, 12, 15, 1],
+                       activation="Tanh", adaptive_activation=10.0))
+    assert s._plan_ok and s.model._mlp_plan is None
+    assert s.model._fused_taylor_plan(POISSON_CLOSURE) is None
+    row = dict(adam=collocation_fit(s, "ex32 LAAF", False, niters=1500,
+                                    batch_size=100, lr=5e-3))
+    row["step"] = arm.step(False)
+    (edge,), row_p = arm.predicts([(np.zeros(33), np.linspace(0, 1, 33))],
+                                  False)
+    row.update(row_p)
+    arm.done()
+    row["slopes"] = {nm: 10.0 * float(v["a"].detach()[0])
+                     for nm, v in s.model.params["net"].items()
+                     if nm.startswith("aa")}
+    row["loss"] = float(s.losses[-1])
+    row["edge_err"] = float(np.abs(edge - 1.0).max())
+    log(f"features ex32 LAAF: {json.dumps(row)}")
+    assert row["loss"] < 6e-4, row["loss"]
+    assert row["edge_err"] < 1e-5, row["edge_err"]
+    assert any(abs(v - 1.0) > 0.01 for v in row["slopes"].values()), row
+    return row
+
+
+# Phase 11's arms in the order the phase runs them: (row key, arm).
+FEATURE_ARMS = {"ex07": ("ex07_system", _arm_ex07),
+                "wave": ("wave_second_ic", _arm_wave),
+                "ex14": ("ex14_periodic_ns", _arm_ex14),
+                "ex15": ("ex15_periodic_nls", _arm_ex15),
+                "ex21": ("ex21_fourier", _arm_ex21),
+                "ex16": ("ex16_modified", _arm_ex16),
+                "ex30": ("ex30_branches", _arm_ex30),
+                "ex32": ("ex32_laaf", _arm_ex32)}
+
+
+def phase_model_features(arms=None, histories=None):
+    """Phase 11, the model options through the public Solver with graphs,
+    each arm at its source's widths, steps and batches, the launch
+    counters set to 0 just before each arm and read where its path ends:
+    examples/07's oscillator system and the second-IC wave
+    (tests/test_wave_second_ic.py), whose plain chains take the Taylor
+    kernels on every step; examples/14 (periodic Navier-Stokes system),
+    examples/15 (periodic Schrodinger, persistent IC binding) and
+    examples/21 (Fourier features), whose embedded chains take the plain
+    traversal and one MLP launch a predict; examples/16 (modified MLP,
+    adaptive collocation), examples/30 (branches) and examples/32
+    (adaptive activations) on the plain traversal and the plain network.
+    Each holds its source's bound; ``torch.profiler`` over replays of each
+    arm's Adam step gives its device ops and busy ms.  ``arms`` runs a
+    subset; ``histories``, a dict, takes each arm's loss history."""
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    from pydens_tpu_torch.ops import fused_taylor as ft
+    counters = (ft.fused_taylor_forward, ft.fused_taylor_backward,
+                fm.fused_mlp_forward)
+    out, path = {}, {}
+    for name, (key, run) in FEATURE_ARMS.items():
+        if arms is not None and name not in arms:
+            continue
+        for c in counters:
+            c.launches = 0
+        arm = _Arm(counters)
+        try:
+            out[key] = run(arm)
+            assert arm.launches is not None, name
+            path[name] = arm.launches
+        finally:
+            if histories is not None and arm.solver is not None:
+                histories[name] = np.asarray(arm.solver.losses, np.float64)
+                histories[f"{name}_theta0"] = arm.theta0
+            del arm
+            free_card()
+    totals = {c.__name__: sum(p[c.__name__] for p in path.values())
+              for c in counters}
+    log(f"model features path launches (counters from 0 at each arm): "
+        f"{json.dumps(path)}; totals {totals}")
+    if arms is None:
+        assert all(totals.values()), totals
+    return path, out
+
+
+def carry_probe(steps, out_dir=os.path.join("build", "carry")):
+    """Runs ``steps`` in this one process, in order: earlier phases by name,
+    phase 11's arms (``FEATURE_ARMS``), and ``deterministic``, which turns
+    on ``torch.use_deterministic_algorithms(True, warn_only=True)`` for
+    the steps after it and logs the ops that warn (those without a
+    deterministic implementation).  Saves the loss history and initial
+    parameters of each arm it ran to ``out_dir/<steps>.npz`` (keys
+    ``<position>_<arm>``), so that two probes show the first step at
+    which earlier work in a process changed an arm's fit."""
+    import warnings
+    phases = {"kernels": phase_kernels, "poisson": phase_poisson,
+              "wide": phase_wide_fit, "tutorials": phase_tutorials,
+              "graph_vs_eager": phase_graph_vs_eager,
+              "loop": phase_loop_features, "finishers": phase_finishers,
+              "collocation": phase_collocation}
+    os.makedirs(out_dir, exist_ok=True)
+    dest = os.path.join(out_dir, "-".join(steps) + ".npz")
+    saved = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            _carry(steps, phases, saved)
+        finally:
+            np.savez(dest, **saved)
+            ops = sorted({str(w.message)[:200] for w in caught
+                          if "determinis" in str(w.message)})
+            torch.use_deterministic_algorithms(False)
+            log(f"carry probe {steps}: loss histories {sorted(saved)} in "
+                f"{dest}; ops warned under deterministic algorithms: "
+                f"{json.dumps(ops)}")
+
+
+def _OpTrace():
+    """A dispatch mode that keeps, for each op run under it, a line: the
+    op, its tensor inputs' shapes, strides and addresses modulo 4096, and
+    a hash of its tensor outputs' bytes."""
+    import hashlib
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class OpTrace(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.rows = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+
+            def digest(t):
+                try:
+                    return hashlib.sha1(t.detach().cpu().contiguous()
+                                        .numpy().tobytes()).hexdigest()[:12]
+                except (NotImplementedError, RuntimeError):
+                    return "no data"   # a meta or wrapped tensor
+
+            def where(t):
+                try:
+                    return (tuple(t.shape), t.stride(), t.data_ptr() % 4096)
+                except (NotImplementedError, RuntimeError):
+                    return (tuple(t.shape), "no data")
+            ins = [where(t) for t in tree_flatten((args, kwargs))[0]
+                   if torch.is_tensor(t)]
+            outs = [digest(t) for t in tree_flatten(out)[0]
+                    if torch.is_tensor(t)]
+            self.rows.append(f"{func} {ins} -> {outs}")
+            return out
+    return OpTrace()
+
+
+def backward_work(second, reps=5000):
+    """``reps`` small backward passes on the card, first order only or
+    each with a second-order pass through the graph the first one made
+    (``create_graph=True``: its nodes are made on the autograd engine's
+    device thread)."""
+    x = torch.linspace(-1, 1, 64, device="cuda", requires_grad=True)
+    for _ in range(reps):
+        g, = torch.autograd.grad(torch.tanh(x).pow(3).sum(), x,
+                                 create_graph=second)
+        if second:
+            torch.autograd.grad(g.sum(), x)
+    sync()
+    log(f"backward work: {reps} {'second' if second else 'first'}-order "
+        "passes")
+
+
+def ex16_trace(niters=200, reps=2000):
+    """examples/16's first ``niters`` Adam steps with and without its
+    adaptive collocation, one step a chunk: the loss and the parameters
+    after every step (``loss_*``, ``theta_*``).  Then ``torch.cumsum`` of
+    one seeded vector of the adaptive pool's size, ``reps`` times: the
+    first result and the count of results unequal to it."""
+    from pydens_tpu_torch import solver as sv
+    out, pick = {}, sv._adaptive_pick
+
+    def spy(r, u, m_pool):
+        """The adaptive pick, its operands and results kept where it runs
+        eagerly (the warm-up step)."""
+        idx, w = pick(r, u, m_pool)
+        if not torch.cuda.is_current_stream_capturing():
+            for k, v in dict(r=r, u=u, idx=idx, w=w).items():
+                out[f"pick0_{k}"] = v.detach().cpu().numpy()
+        return idx, w
+    for tag, kw in (("adaptive", dict(adaptive=8)), ("uniform", {})):
+        s, sampler = _burgers()
+        thetas = []
+        warm_up = sv._FitStep._warm_up
+
+        def traced(step, fn, tag=tag):
+            """The warm-up step under ``_OpTrace``: each op it runs."""
+            with _OpTrace() as ops:
+                warm_up(step, fn)
+            out[f"ops0_{tag}"] = np.asarray(ops.rows)
+        sv._FitStep._warm_up = traced
+
+        def keep(_, __, s=s, thetas=thetas):
+            theta = list(s._step_cache.values())[-1].theta
+            thetas.append(theta.detach().cpu().numpy())
+        sv._adaptive_pick = spy
+        try:
+            s.fit(niters=niters, batch_size=2048, lr=2e-3, sampler=sampler,
+                  chunk_size=1, callback=keep, progress=False, **kw)
+        finally:
+            sv._adaptive_pick = pick
+            sv._FitStep._warm_up = warm_up
+        if "pick0_r" in out and "pick0_w_again" not in out:
+            # The same pick again, on the default stream, from the kept r.
+            again = pick(torch.as_tensor(out["pick0_r"], device="cuda"),
+                         torch.as_tensor(out["pick0_u"], device="cuda"),
+                         out["pick0_r"].shape[0])
+            out["pick0_idx_again"] = again[0].cpu().numpy()
+            out["pick0_w_again"] = again[1].cpu().numpy()
+        out[f"theta_{tag}"] = np.stack(thetas)
+        out[f"loss_{tag}"] = np.asarray(s.losses, np.float64)
+        del s
+        free_card()
+    # The pool's forward pieces at theta_0, eagerly, and products of its
+    # shapes, each on seeded inputs.
+    s, sampler = _burgers()
+    pool = torch.as_tensor(np.asarray(sampler.sample(8 * 2048 - 1024),
+                                      np.float32), device="cuda")
+    with torch.no_grad():
+        out["pool_value"] = s.model.network_apply(
+            s.model.params["net"], pool).cpu().numpy()
+    spec = sv._FlatSpec(s.model.params)
+    theta = spec.flatten(s.model.params).detach().clone()
+    # The pool's taps four ways: the model's own tensors or views into a
+    # flat theta (as a fit step holds them), on the default stream or on
+    # a new one (as a fit step's warm-up runs).
+    for how, params in (("own", s.model.params),
+                        ("views", spec.unflatten(theta))):
+        for where in ("default", "side"):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side) if where == "side" else (
+                    contextlib.nullcontext()):
+                taps = s.model.full_taps(params, pool, s._plan_derivs)
+            torch.cuda.current_stream().wait_stream(side)
+            for mi, tap in taps.items():
+                out[f"pool_tap_{how}_{where}_{mi}"] = (
+                    tap.detach().cpu().numpy())
+    del s, taps
+    free_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for m in (2048, 15360):
+        for k, n in ((2, 20), (20, 20), (20, 1)):
+            a = torch.randn((m, k), generator=g, device="cuda")
+            b = torch.randn((k, n), generator=g, device="cuda")
+            out[f"mm_{m}_{k}_{n}"] = (a @ b).cpu().numpy()
+    x = torch.rand(8 * 2048 - 1024, generator=g, device="cuda")
+    x = x / x.sum()
+    first = torch.cumsum(x, 0)
+    unequal = sum(int(not torch.equal(torch.cumsum(x, 0), first))
+                  for _ in range(reps))
+    out["cumsum"] = first.cpu().numpy()
+    log(f"ex16 trace: {niters} steps a chunk each; cumsum of "
+        f"{x.numel()} floats unequal to its first result {unequal} times "
+        f"of {reps}")
+    return out
+
+
+def _carry(steps, phases, saved):
+    for i, step in enumerate(steps):
+        if step == "deterministic":
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            continue
+        if step == "ex16_trace":
+            saved.update({f"{i}_{k}": v for k, v in ex16_trace().items()})
+            continue
+        if step in ("first_order", "second_order"):
+            backward_work(second=step == "second_order")
+            continue
+        if step in phases:
+            if step == "collocation":   # as main() runs it
+                with _plain_refused():
+                    phases[step]()
+            else:
+                phases[step]()
+            continue
+        hist = {}
+        try:
+            with _plain_refused():
+                phase_model_features([step], hist)
+        finally:
+            saved.update({f"{i}_{k}": v for k, v in hist.items()})
+
+
 def _clone_tree(tree):
     """A copy of a parameter tree (dicts of tensors)."""
     if isinstance(tree, dict):
@@ -2494,6 +3241,16 @@ def main():
                   flush=True)
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--model-features"]:
+        with _plain_refused():
+            print(json.dumps({"model_features": phase_model_features()[1]}),
+                  flush=True)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:2] == ["--carry"]:
+        carry_probe(sys.argv[2].split(","), *sys.argv[3:4])
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--profile"]:
         profile_steps()
         print(smi, flush=True)
@@ -2517,10 +3274,15 @@ def main():
     with _plain_refused():
         collocation_launches, collocation = phase_collocation()
     print(json.dumps({"collocation": collocation}), flush=True)
+    with _plain_refused():
+        feature_launches, features = phase_model_features()
+    print(json.dumps({"model_features": features}), flush=True)
     path_launches = {k: {"w1": launches[k],
                          **{w: t[0][k] for w, t in tutorials.items()},
                          **{f"p10_{arm}": n[k] for arm, n
-                            in collocation_launches.items()}}
+                            in collocation_launches.items()},
+                         **{f"p11_{arm}": n[k] for arm, n
+                            in feature_launches.items()}}
                      for k in launches}
     # Launches on the card: the Taylor kernels once per fit step (eager or
     # replayed), the MLP kernel once per predict (never captured).

@@ -2,8 +2,11 @@
 
 ``pydens_tpu`` keeps a model's parameters in the tree
 ``{'net': {'fc1': {'w', 'b'}, ...}, 'log_scale', 'variables': {...}}``
-(layer names from ``pydens_tpu/models/layout.py``).  Dense weights have the
-same storage layout here, so the conversion is leaf by leaf.
+(layer names from ``pydens_tpu/models/layout.py``: dense ``fc{i}``,
+LayerNorm ``ln{i}`` ``{'g', 'b'}``, slopes ``aa{i}`` ``{'a'}``, the
+modified MLP's ``fcu``/``fcw``, branch layers ``br{i}_...``).  Every leaf
+has the same name, shape and storage layout here, so the conversion is
+leaf by leaf.
 """
 
 import numpy as np

@@ -10,29 +10,24 @@ functional entry points that take an explicit parameter tree
 
 (:attr:`Model.params` returns the live one), so the Solver can train views
 into one flat parameter vector.  The ansatz binding boundary and initial
-conditions exactly is the reference's (``model_torch.py:107-128``).
+conditions exactly is the reference's (``model_torch.py:107-128``), with
+``pydens_tpu``'s second initial condition and periodic binding.
 """
 
 from __future__ import annotations
 
 import itertools
+import warnings
 
 import numpy as np
 import torch
 from torch import nn
 
-from .layout import make_layout_network
+from .layout import make_layout_network, make_modified_mlp_network
 from ..ops.tokens import _batch_diagonal_grad, as_device, variable_scope
 from ..ops import fused_mlp, fused_taylor
 
 __all__ = ["Model", "ConvBlockModel", "TorchModel", "resolve_device"]
-
-# Keyword arguments of the JAX models that this package does not take yet
-# (ROADMAP.md, Queue 1 item 11).
-_NOT_PORTED = ("periodic", "fourier_features", "arch", "branches",
-               "adaptive_activation", "initial_condition_t",
-               "periodic_ic_decay")
-
 
 def resolve_device(device=None):
     """``device`` as a ``torch.device``.  None means the CUDA card: without
@@ -96,6 +91,26 @@ def _normalize_ic_shape(ic, n_points, n_out):
         "scalar, 1-D, or 2-D")
 
 
+def _constant_condition(value, dtype, device):
+    """A non-callable condition as a callable returning one device tensor;
+    a 1-D vector (one value per solution component) is pre-shaped to
+    ``(1, k)`` so no batch size can reinterpret it."""
+    value = np.asarray(value.detach().cpu().numpy()
+                       if hasattr(value, "detach") else value,
+                       dtype=np.float32)
+    if value.ndim == 1 and value.shape[0] > 1:
+        value = value.reshape(1, -1)
+    tensor = torch.as_tensor(value, dtype=dtype, device=device)
+    return lambda *cols: tensor
+
+
+def _host_values(out):
+    """A condition's value on the host as float64 numpy."""
+    if torch.is_tensor(out):
+        out = out.detach().cpu().numpy()
+    return np.asarray(out, np.float64)
+
+
 def _tree_fill(tree, value):
     """The dict structure of ``tree`` with every leaf replaced by
     ``value``."""
@@ -112,18 +127,20 @@ class Model(nn.Module):
 
     def __init__(self, ndims, initial_condition=None, boundary_condition=None,
                  domain=(0, 1), nparams=0, dtype=torch.float32, device=None,
-                 **kwargs):
+                 initial_condition_t=None, **kwargs):
         super().__init__()
-        not_ported = sorted(set(kwargs) & set(_NOT_PORTED))
-        if not_ported:
-            raise NotImplementedError(
-                f"{not_ported} not ported to pydens_tpu_torch yet "
-                "(ROADMAP.md, Queue 1 item 11)")
+        if "periodic" in kwargs:
+            # Only models that implement the periodic embedding take it.
+            raise ValueError(
+                f"{type(self).__name__} does not support periodic= — "
+                "use ConvBlockModel or implement the embedding in your "
+                "model body")
         if kwargs:
             raise ValueError(
                 f"{type(self).__name__} got unknown keyword argument(s) "
                 f"{sorted(kwargs)} — check the spelling against the model's "
-                "constructor (layout/features/units/activation/dtype/...)")
+                "constructor (layout/features/units/activation/periodic/"
+                "dtype/...)")
         self.ndims = ndims
         self.ndims_spatial = ndims if initial_condition is None else ndims - 1
         self.nparams = nparams
@@ -134,25 +151,36 @@ class Model(nn.Module):
         if initial_condition is None or callable(initial_condition):
             self.initial_condition = initial_condition
         else:
-            ic_value = np.asarray(
-                initial_condition.detach().cpu().numpy()
-                if hasattr(initial_condition, "detach")
-                else initial_condition, dtype=np.float32)
-            if ic_value.ndim > 1:
+            if np.ndim(initial_condition) > 1:
                 raise ValueError(
                     "a non-callable initial_condition must be a scalar or a "
-                    f"1-D per-component vector; got shape {ic_value.shape}")
-            if ic_value.ndim == 1 and ic_value.shape[0] > 1:
-                ic_value = ic_value.reshape(1, -1)
-            ic_tensor = torch.as_tensor(ic_value, dtype=dtype,
-                                        device=self.device)
-            self.initial_condition = lambda *cols: ic_tensor
+                    "1-D per-component vector; got shape "
+                    f"{tuple(np.shape(initial_condition))}")
+            self.initial_condition = _constant_condition(
+                initial_condition, dtype, self.device)
+        # The second initial condition u_t(x, t0) of problems second order
+        # in time (the wave equation), bound by the squared gate.
+        if initial_condition_t is None:
+            self.initial_condition_t = None
+        else:
+            if initial_condition is None:
+                raise ValueError("initial_condition_t requires "
+                                 "initial_condition")
+            self.initial_condition_t = (
+                initial_condition_t if callable(initial_condition_t)
+                else _constant_condition(initial_condition_t, dtype,
+                                         self.device))
         self.boundary_condition = boundary_condition
         self.domain = _normalize_domain(domain, ndims)
 
         self.log_scale = nn.Parameter(
             torch.zeros((), dtype=dtype, device=self.device))
         self.variables = nn.ParameterDict()
+        self.periodic_dims = ()   # set by models with a periodic embedding
+        # The decaying IC binding of a periodic model: True opts in, False
+        # keeps the persistent binding silently, None keeps it after the
+        # wrap probe (:meth:`_ic_decay_engaged`).
+        self._ic_decay = None
         # Interpretation of 1-D callable condition outputs, frozen at the
         # Solver's one-row discovery run ('per_point' | 'per_component').
         self._cond_modes = {}
@@ -323,6 +351,121 @@ class Model(nn.Module):
                 f"value per point ({n_points})")
         return val.reshape(-1, 1)
 
+    def _ic_decay_engaged(self):
+        """Whether the decaying IC binding of a periodic model is on: only
+        when asked for (``periodic_ic_decay=True``).  ``pydens_tpu``
+        measured the persistent binding better at every budget tested
+        (BENCHMARKS.md "Allen-Cahn"); left unset, an IC that does not wrap
+        gets one advisory warning and the persistent binding.
+        ``ConvBlockModel`` settles this when it is built, so the probe
+        never runs inside a fit step or a graph capture."""
+        if self._ic_decay is None:
+            if self._probe_ic_wrap_incompatible():
+                warnings.warn(
+                    "the initial condition is incompatible with the "
+                    "periodic wrap (value/slope/curvature mismatch across "
+                    "the identified boundary): the exact-IC binding "
+                    "carries that kink into the solution for all t. The "
+                    "persistent binding is kept — it measured better than "
+                    "the decaying alternative at every budget tested "
+                    "(BENCHMARKS.md \"Allen-Cahn\"). Pass "
+                    "periodic_ic_decay=True to opt into the decaying "
+                    "binding, or periodic_ic_decay=False to silence this "
+                    "warning.")
+            self._ic_decay = False
+        return self._ic_decay
+
+    def _probe_ic_wrap_incompatible(self):
+        """Whether an initial condition breaks value, slope or curvature
+        continuity across a periodic wrap, probed on CPU tensors."""
+        conds = [self.initial_condition]
+        if self.initial_condition_t is not None:
+            conds.append(self.initial_condition_t)
+        try:
+            return any(self._wrap_mismatch(cond, d)
+                       for cond in conds for d in self.periodic_dims)
+        except Exception as exc:  # pylint: disable=broad-except
+            # An IC the probe cannot evaluate (V tokens, device-only
+            # tensors, ...).
+            warnings.warn(
+                "could not probe the initial condition for periodic wrap "
+                f"compatibility ({exc!r}); assuming compatible (pass "
+                "periodic_ic_decay=True to force the decaying binding)")
+            return False
+
+    def _wrap_mismatch(self, cond, d):
+        """True if ``cond`` (a callable of the spatial columns) breaks
+        value, slope or curvature continuity across periodic dim ``d``'s
+        wrap (``pydens_tpu/models/base.py:410-514``).  Every probe point
+        lies inside the domain (one-sided stencils at each end of the
+        wrap); one call of ``cond`` on CPU tensors and one host read.  The
+        stencils' truncation floor is calibrated at interior points (the
+        median of five), and the seam is flagged only above 4x it."""
+        nds = self.ndims_spatial
+        rng = np.random.default_rng(0)
+        k = 4   # probe points for the other spatial coordinates
+        cols = []
+        for i in range(nds):
+            lo_i, hi_i = (float(v) for v in self.domain[i])
+            cols.append(rng.uniform(lo_i, hi_i, k).astype(np.float32))
+        lo, hi = (float(v) for v in self.domain[d])
+        span = hi - lo
+        h = 0.05 * span
+        calib = [lo + frac * span for frac in (0.18, 0.34, 0.5, 0.66, 0.82)]
+        interior = [lo + frac * span
+                    for frac in (0.125, 0.25, 0.375, 0.5, 0.625, 0.75,
+                                 0.875)]
+        xd = np.asarray(
+            interior
+            + [c + i * h for c in calib for i in range(-3, 4)]
+            + [lo + i * h for i in range(4)]     # forward stencil at lo
+            + [hi - i * h for i in range(4)],    # backward stencil at hi
+            np.float32)
+        cs = [np.tile(c, xd.size) for c in cols]
+        cs[d] = np.repeat(xd, k)
+        n_rows = xd.size * k
+        out = _host_values(cond(*[torch.from_numpy(c) for c in cs]))
+        if out.ndim == 0:   # a scalar constant
+            out = np.full(n_rows, float(out))
+        elif out.shape[0] != n_rows:
+            # A constant output, e.g. a vector IC of shape (n_out,) or
+            # (1, n_out) whatever the batch.
+            out = np.broadcast_to(out, (n_rows,) + out.shape)
+        out = out.reshape(xd.size, k, -1)
+        ncal = len(calib)
+        cal = out[7:7 + 7 * ncal].reshape(ncal, 7, k, -1)
+        flo = out[7 + 7 * ncal:11 + 7 * ncal]
+        fhi = out[11 + 7 * ncal:15 + 7 * ncal]
+
+        def fwd(p):   # p[i] = f(x + i*h), i = 0..3; normalized by span
+            return ((-3 * p[0] + 4 * p[1] - p[2]) / (2 * h) * span,
+                    (2 * p[0] - 5 * p[1] + 4 * p[2] - p[3])
+                    / (h * h) * span * span)
+
+        def bwd(p):   # p[i] = f(x - i*h)
+            return ((3 * p[0] - 4 * p[1] + p[2]) / (2 * h) * span,
+                    (2 * p[0] - 5 * p[1] + 4 * p[2] - p[3])
+                    / (h * h) * span * span)
+
+        per_point = [[], []]
+        for c in range(ncal):
+            fq = fwd([cal[c, 3 + i] for i in range(4)])
+            bq = bwd([cal[c, 3 - i] for i in range(4)])
+            for j in range(2):
+                per_point[j].append(float(np.max(np.abs(fq[j] - bq[j]))))
+        floor = [float(np.median(p)) for p in per_point]
+        value_scale = max(1e-6, float(np.max(np.abs(out))))
+        quantities = [(flo[0],) + fwd(flo), (fhi[0],) + bwd(fhi)]
+        for (a, b), rtol, flr in zip(zip(*quantities), (1e-3, 1e-3, 3e-3),
+                                     [0.0] + floor):
+            scale = max(float(np.max(np.abs(a))),
+                        float(np.max(np.abs(b))), value_scale)
+            if not np.all(np.isfinite(a - b)):
+                return True
+            if float(np.max(np.abs(a - b))) > max(rtol * scale, 4 * flr):
+                return True
+        return False
+
     def anzatc(self, u, xs, params):
         """Ansatz binding boundary/initial conditions exactly
         (``model_torch.py:107-128``):
@@ -330,9 +473,14 @@ class Model(nn.Module):
         * BC: ``u * prod((x-lo)(hi-x)/(hi-lo)^2) + bc`` over the spatial
           dims — the polynomial vanishes on the whole boundary;
         * IC: ``(sigmoid((t-t0)/exp(log_scale)) - 0.5) * u + ic(x_spatial)``
-          with ``t`` the last variable column and ``t0`` its lower bound.
+          with ``t`` the last variable column and ``t0`` its lower bound;
+          with a second initial condition ``gate² * u + ic + (t-t0) *
+          ic_t``, so ``u_t(t0) = ic_t`` too.
 
-        Parameter columns (``nparams``) never enter the ansatz.
+        Periodic dims carry no Dirichlet product (their embedding makes the
+        solution periodic); a periodic model's IC terms may decay
+        (``periodic_ic_decay=True``).  Parameter columns (``nparams``)
+        never enter the ansatz.
         """
         nds = self.ndims_spatial
         xs_spatial = xs[:, :nds]
@@ -344,6 +492,8 @@ class Model(nn.Module):
         if self.boundary_condition is not None:
             shape_fn = torch.ones_like(u)
             for i in range(nds):
+                if i in self.periodic_dims:
+                    continue
                 xi = xs_spatial[:, i:i + 1]
                 lo_i, hi_i = lower[i], upper[i]
                 inv_span2 = 1.0 / ((hi_i - lo_i) * (hi_i - lo_i))
@@ -364,7 +514,23 @@ class Model(nn.Module):
                                       u.shape[0], u.shape[1])
             gate = torch.sigmoid(
                 (t - t0) / torch.exp(params["log_scale"])) - 0.5
-            u = gate * u + ic
+            ic_decay = 1.0
+            if self.periodic_dims and self._ic_decay_engaged():
+                # The opt-in decay, on a fixed timescale of a quarter of
+                # the time span (a trainable one collapses to 0 and drops
+                # the IC, pydens_tpu/models/base.py:588-604); tau^2 has
+                # zero slope at t0, so u_t(t0) stays bound too.
+                t_lo, t_hi = self.domain[self.ndims - 1]
+                tau = (t - t0) / (0.25 * (float(t_hi) - float(t_lo)))
+                ic_decay = 2.0 - 2.0 * torch.sigmoid(tau * tau)
+            if self.initial_condition_t is None:
+                u = gate * u + ic * ic_decay
+            else:
+                ic_t = as_device(self.initial_condition_t(*cols), u.device,
+                                 self.dtype)
+                ic_t = self._normalize_cond("initial_condition_t", ic_t,
+                                            u.shape[0], u.shape[1])
+                u = gate * gate * u + (ic + (t - t0) * ic_t) * ic_decay
         return u
 
     # -- Taylor-mode derivative taps (planned fast path) ---------------------
@@ -454,37 +620,177 @@ class ConvBlockModel(Model):
 
     Mirrors ``ConvBlockModel`` (``model_torch.py:130-172``): defaults
     ``layout='fafaf'``, ``features=(20, 30, 1)``, ``activation='Sigmoid'``;
-    accepts the ``units`` spelling for ``features``.
+    accepts the ``units`` spelling for ``features``.  ``pydens_tpu``'s
+    options, with its arguments and checks:
+
+    * ``periodic``: ``True`` (every spatial dim), a tuple of dims, or a
+      dict ``{dim: harmonics}``; each such dim enters the network as
+      ``(sin, cos)(k·2π(x - lo)/(hi - lo))``, ``k = 1..m``, so the
+      solution is exactly periodic there;
+    * ``fourier_features``: ``m``, ``(m, sigma)`` or ``dict(m=, sigma=,
+      dims=)`` (``sigma`` 10, ``dims`` the non-periodic columns): appends
+      ``sin``/``cos`` of ``2π B v`` with ``pydens_tpu``'s fixed Gaussian
+      ``B`` (seed 20240317);
+    * ``periodic_ic_decay``: the decaying IC binding of a periodic model
+      (``Model._ic_decay_engaged``);
+    * ``arch='modified'`` (or ``'modified_mlp'``): the gated modified MLP;
+    * ``branches``: sub-networks of the layout's ``B`` tokens;
+    * ``adaptive_activation``: L-LAAF slopes on every ``a`` slot.
+
+    Routing is fixed here.  The fused Taylor kernels take plain ``f c a``
+    chains on the raw coordinates: embedded, modified, adaptive and
+    branched models take the plain traversal (an embedding's Taylor state
+    as its input state).  ``predict`` takes the MLP kernel after the
+    embedding for ``f c a R +`` chains without slopes.
     """
 
     def __init__(self, ndims, initial_condition=None, boundary_condition=None,
                  domain=(0, 1), nparams=0, layout="fafaf",
                  features=(20, 30, 1), activation="Sigmoid", units=None,
-                 dtype=torch.float32, device=None, **kwargs):
+                 dtype=torch.float32, device=None, periodic=None,
+                 fourier_features=None, arch="mlp", periodic_ic_decay=None,
+                 branches=None, adaptive_activation=None, **kwargs):
         super().__init__(ndims=ndims, initial_condition=initial_condition,
                          boundary_condition=boundary_condition, domain=domain,
                          nparams=nparams, dtype=dtype, device=device,
                          **kwargs)
+        if periodic_ic_decay is not None:
+            self._ic_decay = bool(periodic_ic_decay)
         if units is not None:
             features = units
         self.layout = layout
         self.features = list(features)
         self.activation = activation
-        self.net = make_layout_network(layout, self.features, activation,
-                                       in_dim=self.total, dtype=dtype,
-                                       device=self.device)
+        if arch in ("modified", "modified_mlp"):
+            arch = "modified"
+        elif arch != "mlp":
+            raise ValueError(f"unknown arch {arch!r}; use 'mlp' (layout "
+                             "chain, default) or 'modified' (gated "
+                             "Wang-style modified MLP)")
+        self.arch = arch
+
+        if periodic is True:
+            periodic = tuple(range(self.ndims_spatial))
+        if isinstance(periodic, dict):
+            self.periodic_harmonics = {int(d): int(m)
+                                       for d, m in periodic.items()}
+            periodic = tuple(self.periodic_harmonics)
+        else:
+            self.periodic_harmonics = {int(d): 1 for d in (periodic or ())}
+        self.periodic_dims = tuple(sorted(periodic)) if periodic else ()
+        for d, m in self.periodic_harmonics.items():
+            if m < 1:
+                raise ValueError(f"periodic dim {d} needs >= 1 harmonic, "
+                                 f"got {m}")
+        for d in self.periodic_dims:
+            if d < 0 or d >= self.ndims_spatial:
+                raise ValueError(
+                    f"periodic dim {d} is not a spatial dimension "
+                    f"(expected 0 <= dim < ndims_spatial="
+                    f"{self.ndims_spatial}; negative indices are not "
+                    "supported)")
+        if (boundary_condition is not None and self.periodic_dims
+                and len(self.periodic_dims) == self.ndims_spatial):
+            raise ValueError(
+                "boundary_condition has no effect when every spatial "
+                "dimension is periodic — drop one of the two")
+        if periodic_ic_decay and not (self.periodic_dims
+                                      and self.initial_condition is not None):
+            raise ValueError(
+                "periodic_ic_decay=True replaces the persistent exact-IC "
+                "binding of a PERIODIC model — it needs both periodic= "
+                "dims and an initial_condition (got "
+                f"periodic_dims={self.periodic_dims}, initial_condition="
+                f"{'set' if self.initial_condition is not None else 'None'})")
+        # Random Fourier features: B drawn exactly as pydens_tpu draws it,
+        # so both packages embed alike and checkpoints reload against the
+        # same embedding.
+        self._rff_b = None
+        self._rff_dims = ()
+        if fourier_features is not None:
+            if isinstance(fourier_features, dict):
+                m = int(fourier_features["m"])
+                sigma = float(fourier_features.get("sigma", 10.0))
+                dims = fourier_features.get("dims")
+            elif isinstance(fourier_features, (tuple, list)):
+                m, sigma = (int(fourier_features[0]),
+                            float(fourier_features[1]))
+                dims = None
+            else:
+                m, sigma, dims = int(fourier_features), 10.0, None
+            if dims is None:
+                dims = tuple(i for i in range(self.total)
+                             if i not in self.periodic_dims)
+            dims = tuple(sorted(int(d) for d in dims))
+            for d in dims:
+                if not 0 <= d < self.total:
+                    raise ValueError(f"fourier_features dim {d} out of "
+                                     f"range for {self.total} input columns")
+                if d in self.periodic_dims:
+                    raise ValueError(
+                        f"dim {d} is periodic — random Fourier features of "
+                        "the raw value would break the exact periodicity; "
+                        "drop it from fourier_features dims")
+            if m < 1 or not dims:
+                raise ValueError("fourier_features needs m >= 1 and at "
+                                 "least one input dim")
+            rng = np.random.default_rng(20240317)
+            self._rff_b = np.asarray(rng.normal(0.0, sigma, (m, len(dims))),
+                                     np.float32)
+            self._rff_dims = dims
+            self._rff_bt = torch.as_tensor(self._rff_b.T.copy(), dtype=dtype,
+                                           device=self.device)
+        self._embedded = bool(self.periodic_dims) or self._rff_b is not None
+        in_dim = (self.total
+                  + sum(2 * m - 1 for m in self.periodic_harmonics.values())
+                  + (0 if self._rff_b is None else 2 * self._rff_b.shape[0]))
+
+        if self.arch == "modified":
+            if layout != "fafaf":
+                raise ValueError(
+                    "arch='modified' builds its own gated structure — "
+                    "drop the layout= argument (depth comes from "
+                    "len(features))")
+            if branches is not None:
+                raise ValueError(
+                    "arch='modified' has no layout string — branches= only "
+                    "applies to 'B' tokens in a layout chain")
+            if adaptive_activation is not None:
+                raise ValueError(
+                    "adaptive_activation= (L-LAAF slopes) applies to layout-"
+                    "chain activations; the gated modified MLP has its own "
+                    "trainable gate structure — use arch='mlp'")
+            self.net = make_modified_mlp_network(
+                self.features, activation, in_dim=in_dim, dtype=dtype,
+                device=self.device)
+        else:
+            self.net = make_layout_network(
+                layout, self.features, activation, in_dim=in_dim,
+                dtype=dtype, device=self.device, branches=branches,
+                adaptive_activation=adaptive_activation)
+            if adaptive_activation is not None and not self.net.adaptive:
+                raise ValueError(
+                    f"adaptive_activation= needs at least one 'a' slot in "
+                    f"layout {layout!r} (or its branches) to attach a "
+                    "trainable slope to — it would be a silent no-op")
         self.layer_names = self.net.layer_names
         self._taylor_plans = {}
+        # The kernels' scope, decided here: the MLP kernel after the
+        # embedding, the Taylor kernels on the raw coordinates only.
         self._mlp_plan = None
-        if fused_mlp.supports(self.net.tokens, self.net.activations,
-                              self.net.layer_shapes, self.total, dtype):
+        self._taylor_kernels = self.arch == "mlp" and not self._embedded
+        if self.arch == "mlp" and fused_mlp.supports(
+                self.net.tokens, self.net.activations, self.net.layer_shapes,
+                in_dim, dtype, adaptive=self.net.adaptive):
             self._mlp_plan = fused_mlp.MlpPlan(
                 self.net.tokens, self.net.activations, self.net.layer_shapes,
-                self.total)
+                in_dim)
         if not self.net.taylor_ok:
-            # A callable activation that is not known to act elementwise:
+            # LayerNorm, or an activation that does not act elementwise:
             # no Taylor plan, derivatives take the nested-gradient path.
             self.network_apply_taylor = None
+        if self.periodic_dims and self.initial_condition is not None:
+            self._ic_decay_engaged()   # the wrap probe, once, here
 
     def reset_parameters(self, generator):
         self.net.reset_parameters(generator)
@@ -494,17 +800,84 @@ class ConvBlockModel(Model):
     def network_params(self):
         return self.net.params()
 
+    def _embed(self, xs):
+        """The input embedding: periodic dims expand to (sin, cos) pairs,
+        random Fourier features follow the raw columns."""
+        if not self._embedded:
+            return xs
+        return self._embed_state(xs, ())[0]
+
+    def _rff_columns(self, xs):
+        """The Fourier features' input columns, as slices (no index
+        tensor from the host: the embedding runs inside graph captures)."""
+        return torch.cat([xs[:, d:d + 1] for d in self._rff_dims], dim=1)
+
+    def _embed_state(self, xs, closure):
+        """The embedding and its Taylor state with respect to the
+        coordinates, in closed form: ``(embedded xs, {multi-index: tap})``.
+        A raw column's tap is 1 for its own first derivative; ``sin`` and
+        ``cos`` of a phase ``θ`` linear in the coordinates give
+        ``Π ∂θ · sin(θ + mπ/2)`` (and ``cos``) for an order-``m``
+        multi-index over the columns ``θ`` reads, 0 for any other."""
+        vals, taps = [], {mi: [] for mi in closure}
+
+        def trig(theta, slope):
+            """sin and cos of ``theta`` and their taps; ``slope(a)`` is
+            ``∂θ/∂x_a`` (a float or a row), or None where θ does not read
+            column ``a``."""
+            s, c = torch.sin(theta), torch.cos(theta)
+            cycle = (s, c, -s, -c)
+            vals.extend((s, c))
+            for mi in closure:
+                factors = [slope(a) for a in mi]
+                if any(f is None for f in factors):
+                    taps[mi].extend((torch.zeros_like(s),) * 2)
+                    continue
+                scale = factors[0]
+                for f in factors[1:]:
+                    scale = scale * f
+                m = len(mi)
+                taps[mi].extend((scale * cycle[m % 4],
+                                 scale * cycle[(m + 1) % 4]))
+
+        for i in range(self.total):
+            xi = xs[:, i:i + 1]
+            if i in self.periodic_dims:
+                lo, hi = self.domain[i]
+                w = 2.0 * np.pi / (float(hi) - float(lo))
+                phase = w * (xi - float(lo))
+                for k in range(1, self.periodic_harmonics[i] + 1):
+                    trig(float(k) * phase,
+                         lambda a, i=i, kw=k * w: kw if a == i else None)
+            else:
+                vals.append(xi)
+                for mi in closure:
+                    taps[mi].append(torch.ones_like(xi) if mi == (i,)
+                                    else torch.zeros_like(xi))
+        if self._rff_b is not None:
+            proj = (2.0 * np.pi) * (self._rff_columns(xs) @ self._rff_bt)
+            pos = {d: j for j, d in enumerate(self._rff_dims)}
+            trig(proj, lambda a: (2.0 * np.pi) * self._rff_bt[pos[a]]
+                 if a in pos else None)
+        return (torch.cat(vals, dim=1),
+                {mi: torch.cat(t, dim=1) for mi, t in taps.items()})
+
     def network_apply(self, net_params, xs):
-        return self.net.apply(net_params, xs)
+        return self.net.apply(net_params, self._embed(xs))
 
     def network_apply_taylor(self, net_params, xs, closure):
-        """The network's Taylor state: through the fused Taylor kernel when
-        the (layout, closure) is in its scope, else the generic traversal."""
+        """The network's Taylor state: through the fused Taylor kernels
+        when the (chain, closure) is in their scope, else the plain
+        traversal, from the embedding's state where the model embeds."""
         plan = self._fused_taylor_plan(closure)
         if plan is not None:
             return fused_taylor.fused_taylor_taps(
-                fused_taylor.pack_weights(net_params, self.layer_names), xs,
-                plan)
+                fused_taylor.pack_weights(net_params, self.net.dense_names),
+                xs, plan)
+        if self._embedded:
+            V, taps = self._embed_state(xs, closure)
+            return self.net.taylor_taps(net_params, V, closure,
+                                        init=(V, taps))
         return self.net.taylor_taps(net_params, xs, closure)
 
     def _fused_taylor_plan(self, closure):
@@ -514,15 +887,17 @@ class ConvBlockModel(Model):
                     self.net.layer_shapes, self.total)
             self._taylor_plans[key] = (
                 fused_taylor.TaylorPlan(*args)
-                if fused_taylor.supports(*args, dtype=self.dtype) else None)
+                if self._taylor_kernels and fused_taylor.supports(
+                    *args, dtype=self.dtype, adaptive=self.net.adaptive)
+                else None)
         return self._taylor_plans[key]
 
     def network_apply_predict(self, net_params, xs):
         if self._mlp_plan is None:
             return self.network_apply(net_params, xs)
         return fused_mlp.fused_mlp_forward(
-            fused_taylor.pack_weights(net_params, self.layer_names),
-            xs.contiguous(), self._mlp_plan)
+            fused_taylor.pack_weights(net_params, self.net.dense_names),
+            self._embed(xs).contiguous(), self._mlp_plan)
 
 
 # Migration alias: the reference exports `TorchModel` as the subclassing base.

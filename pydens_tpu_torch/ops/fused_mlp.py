@@ -99,13 +99,16 @@ def _tile_for(staged, in_dim, wmax, max_stack):
     return None
 
 
-def refusal(tokens, acts, layer_shapes, in_dim, dtype=torch.float32):
+def refusal(tokens, acts, layer_shapes, in_dim, dtype=torch.float32,
+            adaptive=False):
     """Why the fused MLP kernel does not cover this chain, or None if it
-    does: tokens ``f c a R +``, activations tanh, sigmoid or sin, float32,
-    and staged weights plus a 32-point tile's state that fit one block's
-    shared memory."""
+    does: tokens ``f c a R +``, activations tanh, sigmoid or sin, no
+    adaptive-activation slopes, float32, and staged weights plus a
+    32-point tile's state that fit one block's shared memory."""
     if dtype != torch.float32:
         return f"dtype {dtype}: the kernel computes in float32"
+    if adaptive:
+        return "adaptive activation slopes: the kernel has no slope operand"
     bad = sorted({t for t in tokens if t not in ("f", "c", "a", "R", "+")})
     if bad:
         return f"tokens {bad}: the kernel runs f, c, a, R and + only"
@@ -120,9 +123,11 @@ def refusal(tokens, acts, layer_shapes, in_dim, dtype=torch.float32):
     return None
 
 
-def supports(tokens, acts, layer_shapes, in_dim, dtype=torch.float32):
+def supports(tokens, acts, layer_shapes, in_dim, dtype=torch.float32,
+             adaptive=False):
     """Whether the fused MLP kernel covers this chain (:func:`refusal`)."""
-    return refusal(tokens, acts, layer_shapes, in_dim, dtype) is None
+    return refusal(tokens, acts, layer_shapes, in_dim, dtype,
+                   adaptive) is None
 
 
 class MlpPlan:

@@ -180,13 +180,14 @@ def _chain_ops(tokens, acts, layer_shapes):
 
 
 def supports(tokens, acts, closure, layer_shapes, in_dim,
-             dtype=torch.float32):
+             dtype=torch.float32, adaptive=False):
     """Whether the fused kernels cover this (layout, plan): a dense chain
-    (no skips), activations with closed-form derivatives (tanh, sigmoid,
-    sin), derivative multi-indices of order <= 2, float32, and a state
-    that fits one block's shared memory.  The tangent kernel takes every
-    such chain (:func:`_jvp_tile`)."""
-    if dtype != torch.float32 or not closure:
+    (no skips, branches, joins or LayerNorm), activations with closed-form
+    derivatives (tanh, sigmoid, sin) and no adaptive-activation slopes,
+    derivative multi-indices of order <= 2, float32, and a state that fits
+    one block's shared memory.  The tangent kernel takes every such chain
+    (:func:`_jvp_tile`)."""
+    if dtype != torch.float32 or not closure or adaptive:
         return False
     if any(t not in ("f", "c", "a") for t in tokens):
         return False

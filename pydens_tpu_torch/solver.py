@@ -630,7 +630,10 @@ class Solver:
         Number of sampled equation parameters (parametric families).
     model : class
         Model class (default :class:`ConvBlockModel`); receives all extra
-        kwargs (``layout``, ``features``/``units``, ``activation``, ...).
+        kwargs (``layout``, ``features``/``units``, ``activation``,
+        ``periodic``, ``fourier_features``, ``arch``, ``branches``,
+        ``adaptive_activation``, ``initial_condition_t``,
+        ``periodic_ic_decay``, ...).
     constraints : callable or sequence of callables, optional
         ``constraint(f, *coords)``, where ``f`` evaluates the model at any
         points (``f(np.array([0.5]))``; ``D`` works on ``f(x, ...)`` of
@@ -666,7 +669,8 @@ class Solver:
         # pydens_tpu's defaults are taken; any other value is a feature of
         # a later slice (ROADMAP.md Queue 1 item).
         for name, value, default, item in (
-                ("n_models", n_models, 1, 11), ("mesh", mesh, None, 15)):
+                ("n_models", n_models, 1, "11, ensembles"),
+                ("mesh", mesh, None, "15")):
             if value is not default and value != default:
                 raise NotImplementedError(
                     f"Solver({name}={value!r}) is not ported to "

@@ -59,6 +59,12 @@ def _points(n):
     ("fafaf", [20, 30, 1], "Sigmoid", 2, [(0,)], 700),
     ("fafaf", [20, 30, 1], "Sigmoid", 1, [(0,)], 500),
     ("fafaf", [20, 30, 1], "Sigmoid", 1, [(0,)], 100),
+    # Two outputs (examples/07's oscillator system at its Adam and L-BFGS
+    # batches) and the second-IC wave's chain (5 streams).
+    ("fa fa f", [32, 32, 2], "Tanh", 1, [(0,)], 512),
+    ("fa fa f", [32, 32, 2], "Tanh", 1, [(0,)], 2048),
+    ("fa fa f", [32, 32, 1], "Tanh", 2, POISSON_CLOSURE, 1024),
+    ("fa fa f", [32, 32, 3], "Sin", 2, POISSON_CLOSURE, 777),
 ])
 def test_taylor_kernels_match_plain_on_cuda(layout, features, act, in_dim,
                                             closure, n):
@@ -240,6 +246,13 @@ def test_solver_loss_through_kernels_matches_nested_gradients_on_cuda(ic):
     ("fa fa fa f", [64, 64, 64, 1], "Tanh", 3, "passes"),
     ("faR fa fa+ f", [16, 16, 16, 1], "Sigmoid", 3, "passes"),
     ("fa fa fa f", [128, 128, 128, 1], "Tanh", 3, 5000),
+    # Embedded inputs (periodic and Fourier-feature predicts): in_dim 5,
+    # 3, 65 (not a multiple of 4) and 21, out_dim 3 and 2.
+    ("fa fa fa f", [48, 48, 48, 3], "Tanh", 5, 20000),
+    ("fa fa fa f", [48, 48, 48, 2], "Tanh", 3, 101),
+    ("fa fa f", [32, 32, 1], "Tanh", 65, 100003),
+    ("fa fa f", [32, 32, 3], "Tanh", 65, 401),
+    ("fa fa fa fa f", [64, 64, 64, 64, 1], "Tanh", 21, 5000),
 ])
 def test_mlp_kernel_matches_plain_on_cuda(layout, features, act, in_dim, n):
     # rtol/atol 2e-5 against the plain version on the card.
@@ -282,3 +295,60 @@ def test_solver_predict_launches_the_mlp_kernel_once():
         u = solver.predict(pts)
         assert fused_mlp.fused_mlp_forward.launches == before + 1
         assert u.shape == (n, 1) and np.isfinite(u).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["periodic", "fourier", "modified",
+                                  "laaf", "second_ic"])
+def test_model_options_route_on_cuda(kind):
+    # The model options on the card: a periodic or Fourier-feature predict
+    # is one MLP launch at the embedded width; modified and adaptive
+    # models take the plain network; the second-IC wave's loss launches
+    # both Taylor kernels and equals the nested-gradient loss (rtol 2e-5,
+    # gradients rtol 2e-3 / atol 2e-5).
+    _require_cuda()
+    import numpy as np
+    from pydens_tpu_torch import D, Solver
+    from pydens_tpu_torch.utils.criteria import mse_loss
+
+    def wave(f, x, t):
+        return D(D(f, t), t) - D(D(f, x), x)
+    kw = dict(ndims=2, initial_condition=lambda x: torch.sin(np.pi * x),
+              layout="fa fa f", features=[32, 32, 1], activation="Tanh")
+    kw.update({"periodic": dict(periodic={0: 2}, periodic_ic_decay=False),
+               "fourier": dict(fourier_features=(32, 8.0)),
+               "modified": dict(arch="modified", layout="fafaf",
+                                features=[16, 16, 1]),
+               "laaf": dict(adaptive_activation=10.0),
+               "second_ic": dict(initial_condition_t=0.0,
+                                 boundary_condition=0.0)}[kind])
+    solver = Solver(wave, device="cuda", **kw)
+    pts = np.random.default_rng(0).uniform(size=(1000, 2)).astype(np.float32)
+    before = fused_mlp.fused_mlp_forward.launches
+    u = solver.predict(pts)
+    embedded = kind in ("periodic", "fourier")
+    assert fused_mlp.fused_mlp_forward.launches - before == int(
+        embedded or kind == "second_ic")
+    with torch.no_grad():
+        ref = solver.model.apply(solver.model.params,
+                                 torch.as_tensor(pts, device="cuda"))
+    np.testing.assert_allclose(u, ref.cpu().numpy(), rtol=2e-5, atol=2e-5)
+    closure = solver.model.plan_closure(solver._plan_derivs)
+    assert (solver.model._fused_taylor_plan(closure) is not None) == (
+        kind == "second_ic")
+    x = torch.as_tensor(pts[:256], device="cuda")
+    results = []
+    for use_plan in (True, False):
+        loss_fn = solver._build_loss_fn((("equation", 1.0),), mse_loss,
+                                        use_plan=use_plan)
+        theta = loss_fn.spec.flatten(solver.model.params).detach()
+        theta.requires_grad_(True)
+        fwd = fused_taylor.fused_taylor_forward.launches
+        loss = loss_fn(theta, x)
+        grad, = torch.autograd.grad(loss, theta)
+        assert fused_taylor.fused_taylor_forward.launches - fwd == int(
+            use_plan and kind == "second_ic")
+        results.append((loss.detach(), grad))
+    (pl, pg), (fl, fg) = results
+    torch.testing.assert_close(pl, fl, rtol=2e-5, atol=0)
+    torch.testing.assert_close(pg, fg, rtol=2e-3, atol=2e-5)

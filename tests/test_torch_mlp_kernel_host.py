@@ -179,6 +179,11 @@ def test_mlp_kernel_on_the_host_no_points(host_lib):
     ("fafaf", [32, 32, 1], "Tanh", 1, 200, 128),
     ("fa fa fa f", [48, 48, 48, 1], "Tanh", 1, 201, 128),
     ("fa fa f", [24, 24, 1], "Tanh", 1, 101, 128),
+    # Embedded inputs (chip_smoke.py phase 11's periodic and Fourier-feature
+    # predicts): in_dim 5, 21 and 65 (not a multiple of 4), out_dim 3.
+    ("fa fa fa f", [48, 48, 48, 3], "Tanh", 5, 150, 128),
+    ("fa fa fa fa f", [64, 64, 64, 64, 3], "Tanh", 21, 131, 128),
+    ("fa fa f", [32, 32, 3], "Tanh", 65, 133, 128),
 ])
 def test_mlp_kernel_on_the_host_other_chains(host_lib, layout, features, act,
                                              in_dim, n, tile):
@@ -214,6 +219,10 @@ KERNEL_CHAINS = [
     ("fafaf", [32, 32, 1], "Tanh", 1),              # examples/09
     ("fa fa fa f", [48, 48, 48, 1], "Tanh", 1),     # examples/31
     ("fa fa f", [24, 24, 1], "Tanh", 1),            # examples/23, the beam
+    ("fa fa fa f", [48, 48, 48, 3], "Tanh", 5),     # examples/14, embedded
+    ("fa fa fa f", [48, 48, 48, 2], "Tanh", 3),     # examples/15, embedded
+    ("fa fa f", [32, 32, 1], "Tanh", 65),           # examples/21, embedded
+    ("fa fa fa fa f", [64, 64, 64, 64, 1], "Tanh", 21),   # examples/25
 ]
 
 

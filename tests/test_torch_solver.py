@@ -235,8 +235,12 @@ def test_default_sampler_ignores_domain():
 
 def test_unported_options_raise():
     pde, kw = _poisson(tpdt)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tpdt.Solver(pde, device="cpu", periodic=True, **kw)
+    # The model options are ported: periodic=True on this Dirichlet problem
+    # raises pydens_tpu's ValueError, and a periodic x builds and plans.
+    for pkg, extra in ((tpdt, dict(device="cpu")), (jpdt, {})):
+        with pytest.raises(ValueError, match="no effect"):
+            pkg.Solver(_poisson(pkg)[0], periodic=True, **extra, **kw)
+    assert tpdt.Solver(pde, device="cpu", periodic=(0,), **kw)._plan_ok
     # pydens_tpu.Solver's n_models / mesh: their defaults are taken, other
     # values name their item.  Both formulations are ported, and any other
     # raises pydens_tpu's ValueError.

@@ -111,6 +111,10 @@ HOST_CASES = [
     ("fafaf", [32, 32, 1], "Tanh", 1, [(0,)], 130, 2),
     ("fa fa fa f", [48, 48, 48, 1], "Tanh", 1, [(0,), (0, 0)], 40, 1),
     ("fa fa f", [24, 24, 1], "Tanh", 1, [(0,), (0, 0)], 70, 2),
+    # chip_smoke.py phase 11's system (examples/07: two outputs from one
+    # input column, 2 streams) and the second-IC wave (5 streams)
+    ("fa fa f", [32, 32, 2], "Tanh", 1, [(0,)], 90, 2),
+    ("fa fa f", [32, 32, 1], "Tanh", 2, [(0,), (1,), (0, 0), (1, 1)], 45, 2),
 ]
 
 
