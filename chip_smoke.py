@@ -7,6 +7,7 @@
     python3 chip_smoke.py --finishers  # phases 1, 2 and 9 only
     python3 chip_smoke.py --collocation   # phases 1, 2 and 10 only
     python3 chip_smoke.py --model-features   # phases 1, 2 and 11 only
+    python3 chip_smoke.py --ensembles  # phases 1, 2 and 12 only
     python3 chip_smoke.py --w3-repeat  # w3's eager fit, repeated
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -95,7 +96,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    adaptive collocation), /30 (branches) and /32 (adaptive activations),
    which take the plain traversal; each holds its source's bound, each
    predict of an embedded model is one MLP launch, and ``torch.profiler``
-   over replays of each arm's Adam step gives its device ops and busy ms.
+   over replays of each arm's Adam step gives its device ops and busy ms;
+12. ensembles (``phase_ensembles``, ``Solver(n_models=K)``) through the
+   public Solver: examples/08 at its own size (K = 8, 500 Adam steps at
+   batch 400) with its bounds (mean max error < 0.05, std mean < 0.05),
+   tests/test_ensemble.py's L-BFGS polish (K = 3, each member's max error
+   < 0.02, the loss below half Adam's) and tests/test_gauss_newton.py's
+   per-member LM (K = 2, state (2, 2)); one forward and one backward
+   launch a replayed Adam step whatever K, 1 + trials a L-BFGS step, 50
+   tangents a LM step, one MLP launch a predict, ``predict_all`` and
+   ``predict_std``; then examples/08's configuration at K = 1 and 8 and
+   the 64-wide fit at K = 1 and 4, in turns: it/s, device ops and busy ms
+   a replayed step.
 
 Every fit of phases 4-8 runs the package's path: on the card a fit step
 is captured as a CUDA graph once per configuration and replayed.  A
@@ -118,7 +130,10 @@ kernel at ``w3``'s layout on 1,024 points, and the tangent kernel
 (``taylor_jvp_kernel``, Levenberg-Marquardt's J v) on the README chain at 1,024 points, the 64-wide chain
 and its 6-stream closure at 65,537, the ODE finisher's chain and the
 128-wide chain at 65,537 (each with its points a tile, blocks per SM and
-shared memory a block).
+shared memory a block), and the member axis of the four kernels
+(``MEMBER_ROWS``: examples/08's chain at 400 points and the MLP at 10,000
+for K = 1, 3 and 8, the 64-wide chain at 65,537 points for K = 4), each
+member's slice against a single launch on its weights.
 
 Prints one JSON line of per-kernel results, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -521,6 +536,136 @@ def check_mlp(layout, features, in_dim, n, reps=0, act="Tanh"):
     return err, times
 
 
+# The member axis (Solver(n_models=K)): examples/08's chain at its batch
+# for K = 1, 3 and 8 (the MLP at its predict-sized 10,000 points), and the
+# 64-wide chain at 65,537 points for K = 4.  Keyed "<chain>_k<K>".
+EX08_CHAIN = dict(layout="fafaf", features=[12, 10, 1], act="Tanh",
+                  in_dim=1, closure=[(0,)])
+MEMBER_ROWS = {
+    **{f"ex08_k{k}": (EX08_CHAIN, 400, 10_000, k) for k in (1, 3, 8)},
+    "wide_k4": (dict(layout="fa fa fa f", features=[64, 64, 64, 1],
+                     act="Tanh", in_dim=2, closure=POISSON_CLOSURE),
+                65537, None, 4),
+}
+
+
+def _member_weights(chain, n_members, seed=0):
+    """``(plan, mlp plan or None, (K, P) packed weights)``: one seeded
+    network a member."""
+    from pydens_tpu_torch.models.layout import make_layout_network
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    from pydens_tpu_torch.ops import fused_taylor as ft
+    dev = torch.device("cuda")
+    packs = []
+    for k in range(n_members):
+        net = make_layout_network(chain["layout"], chain["features"],
+                                  chain["act"], in_dim=chain["in_dim"],
+                                  device=dev)
+        net.reset_parameters(torch.Generator().manual_seed(seed + k))
+        with torch.no_grad():
+            packs.append(ft.pack_weights(net.params(), net.layer_names))
+    plan = ft.TaylorPlan(net.tokens, net.activations, chain["closure"],
+                         net.layer_shapes, chain["in_dim"])
+    mlp = fm.MlpPlan(net.tokens, net.activations, net.layer_shapes,
+                     chain["in_dim"])
+    return plan, mlp, torch.stack(packs)
+
+
+def check_members(chain, n, mlp_n, n_members, reps):
+    """The member-axis launches of the forward, backward, tangent and (with
+    ``mlp_n``) MLP kernels on ``n_members`` members' ``(K, P)`` weights and
+    shared points, each against its plain version (values VALUE_TOL,
+    gradients GRAD_TOL, the backward bitwise repeatable), each member's
+    slice against a single-member launch on its weights (bit for bit where
+    the blocks a member are the single model's, else at the tolerances),
+    and timed in turns with the plain version; bounds ``taylor_bounds`` /
+    ``mlp_bound`` times K.  K = 1 launches the single model's grid."""
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    from pydens_tpu_torch.ops import fused_taylor as ft
+    plan, mplan, packed = _member_weights(chain, n_members)
+    dev = packed.device
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(dev).manual_seed(3)
+    x = torch.rand((n, chain["in_dim"]), device=dev, generator=gen)
+    v = torch.randn(packed.shape, device=dev, generator=gen)
+    out = ft.fused_taylor_forward(packed, x, plan)
+    ref = ft.fused_taylor_forward_plain(packed, x, plan)
+    sync()
+    torch.testing.assert_close(out, ref, **VALUE_TOL)
+    g = 2.0 * ref / ref.numel()
+    dp, dx = ft.fused_taylor_backward(packed, x, g, plan)
+    rdp, rdx = ft.fused_taylor_backward_plain(packed, x, g, plan)
+    dp2, dx2 = ft.fused_taylor_backward(packed, x, g, plan)
+    sync()
+    torch.testing.assert_close(dp, rdp, **GRAD_TOL)
+    torch.testing.assert_close(dx, rdx, **GRAD_TOL)
+    assert torch.equal(dp, dp2) and torch.equal(dx, dx2), \
+        "member-axis backward not bitwise repeatable"
+    sv, tv = ft.fused_taylor_jvp(packed, x, v, plan)
+    rsv, rtv = ft.fused_taylor_jvp_plain(packed, x, v, plan)
+    sync()
+    torch.testing.assert_close(sv, rsv, **VALUE_TOL)
+    torch.testing.assert_close(tv, rtv, **VALUE_TOL)
+    grid = plan.launch_shape(n, sm, 3, n_members)[0]
+    same_grid = grid == plan.launch_shape(n, sm, 3)[0]
+    if n_members == 1:
+        for n_bufs in (2, 3):
+            assert plan.launch_shape(n, sm, n_bufs, 1) == \
+                plan.launch_shape(n, sm, n_bufs)
+    for k in range(n_members):
+        one = packed[k].contiguous()
+        assert torch.equal(out[k], ft.fused_taylor_forward(one, x, plan))
+        s1, t1 = ft.fused_taylor_jvp(one, x, v[k].contiguous(), plan)
+        assert torch.equal(sv[k], s1) and torch.equal(tv[k], t1)
+        d1, _ = ft.fused_taylor_backward(one, x, g[k].contiguous(), plan)
+        if same_grid:
+            assert torch.equal(dp[k], d1), f"member {k}: backward differs"
+        else:
+            torch.testing.assert_close(dp[k], d1, **GRAD_TOL)
+    errs = {"fwd": max_err(out, ref),
+            "bwd": max(max_err(dp, rdp), max_err(dx, rdx)),
+            "jvp": max(max_err(sv, rsv), max_err(tv, rtv))}
+    times = timed_pair(
+        "fwd", lambda: ft.fused_taylor_forward(packed, x, plan),
+        lambda: ft.fused_taylor_forward_plain(packed, x, plan), reps)
+    times.update(timed_pair(
+        "bwd", lambda: ft.fused_taylor_backward(packed, x, g, plan),
+        lambda: ft.fused_taylor_backward_plain(packed, x, g, plan), reps))
+    times.update(timed_pair(
+        "jvp", lambda: ft.fused_taylor_jvp(packed, x, v, plan),
+        lambda: ft.fused_taylor_jvp_plain(packed, x, v, plan), reps))
+    bounds = {k: (b * n_members, by) for k, (b, by, _)
+              in taylor_bounds(plan, n).items()}
+    if mlp_n:
+        xm = torch.randn((mlp_n, chain["in_dim"]), device=dev, generator=gen)
+        with torch.no_grad():
+            mo = fm.fused_mlp_forward(packed, xm, mplan)
+            mr = fm.fused_mlp_forward_plain(packed, xm, mplan)
+            sync()
+            torch.testing.assert_close(mo, mr, **VALUE_TOL)
+            for k in range(n_members):
+                assert torch.equal(mo[k], fm.fused_mlp_forward(
+                    packed[k].contiguous(), xm, mplan))
+            errs["mlp"] = max_err(mo, mr)
+            times.update(timed_pair(
+                "mlp", lambda: fm.fused_mlp_forward(packed, xm, mplan),
+                lambda: fm.fused_mlp_forward_plain(packed, xm, mplan), reps))
+        b, by, _ = mlp_bound(mplan, mlp_n)
+        bounds["mlp"] = (b * n_members, by)
+    log(f"member axis K={n_members} {chain['layout']!r} {chain['features']} "
+        f"n={n}{f', mlp n={mlp_n}' if mlp_n else ''}: {grid} blocks a "
+        f"member ({'as' if same_grid else 'fewer than'} one model), each "
+        "member's slice equal to its single launch; "
+        + ", ".join(f"{k} max|err| {e:.3e}" for k, e in errs.items()) + "; "
+        + ", ".join(f"{k} {times[k]:.4f} ms (plain {times[k + '_plain']:.4f})"
+                    f", {_share(times[k], bounds[k][0])} ({bounds[k][1]})"
+                    for k in bounds))
+    for k, (b, by) in bounds.items():
+        times[f"{k}_bound"], times[f"{k}_bound_by"] = b, by
+    times["grid_per_member"] = grid
+    return errs, times
+
+
 def phase_kernels():
     wide = [64, 64, 64, 1]
     taylor = [check_taylor([10, 12, 15, 1], 100, reps=200),
@@ -580,7 +725,11 @@ def phase_kernels():
     mlp["wide64_passes"] = check_mlp("fa fa fa f", [64, 64, 64, 1], 3,
                                      "passes", reps=10)
     sync()
-    return taylor, tut_taylor, mlp, tut_mlp, jvp
+    members = {tag: check_members(chain, n, mlp_n, k,
+                                  reps=10 if n > 10_000 else 100)
+               for tag, (chain, n, mlp_n, k) in MEMBER_ROWS.items()}
+    sync()
+    return taylor, tut_taylor, mlp, tut_mlp, jvp, members
 
 
 def _pde():
@@ -1662,10 +1811,21 @@ CAUSAL_EPS = 5.0
 MSE_BATCHES = 50
 # pydens_tpu on the CPU, seeds 0-5 (tests/collocation_seed_study.py jax;
 # tests/test_torch_collocation_reference.py recomputes them): the median
-# and the largest mean |residual| of examples/09's adaptive fit.
+# and the largest mean |residual| of examples/09's adaptive and uniform
+# fits.  The reference misses the example's own claim (adaptive < 0.6 x
+# uniform) on these medians: 0.1998 against 0.6 x 0.1639.
 ADAPTIVE_JAX = dict(median=0.1998, max=0.7611)
-# 3x pydens_tpu's median and max error (BENCHMARKS.md:740: 0.026, 0.069).
-RBA_BOUNDS = dict(median=0.078, max=0.207)
+UNIFORM_JAX = dict(median=0.1639, max=0.3323)
+# The RBA arm's seeds and pydens_tpu's median and largest max error on
+# them (the CPU; tests/test_torch_rba_reference.py recomputes them); its
+# bounds are 3x those.  The largest of 6 seeds is a draw in both
+# packages: pydens_tpu's is 0.069 on seeds 0-5 (BENCHMARKS.md:740) and
+# 0.106 on 0-23; the port's on the card 0.059 on 0-5 and 0.256 on 0-23
+# with nested gradients in the ansatz, 0.309 on both with its jets (one
+# fit of 24 stalls in each; PERF.md §6).
+RBA_SEEDS = tuple(range(24))
+RBA_JAX = dict(median=0.0270, max=0.1062)
+RBA_BOUNDS = {k: 3 * v for k, v in RBA_JAX.items()}
 HELMHOLTZ_K = 12.0
 BEAM_LT = {"equation": 1.0, "constraint_0": 1.0, "constraint_1": 1.0}
 # Each phase-10 Taylor chain (the network and the closure of its solver's
@@ -1936,11 +2096,16 @@ def phase_collocation():
         f"{json.dumps(adaptive['step'])}")
     assert adaptive["step"]["taylor_fwd_kernel_per_step"] == 2.0
     assert adaptive["step"]["taylor_bwd_kernel_per_step"] == 1.0
-    # The example's own assert, adaptive < 0.6 x uniform, on the medians
-    # over the seeds (one seed's ratio spreads several-fold in both
-    # packages); the paired ratio below 1 on most seeds; the adaptive
-    # median within 1.5x pydens_tpu's, and the largest within 3x.
-    assert med["adaptive"] < 0.6 * med["uniform"], med
+    # The example's own claim, adaptive < 0.6 x uniform, is reported on
+    # the medians over the seeds (one seed's ratio spreads several-fold in
+    # both packages) and not asserted: pydens_tpu misses it on the same
+    # seeds (UNIFORM_JAX).  Asserted: the paired ratio below 1 on most
+    # seeds; the adaptive median within 1.5x pydens_tpu's and the largest
+    # within 3x; the uniform median within 3x pydens_tpu's.
+    log(f"adaptive: the example's 0.6 on the medians: "
+        f"{med['adaptive'] / med['uniform']:.3f} (pydens_tpu "
+        f"{ADAPTIVE_JAX['median'] / UNIFORM_JAX['median']:.3f})")
+    assert med["uniform"] < 3 * UNIFORM_JAX["median"], (med, UNIFORM_JAX)
     assert adaptive["median_ratio"] < 1.0, ratio
     assert med["adaptive"] < 1.5 * ADAPTIVE_JAX["median"], (med,
                                                              ADAPTIVE_JAX)
@@ -1964,7 +2129,7 @@ def phase_collocation():
             COLLOCATION_CHAINS["ex09"][0]),
         lambda arm: (dict(RBA_FIT, **(dict(rba=RBA_ETA_GAMMA)
                                       if arm == "rba" else {})), True),
-        "rba", COLLOCATION_SEEDS, max_error)
+        "rba", RBA_SEEDS, max_error)
     read("rba")
     err = {arm: [r["metric"] for r in rs] for arm, rs in rows.items()}
     rba = dict(max_error=err, it_s=rates(rows),
@@ -2666,6 +2831,179 @@ def phase_model_features(arms=None, histories=None):
     return path, out
 
 
+# Phase 12: ensembles.  examples/08 (ODE's configuration, K = 8) at its
+# own size and bounds, tests/test_ensemble.py's L-BFGS polish and
+# tests/test_gauss_newton.py's per-member LM.
+EX08_FIT = dict(niters=500, batch_size=400, lr=0.02)
+POLISH = dict(ndims=1, initial_condition=.5, activation="Tanh",
+              layout="fafaf", features=[16, 12, 1])
+ENSEMBLE_WIDE_STEPS = 50
+
+
+def _ode_truth(xs):
+    return np.sin(2 * np.pi * xs) + .5
+
+
+def _ensemble_counters():
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    from pydens_tpu_torch.ops import fused_taylor as ft
+    return (ft.fused_taylor_forward, ft.fused_taylor_backward,
+            ft.fused_taylor_jvp, fm.fused_mlp_forward)
+
+
+def _one_mlp_launch_each(solver, xs):
+    """``predict``, ``predict_all`` and ``predict_std`` at ``xs``, each
+    asserted to be one MLP launch (every member in it)."""
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    out = []
+    for fn in (solver.predict, solver.predict_all, solver.predict_std):
+        before = fm.fused_mlp_forward.launches
+        out.append(fn(xs))
+        assert fm.fused_mlp_forward.launches == before + 1, fn.__name__
+    return out
+
+
+def _ensemble_rate(make, n_models, fit, steps, tag):
+    """A fresh solver of ``make()`` (``(equation, kwargs)``) with
+    ``n_models`` members: one fit of ``steps`` (its warm-up step and its
+    capture), then a timed one that replays; it/s of the second."""
+    from pydens_tpu_torch import Solver
+    eq, kw = make()
+    solver = Solver(eq, seed=0, n_models=n_models, **kw)
+    fit = dict(fit, niters=steps, progress=False)
+    solver.fit(**fit)
+    sync()
+    t0 = time.perf_counter()
+    solver.fit(**fit)
+    sync()
+    rate = steps / (time.perf_counter() - t0)
+    assert _falling(np.asarray(solver.losses)), tag
+    return solver, rate
+
+
+def _nearly_free(make, fit, steps, counts, tag):
+    """The same configuration at each member count of ``counts`` (two),
+    in turns (a, b, b, a): it/s of each, then device ops and busy ms per
+    replayed step (``step_profile``) of each; one forward and one backward
+    launch a replayed step whatever K."""
+    a, b = counts
+    rates = {a: [], b: []}
+    for k in (a, b, b, a):
+        solver, rate = _ensemble_rate(make, k, fit, steps, f"{tag}_k{k}")
+        rates[k].append(rate)
+        del solver
+        free_card()
+    row = {}
+    for k in counts:
+        solver, _ = _ensemble_rate(make, k, fit, steps, f"{tag}_k{k}")
+        prof = step_profile(solver, dict(fit), steps)
+        assert_profiled_taylor(prof, f"{tag}_k{k}")
+        row[f"k{k}"] = dict(it_s=rates[k], it_s_mean=float(np.mean(rates[k])),
+                            **prof)
+        del solver
+        free_card()
+    ratio = row[f"k{b}"]["device_busy_ms"] / row[f"k{a}"]["device_busy_ms"]
+    row["busy_ratio"] = ratio
+    row["ops_ratio"] = row[f"k{b}"]["device_ops"] / row[f"k{a}"]["device_ops"]
+    log(f"ensembles {tag}: K={a} {row[f'k{a}']['it_s_mean']:.1f} it/s, "
+        f"{row[f'k{a}']['device_busy_ms']:.4f} ms busy, "
+        f"{row[f'k{a}']['device_ops']:.1f} ops a step; K={b} "
+        f"{row[f'k{b}']['it_s_mean']:.1f} it/s, "
+        f"{row[f'k{b}']['device_busy_ms']:.4f} ms busy, "
+        f"{row[f'k{b}']['device_ops']:.1f} ops a step (in turns); busy "
+        f"x{ratio:.3f}, ops x{row['ops_ratio']:.3f}")
+    return row
+
+
+def phase_ensembles():
+    """Ensembles through the public Solver (``n_models``), every fit through
+    graphs: examples/08 at its own size (K = 8, 500 Adam steps at batch 400,
+    lr 0.02) with its own bounds; tests/test_ensemble.py's L-BFGS polish
+    (K = 3) and tests/test_gauss_newton.py's per-member LM (K = 2).  The
+    launch counters are set to 0 before and read after these fits and
+    predicts: both Taylor kernels once a step (eager step or capture; one
+    a replayed step on the card whatever K, from ``torch.profiler``), 1 +
+    trials a L-BFGS step, ``cg_iters`` tangents a LM step, one MLP launch a
+    predict.  Then, in turns, examples/08's configuration at K = 1 and 8
+    and the 64-wide fit (batch 65,536, 50 steps) at K = 1 and 4: it/s,
+    device ops and busy ms a replayed step."""
+    from pydens_tpu_torch import Solver
+    counters = _ensemble_counters()
+    for c in counters:
+        c.launches = 0
+    rows = {}
+    s = Solver(_ode(), seed=0, n_models=8, **ODE)
+    assert s.model.n_models == 8 and s._plan_ok
+    sync()
+    t0 = time.perf_counter()
+    s.fit(progress=False, **EX08_FIT)
+    sync()
+    wall = time.perf_counter() - t0
+    fit_launches = {c.__name__: c.launches for c in counters}
+    device, tally = assert_taylor_every_step(s, EX08_FIT["niters"],
+                                             fit_launches)
+    xs = np.linspace(0, 1, 100)
+    mean, allp, std = _one_mlp_launch_each(s, xs)
+    err = np.abs(mean.ravel() - _ode_truth(xs))
+    assert allp.shape == (8, 100, 1)
+    np.testing.assert_allclose(mean, allp.mean(0), rtol=1e-5, atol=1e-6)
+    assert err.max() < 0.05, err.max()          # examples/08's bounds
+    assert std.mean() < 0.05, std.mean()
+    rows["ex08"] = dict(it_s=EX08_FIT["niters"] / wall,
+                        err_max=float(err.max()), std_mean=float(std.mean()),
+                        std_min=float(std.min()), std_max=float(std.max()),
+                        tally=tally, final_loss=float(s.losses[-1]))
+    log(f"ensembles ex08 (K=8): {EX08_FIT['niters']} steps in {wall:.3f} s "
+        f"({rows['ex08']['it_s']:.1f} it/s, capture included), loss "
+        f"{s.losses[0]:.4f} -> {s.losses[-1]:.6f}; mean max err "
+        f"{err.max():.4f} (< 0.05), std mean {std.mean():.5f} (< 0.05), "
+        f"range [{std.min():.5f}, {std.max():.5f}]; steps {tally}, Taylor "
+        f"launches on the card {device}")
+    del s
+    free_card()
+
+    s = Solver(_ode(), seed=0, n_models=3, **POLISH)
+    s.fit(niters=600, batch_size=256, lr=0.01, progress=False)
+    adam = s.losses[-1]
+    rows["polish"] = run_finisher(s, "LBFGS", 120, 1024, "ensemble_lbfgs")
+    per_member = s.predict_all(np.linspace(0, 1, 51))
+    member_err = np.abs(per_member[..., 0] - _ode_truth(
+        np.linspace(0, 1, 51))).max(1)
+    assert s.losses[-1] < 0.5 * adam, (s.losses[-1], adam)
+    assert (member_err < 0.02).all(), member_err
+    rows["polish"].update(adam_loss=float(adam),
+                          member_err=member_err.tolist())
+    log(f"ensembles L-BFGS polish (K=3): Adam {adam:.4e} -> L-BFGS "
+        f"{s.losses[-1]:.4e}; each member's max err {member_err}")
+
+    lm = Solver(_ode(), seed=2, n_models=2, **ODE)
+    rows["lm"] = run_finisher(lm, "LM", 20, 128, "ensemble_lm")
+    assert lm.losses[-1] < lm.losses[0]
+    assert tuple(lm._opt_state["damping"].shape) == (2, 2)
+    path = {c.__name__: c.launches for c in counters}
+    log(f"ensembles path launches (counted from 0 before the ex08 fit): "
+        f"{path}")
+    # Per replayed step on the card: 1 + trials a L-BFGS step, cg_iters
+    # tangents a LM step.
+    rows["polish_profile"] = finisher_profile(s, 1024, 5, "ensemble_lbfgs")
+    rows["lm_profile"] = finisher_profile(lm, 128, 3, "ensemble_lm")
+    assert rows["lm_profile"]["taylor_jvp_kernel_per_step"] == 50.0
+    del s, lm
+    free_card()
+
+    def ex08():
+        return _ode(), dict(ODE)
+
+    def wide():
+        return _pde(), dict(WIDE)
+    rows["nearly_free_ex08"] = _nearly_free(
+        ex08, dict(batch_size=400, lr=0.02), 200, (1, 8), "ex08")
+    rows["nearly_free_wide"] = _nearly_free(
+        wide, dict(batch_size=WIDE_BATCH), ENSEMBLE_WIDE_STEPS, (1, 4),
+        "wide")
+    return path, rows
+
+
 def carry_probe(steps, out_dir=os.path.join("build", "carry")):
     """Runs ``steps`` in this one process, in order: earlier phases by name,
     phase 11's arms (``FEATURE_ARMS``), and ``deterministic``, which turns
@@ -2846,8 +3184,38 @@ def ex16_trace(niters=200, reps=2000):
     return out
 
 
+def order_fit(nested):
+    """A short fit through one of the other nested-gradient paths, for the
+    carry probe: examples/16's adaptive fit with ``fast_taps=False`` (``D``
+    by ``create_graph`` gradients; ``nested``), or the README Poisson
+    problem with a Neumann constraint through ``f.grad`` (the
+    constraints' nested gradients on the plan).  Its loss history and
+    final theta."""
+    from pydens_tpu_torch import Solver
+    if nested:
+        s, sampler = _burgers()
+        s.fit(niters=60, batch_size=2048, lr=2e-3, sampler=sampler,
+              adaptive=8, chunk_size=20, fast_taps=False, progress=False)
+    else:
+        s = Solver(_pde(), seed=0, constraints=lambda f, x, y: f.grad(
+            np.array([0.0]), np.array([0.5]), wrt=0) - 1.0, **README)
+        s.fit(niters=100, batch_size=100, progress=False,
+              loss_terms={"equation": 1.0, "constraint_0": 1.0})
+    out = dict(loss=np.asarray(s.losses, np.float64),
+               theta=s._spec().flatten(s.model.params).detach().cpu().numpy())
+    log(f"order fit ({'nested D' if nested else 'f.grad constraint'}): "
+        f"loss {out['loss'][0]:.6e} -> {out['loss'][-1]:.6e}")
+    del s
+    free_card()
+    return out
+
+
 def _carry(steps, phases, saved):
     for i, step in enumerate(steps):
+        if step in ("order_nested", "order_grad"):
+            saved.update({f"{i}_{k}": v for k, v in order_fit(
+                step == "order_nested").items()})
+            continue
         if step == "deterministic":
             torch.use_deterministic_algorithms(True, warn_only=True)
             continue
@@ -2952,7 +3320,8 @@ def _raw_mlp_calls(old, packed, x, plan):
         assert lib.pdt_mlp_forward(
             x.data_ptr(), packed.data_ptr(),
             plan.device_table(x.device).data_ptr(), outs[1].data_ptr(), n,
-            *plan.kernel_args(), plan.out_dim, grid, stream) == 0
+            *plan.kernel_args(), plan.out_dim, plan.n_params, grid, 1,
+            stream) == 0
         return outs[1]
     return old_call, new_call
 
@@ -3142,7 +3511,7 @@ def jvp_turns(old_source, reps=20):
                 x.data_ptr(), packed.data_ptr(), v.data_ptr(), tab.data_ptr(),
                 outs[2].data_ptr(), outs[3].data_ptr(), n, plan.n_params,
                 plan.n_streams, plan.wmax, plan.out_dim, plan.jvp_tile,
-                int(plan.jvp_resident), grid, stream) == 0
+                int(plan.jvp_resident), grid, 1, stream) == 0
             return outs[2], outs[3]
         ref, tref = ft.fused_taylor_jvp_plain(packed, x, v, plan)
         for fn in (old_call, new_call):
@@ -3247,6 +3616,12 @@ def main():
                   flush=True)
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--ensembles"]:
+        with _plain_refused():
+            print(json.dumps({"ensembles": phase_ensembles()[1]}),
+                  flush=True)
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:2] == ["--carry"]:
         carry_probe(sys.argv[2].split(","), *sys.argv[3:4])
         print(smi, flush=True)
@@ -3263,7 +3638,7 @@ def main():
         jvp_turns(sys.argv[2])
         print(smi, flush=True)
         return 0
-    taylor, tut_taylor, mlp, tut_mlp, jvp = phase_kernels()
+    taylor, tut_taylor, mlp, tut_mlp, jvp, members = phase_kernels()
     launches, w1_device, w1_prof = phase_poisson()
     phase_wide_fit()
     tutorials = phase_tutorials()
@@ -3277,12 +3652,16 @@ def main():
     with _plain_refused():
         feature_launches, features = phase_model_features()
     print(json.dumps({"model_features": features}), flush=True)
+    with _plain_refused():
+        ensemble_launches, ensembles = phase_ensembles()
+    print(json.dumps({"ensembles": ensembles}), flush=True)
     path_launches = {k: {"w1": launches[k],
                          **{w: t[0][k] for w, t in tutorials.items()},
                          **{f"p10_{arm}": n[k] for arm, n
                             in collocation_launches.items()},
                          **{f"p11_{arm}": n[k] for arm, n
-                            in feature_launches.items()}}
+                            in feature_launches.items()},
+                         "p12_ensembles": ensemble_launches[k]}
                      for k in launches}
     # Launches on the card: the Taylor kernels once per fit step (eager or
     # replayed), the MLP kernel once per predict (never captured).
@@ -3351,6 +3730,40 @@ def main():
         "path_launches": finisher_launches,
         "lm_launches_per_step":
             finishers["ode_lm"]["taylor_jvp_kernel_per_step"]}
+    # The member axis (the grid's second axis, K ensemble members in one
+    # launch): one more entry a kernel, its launches phase 12's path, its
+    # times examples/08's at K = 8 (Taylor kernels at 400 points, the MLP
+    # at 10,000), every MEMBER_ROWS row beside them.
+    def member_entry(name, src, replaces, kind, headline):
+        errs, times = members[headline]
+        return {"name": f"{name} (member axis)", "route": "cuda",
+                "source": f"pydens_tpu_torch/csrc/{src}",
+                "replaces": replaces,
+                "launches": ensemble_launches[name],
+                "max_abs_err": max(e[kind] for e, _ in members.values()
+                                   if kind in e),
+                "ms": times[kind], "plain_ms": times[f"{kind}_plain"],
+                "bound_ms": times[f"{kind}_bound"],
+                "bound_by": times[f"{kind}_bound_by"], "library_ms": None,
+                **{f"{tag}_{k}ms": t[kind + suffix]
+                   for tag, (_, t) in members.items() if kind in t
+                   for k, suffix in (("", ""), ("plain_", "_plain"),
+                                     ("bound_", "_bound"))},
+                "grid_per_member": {tag: t["grid_per_member"]
+                                    for tag, (_, t) in members.items()}}
+    member_kernels = [
+        member_entry("fused_taylor_forward", "fused_taylor.cu",
+                     "pydens_tpu/ops/pallas_taylor.py:386", "fwd",
+                     "ex08_k8"),
+        member_entry("fused_taylor_backward", "fused_taylor.cu",
+                     "pydens_tpu/ops/pallas_taylor.py:428", "bwd",
+                     "ex08_k8"),
+        member_entry("fused_mlp_forward", "fused_mlp.cu",
+                     "pydens_tpu/ops/pallas_mlp.py:92", "mlp", "ex08_k8"),
+        member_entry("fused_taylor_jvp", "fused_taylor.cu",
+                     "pydens_tpu/solver.py:1349 (jax.linearize of the plan; "
+                     "no Pallas kernel)", "jvp", "ex08_k8"),
+    ]
     kernels = [
         entry("fused_taylor_forward", "fused_taylor.cu",
               "pydens_tpu/ops/pallas_taylor.py:386", main_taylor, "fwd",
@@ -3363,7 +3776,7 @@ def main():
               max(e for e, _ in list(mlp.values()) + list(tut_mlp.values())),
               mlp_shapes),
         jvp_entry,
-    ]
+    ] + member_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -58,6 +58,12 @@
 // * f32 FMA only: TF32 would miss the 2e-5 value tolerance, and the FMA
 //   pipe is not what binds, so the error-compensated 3xTF32 route was not
 //   taken.
+// * An ensemble's members (the Solver's n_models, one predict for all) are
+//   the grid's second axis: block (b, k) stages member k's packed weights
+//   (from k * P) and writes member k's slice of `out` (members, n,
+//   out_dim); the points are shared.  The wrapper gives each member
+//   max(1, slots / K) blocks, capped by the tiles; K = 1 is the single
+//   model's grid.
 //
 // Op table (int32, built by pydens_tpu_torch/ops/fused_mlp.py):
 //   [0] n_ops [1] in_dim [2] wmax [3] max_stack [4] staged weight floats
@@ -259,8 +265,10 @@ template <int TILE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS_PER_SM)
 mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
                const int* __restrict__ tab, float* __restrict__ out, int n,
-               int out_dim) {
+               int out_dim, int P) {
   constexpr int LD = TILE + ROW_PAD;
+  w_glob += (size_t)blockIdx.y * P;
+  out += (size_t)blockIdx.y * n * out_dim;
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);
   const Plan p = read_plan(tab);
@@ -333,16 +341,16 @@ namespace {
 
 template <int TILE>
 cudaError_t launch(const float* x, const float* w, const int* tab, float* out,
-                   int n, int out_dim, size_t smem, int grid,
-                   cudaStream_t stream) {
+                   int n, int out_dim, int P, size_t smem, int grid,
+                   int members, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         mlp_fwd_kernel<TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  mlp_fwd_kernel<TILE><<<grid, THREADS, smem, stream>>>(x, w, tab, out, n,
-                                                        out_dim);
+  mlp_fwd_kernel<TILE><<<dim3(grid, members), THREADS, smem, stream>>>(
+      x, w, tab, out, n, out_dim, P);
   return cudaGetLastError();
 }
 
@@ -376,21 +384,24 @@ int pdt_mlp_blocks_per_sm(int staged, int in_dim, int wmax, int max_stack,
   return -(int)cudaErrorInvalidValue;
 }
 
-// x (n, in_dim), w (packed weights), tab (device op table), out (n, out_dim);
-// `grid` persistent blocks of `tile` points.
+// x (n, in_dim), w (members, P packed weights), tab (device op table), out
+// (members, n, out_dim); `grid` persistent blocks of `tile` points a member.
 int pdt_mlp_forward(const float* x, const float* w, const int* tab,
                     float* out, int n, int staged, int in_dim, int wmax,
-                    int max_stack, int tile, int out_dim, int grid,
-                    void* stream) {
+                    int max_stack, int tile, int out_dim, int P, int grid,
+                    int members, void* stream) {
   const size_t smem =
       sizeof(float) * mlp_smem_floats(staged, in_dim, wmax, max_stack, tile);
   const cudaStream_t s = (cudaStream_t)stream;
   if (tile == 128)
-    return (int)launch<128>(x, w, tab, out, n, out_dim, smem, grid, s);
+    return (int)launch<128>(x, w, tab, out, n, out_dim, P, smem, grid,
+                            members, s);
   if (tile == 64)
-    return (int)launch<64>(x, w, tab, out, n, out_dim, smem, grid, s);
+    return (int)launch<64>(x, w, tab, out, n, out_dim, P, smem, grid,
+                            members, s);
   if (tile == 32)
-    return (int)launch<32>(x, w, tab, out, n, out_dim, smem, grid, s);
+    return (int)launch<32>(x, w, tab, out, n, out_dim, P, smem, grid,
+                            members, s);
   return (int)cudaErrorInvalidValue;
 }
 

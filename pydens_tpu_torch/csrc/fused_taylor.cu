@@ -62,6 +62,15 @@
 //   own partial (every element owned by one thread); a second launch sums
 //   the partials in block order.  No atomics: the gradient is bitwise
 //   repeatable.
+// * An ensemble (the Solver's n_models members, trained on shared points)
+//   is the grid's second axis: block (b, k) runs member k, whose packed
+//   weights start at k * P and whose outputs, cotangent, slab and partials
+//   are member k's slices; the points are shared.  Each member has
+//   gridDim.x persistent blocks (the wrapper gives max(1, slots / K),
+//   capped by the tiles), every block stages its own member's weights, so
+//   block size and shared memory stay as they are, and one launch fills the
+//   SMs that a small chain's few tiles would leave idle.  With K = 1 the
+//   grid is the single model's.
 //
 // Op table (int32, built by pydens_tpu_torch/ops/fused_taylor.py):
 //   [0] n_ops [1] in_dim [2] n_first [3] n_pairs [4] wmax [5] save_rows
@@ -442,6 +451,9 @@ taylor_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
   extern __shared__ float4 smem4[];
   float* w = reinterpret_cast<float*>(smem4);
   const Plan p = read_plan(tab);
+  const size_t member = blockIdx.y;
+  w_glob += member * P;
+  out += member * n * p.n_streams * out_dim;
   float* buf[2];
   buf[0] = w + weights_floats(P);
   buf[1] = buf[0] + p.wmax * p.ld;
@@ -817,6 +829,11 @@ taylor_jvp_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
                   int out_dim, int P, int resident) {
   extern __shared__ float4 smem4[];
   const Plan p = read_plan(tab, TP);
+  const size_t member = blockIdx.y;
+  w_glob += member * P;
+  v_glob += member * P;
+  out += member * n * p.n_streams * out_dim;
+  tout += member * n * p.n_streams * out_dim;
   float* buf[2];
   float* tbuf[2];
   buf[0] = reinterpret_cast<float*>(smem4);
@@ -885,8 +902,15 @@ taylor_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
   buf[0] = w + weights_floats(P);
   buf[1] = buf[0] + p.wmax * p.ld;
   buf[2] = buf[1] + p.wmax * p.ld;
-  float* slab = saves + (size_t)blockIdx.x * p.save_rows * TILE_POINTS;
-  float* part = partials + (size_t)blockIdx.x * P;
+  // Member k's weights, cotangent and d x; block (b, k)'s slab and
+  // partial are slot k * gridDim.x + b.
+  const size_t member = blockIdx.y;
+  const size_t slot = member * gridDim.x + blockIdx.x;
+  w_glob += member * P;
+  g += member * n * p.n_streams * out_dim;
+  dx += member * n * p.in_dim;
+  float* slab = saves + slot * p.save_rows * TILE_POINTS;
+  float* part = partials + slot * P;
   load_weights_async(w, w_glob, P);
   const int tiles = (n + TILE_POINTS - 1) / TILE_POINTS;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -959,12 +983,15 @@ taylor_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
   }
 }
 
-// Sums the per-block partial gradients over blocks, in block order.
+// Sums the per-block partial gradients over blocks, in block order; member
+// blockIdx.y's `n_blocks` partials into its row of `out` (K, P).
 __global__ void reduce_partials_kernel(const float* __restrict__ partials,
                                        float* __restrict__ out, int n_blocks,
                                        int P) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= P) return;
+  partials += (size_t)blockIdx.y * n_blocks * P;
+  out += (size_t)blockIdx.y * P;
   float acc = 0.f;
   for (int blk = 0; blk < n_blocks; ++blk) acc += partials[(size_t)blk * P + i];
   out[i] = acc;
@@ -997,10 +1024,11 @@ cudaError_t allow_smem(const void* kernel, size_t smem) {
 template <int TP>
 int launch_jvp(const float* x, const float* w, const float* v, const int* tab,
                float* out, float* tout, int n, size_t smem, int out_dim,
-               int P, int resident, int grid, cudaStream_t stream) {
+               int P, int resident, int grid, int members,
+               cudaStream_t stream) {
   cudaError_t err = allow_smem((const void*)taylor_jvp_kernel<TP>, smem);
   if (err != cudaSuccess) return (int)err;
-  taylor_jvp_kernel<TP><<<grid, THREADS, smem, stream>>>(
+  taylor_jvp_kernel<TP><<<dim3(grid, members), THREADS, smem, stream>>>(
       x, w, v, tab, out, tout, n, out_dim, P, resident);
   return (int)cudaGetLastError();
 }
@@ -1036,55 +1064,59 @@ int pdt_taylor_jvp_blocks_per_sm(int n_streams, int wmax, int tile, int P,
   return -(int)cudaErrorInvalidValue;
 }
 
-// x (n, in_dim), w (P,), tab (device op table), out (n, n_streams*out_dim);
-// `grid` persistent blocks.
+// x (n, in_dim), w (members, P), tab (device op table), out (members, n,
+// n_streams*out_dim); `grid` persistent blocks a member.
 int pdt_taylor_forward(const float* x, const float* w, const int* tab,
                        float* out, int n, int P, int n_streams, int wmax,
-                       int out_dim, int grid, void* stream) {
+                       int out_dim, int grid, int members, void* stream) {
   const size_t smem = taylor_smem_bytes(P, n_streams, wmax, 2);
   cudaError_t err = allow_smem((const void*)taylor_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  taylor_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  taylor_fwd_kernel<<<dim3(grid, members), THREADS, smem,
+                      (cudaStream_t)stream>>>(
       x, w, tab, out, n, P, out_dim);
   return (int)cudaGetLastError();
 }
 
-// x (n, in_dim), w and v (P,), tab, out and tout (n, n_streams*out_dim);
-// `tile` points a tile (16, 8 or 4), the weights `resident` (1) or
-// streamed (0), `grid` persistent blocks.
+// x (n, in_dim), w and v (members, P), tab, out and tout (members, n,
+// n_streams*out_dim); `tile` points a tile (16, 8 or 4), the weights
+// `resident` (1) or streamed (0), `grid` persistent blocks a member.
 int pdt_taylor_jvp(const float* x, const float* w, const float* v,
                    const int* tab, float* out, float* tout, int n, int P,
                    int n_streams, int wmax, int out_dim, int tile,
-                   int resident, int grid, void* stream) {
+                   int resident, int grid, int members, void* stream) {
   const size_t smem = taylor_jvp_smem_bytes(n_streams, wmax, tile, P, resident);
   const cudaStream_t st = (cudaStream_t)stream;
   if (tile == 16)
     return launch_jvp<16>(x, w, v, tab, out, tout, n, smem, out_dim, P,
-                          resident, grid, st);
+                          resident, grid, members, st);
   if (tile == 8)
     return launch_jvp<8>(x, w, v, tab, out, tout, n, smem, out_dim, P,
-                         resident, grid, st);
+                         resident, grid, members, st);
   if (tile == 4)
     return launch_jvp<4>(x, w, v, tab, out, tout, n, smem, out_dim, P,
-                         resident, grid, st);
+                         resident, grid, members, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// g (n, n_streams*out_dim); saves (grid * save_rows * TILE_POINTS);
-// partials (grid * P); dw (P,); dx (n, in_dim).  grid <= number of tiles.
+// g (members, n, n_streams*out_dim); saves (members * grid * save_rows *
+// TILE_POINTS); partials (members * grid * P); dw (members, P); dx (members,
+// n, in_dim).  grid (blocks a member) <= number of tiles.
 int pdt_taylor_backward(const float* x, const float* w, const int* tab,
                         const float* g, float* saves, float* partials,
                         float* dw, float* dx, int n, int P, int n_streams,
-                        int wmax, int out_dim, int grid, void* stream) {
+                        int wmax, int out_dim, int grid, int members,
+                        void* stream) {
   const size_t smem = taylor_smem_bytes(P, n_streams, wmax, 3);
   cudaError_t err = allow_smem((const void*)taylor_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  taylor_bwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  taylor_bwd_kernel<<<dim3(grid, members), THREADS, smem,
+                      (cudaStream_t)stream>>>(
       x, w, tab, g, saves, partials, dx, n, P, out_dim);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<(P + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      partials, dw, grid, P);
+  reduce_partials_kernel<<<dim3((P + 255) / 256, members), 256, 0,
+                           (cudaStream_t)stream>>>(partials, dw, grid, P);
   return (int)cudaGetLastError();
 }
 

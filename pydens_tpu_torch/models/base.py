@@ -16,15 +16,16 @@ conditions exactly is the reference's (``model_torch.py:107-128``), with
 
 from __future__ import annotations
 
-import itertools
 import warnings
 
 import numpy as np
 import torch
 from torch import nn
 
+from . import jets
+from .jets import Jet
 from .layout import make_layout_network, make_modified_mlp_network
-from ..ops.tokens import _batch_diagonal_grad, as_device, variable_scope
+from ..ops.tokens import as_device, member_scope, variable_scope
 from ..ops import fused_mlp, fused_taylor
 
 __all__ = ["Model", "ConvBlockModel", "TorchModel", "resolve_device"]
@@ -101,7 +102,11 @@ def _constant_condition(value, dtype, device):
     if value.ndim == 1 and value.shape[0] > 1:
         value = value.reshape(1, -1)
     tensor = torch.as_tensor(value, dtype=dtype, device=device)
-    return lambda *cols: tensor
+
+    def condition(*cols):
+        return tensor
+    condition.constant = True   # no derivative in the ansatz's taps
+    return condition
 
 
 def _host_values(out):
@@ -109,6 +114,17 @@ def _host_values(out):
     if torch.is_tensor(out):
         out = out.detach().cpu().numpy()
     return np.asarray(out, np.float64)
+
+
+def _mixed_partial(fn, m, zero, one):
+    """``d^m fn(s_0, ..., s_{m-1}) / ds_0 ... ds_{m-1}`` at 0: ``m`` nested
+    ``torch.func.jvp`` over the 0-d scalars, each with tangent ``one``."""
+    if m == 0:
+        return fn()
+
+    def inner(*head):
+        return torch.func.jvp(lambda s: fn(*head, s), (zero,), (one,))[1]
+    return _mixed_partial(inner, m - 1, zero, one)
 
 
 def _tree_fill(tree, value):
@@ -186,6 +202,9 @@ class Model(nn.Module):
         self._cond_modes = {}
         self._frozen_layers = set()
         self._frozen_variables = set()
+        # Ensemble members (make_ensemble): every parameter leaf then
+        # carries a leading (n_models,) axis.
+        self.n_models = 1
         # False until the Solver's discovery run has created the V
         # variables: names frozen before then are validated lazily.
         self._params_ready = False
@@ -214,11 +233,49 @@ class Model(nn.Module):
                 "variables": dict(self.variables.items())}
 
     def set_variables(self, values):
-        """Create the ``V``-token variables from their initial values."""
+        """Create the ``V``-token variables from their initial values (in
+        an ensemble, one copy per member)."""
         for name, value in values.items():
-            self.variables[name] = nn.Parameter(torch.as_tensor(
-                np.asarray(value), dtype=self.dtype, device=self.device))
+            value = torch.as_tensor(np.asarray(value), dtype=self.dtype,
+                                    device=self.device)
+            if self.n_models > 1:
+                value = value.expand((self.n_models,) + value.shape).clone()
+            self.variables[name] = nn.Parameter(value)
         self._params_ready = True
+
+    def make_ensemble(self, n_models):
+        """Stack every parameter to ``n_models`` members: each leaf gets a
+        leading ``(n_models,)`` axis (``pydens_tpu``'s vmapped init; draw
+        the members with :meth:`reset_parameters`).  The network then maps
+        points to ``(n_models, N, n_out)`` and the ansatz reads member-major
+        rows (:meth:`member_rows`)."""
+        self.n_models = int(n_models)
+        for module in self.modules():
+            for name, p in list(module._parameters.items()):
+                if p is not None:
+                    module._parameters[name] = nn.Parameter(
+                        p.detach().expand((self.n_models,) + p.shape)
+                        .clone())
+
+    def member_rows(self, t):
+        """The network's per-member ``(K, N, c)`` output as member-major
+        rows ``(K * N, c)``, the layout every row-wise step of an ensemble
+        (ansatz, equation, criterion) reads; a single model's as it is."""
+        return t if self.n_models == 1 else t.reshape(-1, t.shape[-1])
+
+    def member_view(self, xs):
+        """Member-major rows ``(K * N, c)`` as ``(K, N, c)``."""
+        return (xs if self.n_models == 1
+                else xs.reshape(self.n_models, -1, xs.shape[-1]))
+
+    def _per_row(self, value, n_rows):
+        """A per-member scalar (``(K,)``) as an ``(n_rows, 1)`` column of
+        member-major rows; a single model's 0-d value as it is."""
+        if self.n_models == 1:
+            return value
+        K = self.n_models
+        return value.reshape(K, 1, 1).expand(K, n_rows // K, 1).reshape(
+            n_rows, 1)
 
     def trainable_mask(self, params):
         """Boolean tree matching ``params``: True where trainable.
@@ -310,8 +367,9 @@ class Model(nn.Module):
     unfreeze_layers = unfreeze_trainable
 
     def load_params(self, params):
-        """Copy a parameter tree (same structure as :attr:`params`) into
-        the model's parameters."""
+        """Copy a parameter tree (same structure as :attr:`params`; an
+        ensemble's stacked, as ``pydens_tpu``'s) into the model's
+        parameters."""
         def copy(dst, src):
             if isinstance(dst, dict):
                 for key in dst:
@@ -323,8 +381,11 @@ class Model(nn.Module):
 
     # -- forward + ansatz ---------------------------------------------------
     def apply(self, params, xs):
-        """Full forward: network body then ansatz. ``xs`` is ``(N, total)``."""
-        return self.anzatc(self.network_apply(params["net"], xs), xs, params)
+        """Full forward: network body then ansatz. ``xs`` is ``(N, total)``;
+        in an ensemble member-major rows ``(K * N, total)``, member ``k``'s
+        points in rows ``k N .. (k + 1) N - 1``."""
+        return self.anzatc(self.member_rows(self.network_apply(
+            params["net"], self.member_view(xs))), xs, params)
 
     def apply_leaves(self, params, leaves):
         """Equation-path forward on the per-coordinate leaf columns."""
@@ -480,40 +541,50 @@ class Model(nn.Module):
         Periodic dims carry no Dirichlet product (their embedding makes the
         solution periodic); a periodic model's IC terms may decay
         (``periodic_ic_decay=True``).  Parameter columns (``nparams``)
-        never enter the ansatz.
+        never enter the ansatz.  In an ensemble the rows are member-major:
+        ``log_scale`` and the ``V`` tokens the conditions read are each
+        member's own.
         """
+        with member_scope(self.n_models, u.shape[0] // self.n_models):
+            return self._anzatc(u, xs, params)
+
+    def _anzatc(self, u, xs, params, p=None):
+        """The ansatz of :meth:`anzatc`; with a multi-index ``p`` its
+        :class:`~pydens_tpu_torch.models.jets.Jet` in the polarization
+        scalars of ``p`` (``u`` the network's jet): each coordinate column
+        ``c`` shifted by the scalars ``s_i`` with ``p[i] == c``."""
         nds = self.ndims_spatial
-        xs_spatial = xs[:, :nds]
-        t = xs[:, self.ndims - 1:self.ndims]
+        rows = xs.shape[0]
+        n_out = (u.c[0] if isinstance(u, Jet) else u).shape[1]
         lower = [float(lims[0]) for lims in self.domain]
         upper = [float(lims[1]) for lims in self.domain]
         t0 = lower[-1]
 
+        def coord(c):
+            col = xs[:, c:c + 1]
+            return col if p is None else Jet.coordinate(col, c, p)
+
         if self.boundary_condition is not None:
-            shape_fn = torch.ones_like(u)
+            shape_fn = None
             for i in range(nds):
                 if i in self.periodic_dims:
                     continue
-                xi = xs_spatial[:, i:i + 1]
+                xi = coord(i)
                 lo_i, hi_i = lower[i], upper[i]
                 inv_span2 = 1.0 / ((hi_i - lo_i) * (hi_i - lo_i))
-                shape_fn = shape_fn * ((xi - lo_i) * (hi_i - xi) * inv_span2)
+                term = (xi - lo_i) * (hi_i - xi) * inv_span2
+                shape_fn = term if shape_fn is None else shape_fn * term
             bc = self.boundary_condition
             if callable(bc):
-                bc = as_device(bc(*[xs_spatial[:, i] for i in range(nds)]),
-                               u.device, self.dtype)
-                bc = self._normalize_cond("boundary_condition", bc,
-                                          u.shape[0], u.shape[1])
-            u = u * shape_fn + bc
+                bc = self._condition("boundary_condition", bc, xs, p, n_out)
+            u = (u if shape_fn is None else u * shape_fn) + bc
 
         if self.initial_condition is not None:
-            cols = [xs_spatial[:, i] for i in range(nds)]
-            ic = as_device(self.initial_condition(*cols), u.device,
-                           self.dtype)
-            ic = self._normalize_cond("initial_condition", ic,
-                                      u.shape[0], u.shape[1])
-            gate = torch.sigmoid(
-                (t - t0) / torch.exp(params["log_scale"])) - 0.5
+            t = coord(self.ndims - 1)
+            ic = self._condition("initial_condition", self.initial_condition,
+                                 xs, p, n_out)
+            gate = jets.sigmoid((t - t0) / self._per_row(
+                torch.exp(params["log_scale"]), rows)) - 0.5
             ic_decay = 1.0
             if self.periodic_dims and self._ic_decay_engaged():
                 # The opt-in decay, on a fixed timescale of a quarter of
@@ -522,16 +593,50 @@ class Model(nn.Module):
                 # zero slope at t0, so u_t(t0) stays bound too.
                 t_lo, t_hi = self.domain[self.ndims - 1]
                 tau = (t - t0) / (0.25 * (float(t_hi) - float(t_lo)))
-                ic_decay = 2.0 - 2.0 * torch.sigmoid(tau * tau)
+                ic_decay = 2.0 - 2.0 * jets.sigmoid(tau * tau)
             if self.initial_condition_t is None:
                 u = gate * u + ic * ic_decay
             else:
-                ic_t = as_device(self.initial_condition_t(*cols), u.device,
-                                 self.dtype)
-                ic_t = self._normalize_cond("initial_condition_t", ic_t,
-                                            u.shape[0], u.shape[1])
+                ic_t = self._condition("initial_condition_t",
+                                       self.initial_condition_t, xs, p,
+                                       n_out)
                 u = gate * gate * u + (ic + (t - t0) * ic_t) * ic_decay
         return u
+
+    def _condition(self, key, cond, xs, p, n_out):
+        """A callable condition of the spatial columns at ``xs``, shaped
+        against the ``(rows, n_out)`` output; with a multi-index ``p`` its
+        jet: a subset's coefficient is the condition's mixed partial in the
+        columns of ``p`` it holds (zero where one is not spatial, or for a
+        constant condition), by nested ``torch.func.jvp`` of the condition
+        alone, each distinct multi-index once."""
+        nds, rows = self.ndims_spatial, xs.shape[0]
+
+        def value(cols):
+            out = as_device(cond(*cols), xs.device, self.dtype)
+            return self._normalize_cond(key, out, rows, n_out)
+
+        cols = [xs[:, i] for i in range(nds)]
+        if p is None:
+            return value(cols)
+        jet = Jet.constant(value(cols), len(p))
+        if getattr(cond, "constant", False):
+            return jet
+        zero, one = xs.new_zeros(()), xs.new_ones(())
+        partials = {}
+        for mask in range(1, 1 << len(p)):
+            mi = tuple(sorted(p[i] for i in range(len(p)) if mask >> i & 1))
+            if any(c >= nds for c in mi):
+                continue
+            if mi not in partials:
+                def shifted(*svec, mi=mi):
+                    moved = list(cols)
+                    for c, s in zip(mi, svec):
+                        moved[c] = moved[c] + s
+                    return value(moved)
+                partials[mi] = _mixed_partial(shifted, len(mi), zero, one)
+            jet.c[mask] = partials[mi]
+        return jet
 
     # -- Taylor-mode derivative taps (planned fast path) ---------------------
     @staticmethod
@@ -570,49 +675,48 @@ class Model(nn.Module):
 
         the mixed partial ``d^m/(ds_0..ds_{m-1})`` of
         ``anzatc(net(s), xs + sum_i s_i e_{p_i})`` at 0 is exactly the
-        composite's derivative.  The scalars are per-row ``(N, 1)`` leaves
-        and each partial is one ``torch.autograd.grad`` of the row sum
-        (rows are independent — the batch-diagonal rule ``D`` uses), with
-        the graph kept for the parameter gradient.  Nested
-        ``torch.func.jvp`` computes the same numbers at several times the
-        host cost per step.  Returns ``{multi-index: (N, n_out)}``,
-        including ``()``.
+        composite's derivative.  The ansatz runs on
+        :class:`~pydens_tpu_torch.models.jets.Jet` s, every quantity's
+        multilinear coefficients in the scalars (forward mode written out;
+        a callable condition's own partials by nested ``torch.func.jvp``),
+        so every node of the parameter gradient's graph is built in this
+        forward pass, in program order: no value depends on the order in
+        which the engine runs nodes, whatever autograd work the process did
+        before (a ``create_graph`` backward would add nodes numbered by the
+        device thread).  Returns ``{multi-index: (N, n_out)}``, including
+        ``()``; in an ensemble ``N`` is the member-major rows
+        (:meth:`member_rows`).
         """
         closure = self.plan_closure(derivs)
         V, taps = self.network_apply_taylor(params["net"], xs, closure)
+        V = self.member_rows(V)
+        taps = {mi: self.member_rows(t) for mi, t in taps.items()}
+        if self.n_models > 1:
+            xs = xs.repeat(self.n_models, 1)
         table = {(): self.anzatc(V, xs, params)}
-        n, n_total = xs.shape
-        for mi in sorted({tuple(sorted(d)) for d in derivs},
-                         key=lambda m: (len(m), m)):
-            m = len(mi)
-            svec = [xs.new_zeros((n, 1)).requires_grad_(True)
-                    for _ in range(m)]
-            net = V
-            for r in range(1, m + 1):
-                for B in itertools.combinations(range(m), r):
-                    coef = svec[B[0]]
-                    for i in B[1:]:
-                        coef = coef * svec[i]
-                    net = net + coef * taps[tuple(sorted(mi[i] for i in B))]
-            shift = xs
-            for i in range(m):
-                # s_i on column mi[i]: a device op, no host value copied.
-                shift = shift + torch.nn.functional.pad(
-                    svec[i], (mi[i], n_total - mi[i] - 1))
-            out = self.anzatc(net, shift, params)
-            for s in svec:
-                out = _batch_diagonal_grad(out, s)
-            table[mi] = out
+        with member_scope(self.n_models, V.shape[0] // self.n_models):
+            for mi in sorted({tuple(sorted(d)) for d in derivs},
+                             key=lambda m: (len(m), m)):
+                m = len(mi)
+                net = Jet([V] + [taps[tuple(sorted(
+                    mi[i] for i in range(m) if mask >> i & 1))]
+                    for mask in range(1, 1 << m)])
+                table[mi] = self._anzatc(net, xs, params, mi).top
         return table
 
     # -- inference ----------------------------------------------------------
     def predict_apply(self, params, xs):
         """Inference entry on a device tensor ``(N, total)``: the network
         through :meth:`network_apply_predict` (the fused MLP kernel on CUDA
-        where the layout is in its scope), then the ansatz."""
+        where the layout is in its scope), then the ansatz.  An ensemble
+        gives every member's ``(K, N, n_out)`` from one network pass."""
         with torch.no_grad(), variable_scope("read", params["variables"]):
-            u = self.network_apply_predict(params["net"], xs)
-            return self.anzatc(u, xs, params)
+            u = self.member_rows(self.network_apply_predict(params["net"],
+                                                            xs))
+            if self.n_models == 1:
+                return self.anzatc(u, xs, params)
+            out = self.anzatc(u, xs.repeat(self.n_models, 1), params)
+            return out.reshape(self.n_models, xs.shape[0], -1)
 
 
 class ConvBlockModel(Model):
@@ -810,7 +914,7 @@ class ConvBlockModel(Model):
     def _rff_columns(self, xs):
         """The Fourier features' input columns, as slices (no index
         tensor from the host: the embedding runs inside graph captures)."""
-        return torch.cat([xs[:, d:d + 1] for d in self._rff_dims], dim=1)
+        return torch.cat([xs[..., d:d + 1] for d in self._rff_dims], dim=-1)
 
     def _embed_state(self, xs, closure):
         """The embedding and its Taylor state with respect to the
@@ -841,7 +945,7 @@ class ConvBlockModel(Model):
                                  scale * cycle[(m + 1) % 4]))
 
         for i in range(self.total):
-            xi = xs[:, i:i + 1]
+            xi = xs[..., i:i + 1]
             if i in self.periodic_dims:
                 lo, hi = self.domain[i]
                 w = 2.0 * np.pi / (float(hi) - float(lo))
@@ -859,8 +963,8 @@ class ConvBlockModel(Model):
             pos = {d: j for j, d in enumerate(self._rff_dims)}
             trig(proj, lambda a: (2.0 * np.pi) * self._rff_bt[pos[a]]
                  if a in pos else None)
-        return (torch.cat(vals, dim=1),
-                {mi: torch.cat(t, dim=1) for mi, t in taps.items()})
+        return (torch.cat(vals, dim=-1),
+                {mi: torch.cat(t, dim=-1) for mi, t in taps.items()})
 
     def network_apply(self, net_params, xs):
         return self.net.apply(net_params, self._embed(xs))

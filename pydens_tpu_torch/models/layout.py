@@ -140,14 +140,33 @@ def _product_taps(Va, ta, Vb, tb, closure):
     return Va * Vb, new_taps
 
 
+def _feature(t):
+    """A per-feature parameter (a bias, a LayerNorm scale, a slope) shaped
+    to broadcast against ``(N, width)`` rows, or in an ensemble, whose
+    leaves carry a leading member axis, against ``(K, N, width)``."""
+    return t if t.dim() <= 1 else t.unsqueeze(-2)
+
+
 def _dense_taps(layer, V, taps, closure):
     """Taylor state through a dense layer: one stacked matmul moves the
-    value and every tap; the bias lands on the value only."""
+    value and every tap; the bias lands on the value only.  Rows stack on
+    the second-to-last axis, so an ensemble's ``(K, in, out)`` weights
+    take shared ``(N, in)`` points or ``(K, N, in)`` states alike."""
     blocks = [V] + [taps[mi] for mi in closure]
-    out = torch.cat(blocks, dim=0) @ layer["w"]
-    parts = torch.split(out, V.shape[0], dim=0)
-    return (parts[0] + layer["b"],
+    out = torch.cat(blocks, dim=-2) @ layer["w"]
+    parts = torch.split(out, V.shape[-2], dim=-2)
+    return (parts[0] + _feature(layer["b"]),
             {mi: parts[1 + i] for i, mi in enumerate(closure)})
+
+
+def _concat(a, b):
+    """Feature concatenation of two states, a shared ``(N, w)`` one
+    expanded to an ensemble's ``(K, N, w)``."""
+    if a.dim() < b.dim():
+        a = a.expand(b.shape[:-1] + a.shape[-1:])
+    elif b.dim() < a.dim():
+        b = b.expand(a.shape[:-1] + b.shape[-1:])
+    return torch.cat([a, b], dim=-1)
 
 
 def _identity_state(x, closure):
@@ -297,7 +316,7 @@ class Dense(nn.Module):
     def reset_parameters(self, generator):
         """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weights and biases (the
         torch.nn.Linear default), drawn on the CPU from ``generator``."""
-        bound = 1.0 / math.sqrt(self.w.shape[0])
+        bound = 1.0 / math.sqrt(self.w.shape[-2])
         with torch.no_grad():
             for p in (self.w, self.b):
                 draw = torch.rand(p.shape, generator=generator,
@@ -329,7 +348,7 @@ class _Leaves(nn.Module):
 
 
 def _dense(layer, h):
-    return h @ layer["w"] + layer["b"]
+    return h @ layer["w"] + _feature(layer["b"])
 
 
 def _branch_params(params, index):
@@ -498,10 +517,13 @@ class LayoutNetwork(nn.Module):
         return out
 
     def _slope(self, params, ai):
-        return self.aa_scale * params[self.aa_names[ai]]["a"]
+        return self.aa_scale * _feature(params[self.aa_names[ai]]["a"])
 
     def apply(self, params, x):
-        """Apply the network to a ``(N, in_dim)`` batch of points."""
+        """Apply the network to a ``(N, in_dim)`` batch of points; with an
+        ensemble's parameters (a leading member axis ``K`` on every leaf)
+        to shared ``(N, in_dim)`` or per-member ``(K, N, in_dim)`` points,
+        giving ``(K, N, out_dim)``."""
         h = x
         stack = []
         di = ai = li = bi = 0
@@ -518,8 +540,8 @@ class LayoutNetwork(nn.Module):
                 layer = params[self.ln_names[li]]
                 mu = h.mean(dim=-1, keepdim=True)
                 var = torch.square(h - mu).mean(dim=-1, keepdim=True)
-                h = layer["g"] * (h - mu) * torch.rsqrt(var + 1e-6) \
-                    + layer["b"]
+                h = _feature(layer["g"]) * (h - mu) * torch.rsqrt(
+                    var + 1e-6) + _feature(layer["b"])
                 li += 1
             elif tok == "R":
                 stack.append(h)
@@ -533,7 +555,7 @@ class LayoutNetwork(nn.Module):
             elif tok == "*":
                 h = h * stack.pop()
             elif tok == ".":
-                h = torch.cat([h, stack.pop()], dim=-1)
+                h = _concat(h, stack.pop())
         return h
 
     def forward(self, x):
@@ -589,9 +611,8 @@ class LayoutNetwork(nn.Module):
                 V, taps = _product_taps(V, taps, V0, taps0, closure)
             elif tok == ".":
                 V0, taps0 = stack.pop()
-                V = torch.cat([V, V0], dim=-1)
-                taps = {mi: torch.cat([taps[mi], taps0[mi]], dim=-1)
-                        for mi in closure}
+                V = _concat(V, V0)
+                taps = {mi: _concat(taps[mi], taps0[mi]) for mi in closure}
         return V, taps
 
 

@@ -151,11 +151,14 @@ class MlpPlan:
             self.table += rec
         self._device_tables = {}
 
-    def launch_shape(self, n, sm_count, blocks_per_sm):
-        """The grid of a launch over ``n`` points: persistent blocks, at
-        most ``blocks_per_sm`` on each of ``sm_count`` SMs and at most one
-        per tile."""
-        return min(-(-n // self.tile), sm_count * blocks_per_sm)
+    def launch_shape(self, n, sm_count, blocks_per_sm, n_members=1):
+        """The grid of a launch over ``n`` points (blocks a member, for
+        each of ``n_members`` ensemble members on the grid's second axis):
+        persistent blocks, the ``blocks_per_sm`` on each of ``sm_count``
+        SMs shared by the members (at least one each), at most one per
+        tile."""
+        return min(-(-n // self.tile),
+                   max(1, sm_count * blocks_per_sm // n_members))
 
     def kernel_args(self):
         """``(staged, in_dim, wmax, max_stack, tile)``: the sizes the C
@@ -184,8 +187,10 @@ def _blocks_per_sm(lib, plan, device):
 
 
 def fused_mlp_forward(packed, x, plan):
-    """The chain's output ``(n, out_dim)`` at points ``x``: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    """The chain's output ``(n, out_dim)`` at points ``x``, or ``(K, n,
+    out_dim)`` for an ensemble's ``(K, P)`` packed weights (one launch for
+    every member): the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
     if torch.is_grad_enabled() and (packed.requires_grad or x.requires_grad):
         raise RuntimeError("fused_mlp_forward has no backward; call it "
                            "under torch.no_grad()")
@@ -193,20 +198,26 @@ def fused_mlp_forward(packed, x, plan):
         return fused_mlp_forward_plain(packed, x, plan)
     n = x.shape[0]
     check_operand("x", x, (n, plan.in_dim))
-    check_operand("packed", packed, (plan.n_params,))
+    if packed.dim() not in (1, 2):
+        raise ValueError(f"packed weights of shape {tuple(packed.shape)}: "
+                         "expected (P,) or, for an ensemble, (K, P)")
+    check_operand("packed", packed,
+                  tuple(packed.shape[:-1]) + (plan.n_params,))
     if packed.device != x.device:
         raise ValueError(f"packed weights on {packed.device}, points on "
                          f"{x.device}")
-    out = torch.empty((n, plan.out_dim), dtype=x.dtype, device=x.device)
+    out = torch.empty(tuple(packed.shape[:-1]) + (n, plan.out_dim),
+                      dtype=x.dtype, device=x.device)
     if n == 0:
         return out
     lib = load_library()
+    K = 1 if packed.dim() == 1 else packed.shape[0]
     grid = plan.launch_shape(n, _sm_count(x.device),
-                             _blocks_per_sm(lib, plan, x.device))
+                             _blocks_per_sm(lib, plan, x.device), K)
     err = lib.pdt_mlp_forward(
         x.data_ptr(), packed.data_ptr(), plan.device_table(x.device).data_ptr(),
-        out.data_ptr(), n, *plan.kernel_args(), plan.out_dim, grid,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        out.data_ptr(), n, *plan.kernel_args(), plan.out_dim, plan.n_params,
+        grid, K, torch.cuda.current_stream(x.device).cuda_stream)
     launch_checked("pdt_mlp_forward", err)
     fused_mlp_forward.launches += 1
     return out
@@ -216,7 +227,11 @@ fused_mlp_forward.launches = 0
 
 
 def fused_mlp_forward_plain(packed, x, plan):
-    """The forward of :func:`fused_mlp_forward` in torch ops."""
+    """The forward of :func:`fused_mlp_forward` in torch ops; an
+    ensemble's, member by member."""
+    if packed.dim() == 2:
+        return torch.stack([fused_mlp_forward_plain(p, x, plan)
+                            for p in packed.unbind(0)])
     h = x
     stack = []
     for kind, a, b, w_off, b_off in plan.ops:

@@ -24,7 +24,10 @@ Poisson-type residual in one traversal.
 
 The chain reaches the kernels as an int32 op table plus ONE packed weight
 buffer (each layer's ``w`` row-major, then its ``b``), so one compiled
-kernel serves every chain in scope.
+kernel serves every chain in scope.  An ensemble's packed weights are
+``(K, P)``, one row a member, and every stream output gains a leading
+``K``; the points stay shared, ``(n, in_dim)``, and one launch serves all
+members (the grid's second axis).
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ __all__ = ["supports", "TaylorPlan", "FusedTaylor", "fused_taylor_taps",
            "fused_taylor_forward", "fused_taylor_forward_plain",
            "fused_taylor_backward", "fused_taylor_backward_plain",
            "fused_taylor_jvp", "fused_taylor_jvp_plain", "jvp_blocks_per_sm",
-           "pack_weights", "split_streams", "act_kind", "sigma_table"]
+           "pack_weights", "members", "split_streams", "act_kind",
+           "sigma_table"]
 
 TANH, SIGMOID, SIN = 0, 1, 2
 _ACT_KINDS = {id(ACTIVATIONS["tanh"]): TANH,
@@ -92,9 +96,25 @@ def sigma_table(kind, v):
 
 
 def pack_weights(net_params, layer_names):
-    """One flat buffer: each layer's ``w`` (row-major), then its ``b``."""
-    return torch.cat([t.reshape(-1) for name in layer_names
-                      for t in (net_params[name]["w"], net_params[name]["b"])])
+    """One flat buffer: each layer's ``w`` (row-major), then its ``b``; an
+    ensemble's (leaves with a leading member axis) one row a member,
+    ``(K, P)``."""
+    lead = tuple(net_params[layer_names[0]]["w"].shape[:-2])
+    return torch.cat([t.reshape(lead + (-1,)) for name in layer_names
+                      for t in (net_params[name]["w"], net_params[name]["b"])],
+                     dim=-1)
+
+
+def members(packed):
+    """The ensemble members of packed weights: ``K`` for ``(K, P)``, 1 for
+    a single model's ``(P,)``."""
+    return 1 if packed.dim() == 1 else packed.shape[0]
+
+
+def _per_member(grid_slots, tiles, n_members):
+    """Persistent blocks a member: the card's ``slots`` shared by the
+    members (at least one each), at most one a tile."""
+    return min(tiles, max(1, grid_slots // n_members))
 
 
 def _taylor_smem_bytes(n_params, n_streams, wmax, n_bufs):
@@ -258,14 +278,15 @@ class TaylorPlan:
         return _taylor_smem_bytes(self.n_params, self.n_streams, self.wmax,
                                   n_bufs)
 
-    def launch_shape(self, n, sm_count, n_bufs):
+    def launch_shape(self, n, sm_count, n_bufs, n_members=1):
         """``(grid, slots)`` of a forward (``n_bufs`` 2) or backward (3)
         launch over ``n`` points: ``slots`` persistent blocks fit the card
         at once (``MIN_BLOCKS_PER_SM`` per SM where shared memory allows,
-        else one), and the grid is the smaller of that and the number of
-        tiles."""
+        else one), and ``grid``, the blocks of each of ``n_members``
+        ensemble members (the grid's second axis), is the smaller of
+        ``max(1, slots // n_members)`` and the number of tiles."""
         slots = sm_count * _blocks_per_sm(self.smem_bytes(n_bufs))
-        return min(-(-n // _TILE_POINTS), slots), slots
+        return _per_member(slots, -(-n // _TILE_POINTS), n_members), slots
 
     def jvp_kernel_args(self):
         """The sizes the tangent kernel's C entries take:
@@ -273,21 +294,23 @@ class TaylorPlan:
         return (self.n_streams, self.wmax, self.jvp_tile, self.n_params,
                 int(self.jvp_resident))
 
-    def jvp_launch_shape(self, n, sm_count, blocks_per_sm):
+    def jvp_launch_shape(self, n, sm_count, blocks_per_sm, n_members=1):
         """``(grid, slots)`` of a tangent-kernel launch of ``blocks_per_sm``
         blocks on each of ``sm_count`` SMs: as :meth:`launch_shape` with its
         own block and tile."""
         slots = sm_count * blocks_per_sm
-        return min(-(-n // self.jvp_tile), slots), slots
+        return _per_member(slots, -(-n // self.jvp_tile), n_members), slots
 
-    def backward_workspace(self, n, sm_count):
+    def backward_workspace(self, n, sm_count, n_members=1):
         """``(grid, save_floats, partial_floats)`` of one backward launch.
-        The workspace is sized by the slots, never by ``n``: a per-block
-        slab of ``save_rows * TILE_POINTS`` floats and a per-block partial
-        gradient of ``n_params`` floats."""
-        grid, slots = self.launch_shape(n, sm_count, 3)
-        return (grid, slots * self.save_rows * _TILE_POINTS,
-                slots * self.n_params)
+        The workspace is sized by the slots, never by ``n``: a slab of
+        ``save_rows * TILE_POINTS`` floats and a partial gradient of
+        ``n_params`` floats for each of the ``max(1, slots // n_members)``
+        blocks of each member."""
+        grid, slots = self.launch_shape(n, sm_count, 3, n_members)
+        blocks = n_members * max(1, slots // n_members)
+        return (grid, blocks * self.save_rows * _TILE_POINTS,
+                blocks * self.n_params)
 
     def device_table(self, device):
         if device not in self._device_tables:
@@ -328,30 +351,40 @@ def _sm_count(device):
 def _check_kernel_args(packed, x, plan):
     n = x.shape[0]
     check_operand("x", x, (n, plan.in_dim))
-    check_operand("packed", packed, (plan.n_params,))
+    if packed.dim() not in (1, 2):
+        raise ValueError(f"packed weights of shape {tuple(packed.shape)}: "
+                         "expected (P,) or, for an ensemble, (K, P)")
+    check_operand("packed", packed,
+                  tuple(packed.shape[:-1]) + (plan.n_params,))
     if packed.device != x.device:
         raise ValueError(f"packed weights on {packed.device}, points on "
                          f"{x.device}")
     return n
 
 
+def _stream_shape(packed, n, plan):
+    return tuple(packed.shape[:-1]) + (n, plan.n_streams * plan.out_dim)
+
+
 def fused_taylor_forward(packed, x, plan):
     """Streams ``[V, T..., S...]`` of the chain at points ``x`` as
-    ``(n, n_streams * out_dim)``: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    ``(n, n_streams * out_dim)``, or ``(K, n, ...)`` for an ensemble's
+    ``(K, P)`` weights: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors."""
     if x.device.type == "cpu":
         return fused_taylor_forward_plain(packed, x, plan)
     n = _check_kernel_args(packed, x, plan)
-    out = torch.empty((n, plan.n_streams * plan.out_dim), dtype=x.dtype,
+    out = torch.empty(_stream_shape(packed, n, plan), dtype=x.dtype,
                       device=x.device)
     if n == 0:
         return out
     lib = _lib()
-    grid, _ = plan.launch_shape(n, _sm_count(x.device), 2)
+    K = members(packed)
+    grid, _ = plan.launch_shape(n, _sm_count(x.device), 2, K)
     err = lib.pdt_taylor_forward(
         x.data_ptr(), packed.data_ptr(), plan.device_table(x.device).data_ptr(),
         out.data_ptr(), n, plan.n_params, plan.n_streams, plan.wmax,
-        plan.out_dim, grid, torch.cuda.current_stream(x.device).cuda_stream)
+        plan.out_dim, grid, K, torch.cuda.current_stream(x.device).cuda_stream)
     launch_checked("pdt_taylor_forward", err)
     fused_taylor_forward.launches += 1
     return out
@@ -362,7 +395,11 @@ fused_taylor_forward.launches = 0
 
 def fused_taylor_forward_plain(packed, x, plan):
     """The traversal of :func:`fused_taylor_forward` in torch ops, with the
-    closed-form activation derivatives of :func:`sigma_table`."""
+    closed-form activation derivatives of :func:`sigma_table`; an
+    ensemble's, member by member."""
+    if packed.dim() == 2:
+        return torch.stack([fused_taylor_forward_plain(p, x, plan)
+                            for p in packed.unbind(0)])
     n = x.shape[0]
     eye = torch.eye(plan.in_dim, dtype=x.dtype, device=x.device)
     V = x
@@ -390,19 +427,22 @@ def fused_taylor_backward(packed, x, g, plan):
     """``(d packed, d x)`` for the cotangent ``g`` of
     :func:`fused_taylor_forward`'s output: the CUDA kernels (persistent
     blocks, each summing its tiles into one partial, then a fixed-order sum
-    over blocks) for CUDA tensors, the plain version for CPU tensors.  The
+    over a member's blocks) for CUDA tensors, the plain version for CPU
+    tensors.  For an ensemble ``d packed`` is ``(K, P)``, each member's own,
+    and ``d x`` the sum over members (the points are shared).  The
     workspace does not grow with ``n``
     (:meth:`TaylorPlan.backward_workspace`)."""
     if x.device.type == "cpu":
         return fused_taylor_backward_plain(packed, x, g, plan)
     n = _check_kernel_args(packed, x, plan)
-    check_operand("g", g, (n, plan.n_streams * plan.out_dim))
-    d_packed = torch.empty((plan.n_params,), dtype=x.dtype, device=x.device)
-    dx = torch.empty((n, plan.in_dim), dtype=x.dtype, device=x.device)
+    K = members(packed)
+    check_operand("g", g, _stream_shape(packed, n, plan))
+    d_packed = torch.empty(packed.shape, dtype=x.dtype, device=x.device)
+    dx = torch.empty((K, n, plan.in_dim), dtype=x.dtype, device=x.device)
     if n == 0:
-        return d_packed.zero_(), dx
+        return d_packed.zero_(), dx[0].zero_()
     grid, save_floats, partial_floats = plan.backward_workspace(
-        n, _sm_count(x.device))
+        n, _sm_count(x.device), K)
     saves = torch.empty((save_floats,), dtype=x.dtype, device=x.device)
     partials = torch.empty((partial_floats,), dtype=x.dtype, device=x.device)
     lib = _lib()
@@ -410,11 +450,11 @@ def fused_taylor_backward(packed, x, g, plan):
         x.data_ptr(), packed.data_ptr(), plan.device_table(x.device).data_ptr(),
         g.data_ptr(), saves.data_ptr(), partials.data_ptr(),
         d_packed.data_ptr(), dx.data_ptr(), n, plan.n_params, plan.n_streams,
-        plan.wmax, plan.out_dim, grid,
+        plan.wmax, plan.out_dim, grid, K,
         torch.cuda.current_stream(x.device).cuda_stream)
     launch_checked("pdt_taylor_backward", err)
     fused_taylor_backward.launches += 1
-    return d_packed, dx
+    return d_packed, (dx[0] if K == 1 else dx.sum(0))
 
 
 fused_taylor_backward.launches = 0
@@ -436,24 +476,26 @@ def fused_taylor_jvp(packed, x, v, plan):
     ``(n, n_streams * out_dim)``: the CUDA tangent kernel for CUDA tensors,
     the plain version for CPU tensors.  The kernel takes every plan
     (``TaylorPlan.jvp_tile`` points a tile); its grid is what the card holds
-    at once (:func:`jvp_blocks_per_sm`)."""
+    at once (:func:`jvp_blocks_per_sm`), shared by an ensemble's members
+    (``v`` then ``(K, P)`` as the weights, each output ``(K, n, ...)``)."""
     if x.device.type == "cpu":
         return fused_taylor_jvp_plain(packed, x, v, plan)
     n = _check_kernel_args(packed, x, plan)
-    check_operand("v", v, (plan.n_params,))
-    shape = (n, plan.n_streams * plan.out_dim)
+    check_operand("v", v, tuple(packed.shape))
+    shape = _stream_shape(packed, n, plan)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     tangent = torch.empty(shape, dtype=x.dtype, device=x.device)
     if n == 0:
         return out, tangent
     lib = _lib()
+    K = members(packed)
     grid, _ = plan.jvp_launch_shape(n, _sm_count(x.device),
-                                    jvp_blocks_per_sm(plan, x.device))
+                                    jvp_blocks_per_sm(plan, x.device), K)
     err = lib.pdt_taylor_jvp(
         x.data_ptr(), packed.data_ptr(), v.data_ptr(),
         plan.device_table(x.device).data_ptr(), out.data_ptr(),
         tangent.data_ptr(), n, plan.n_params, plan.n_streams, plan.wmax,
-        plan.out_dim, plan.jvp_tile, int(plan.jvp_resident), grid,
+        plan.out_dim, plan.jvp_tile, int(plan.jvp_resident), grid, K,
         torch.cuda.current_stream(x.device).cuda_stream)
     launch_checked("pdt_taylor_jvp", err)
     fused_taylor_jvp.launches += 1
@@ -539,15 +581,16 @@ class _FusedTaylorAdjoint(torch.autograd.Function):
 
 
 def split_streams(out, plan):
-    """``(V, {(d,): T_d, (a, b): S_ab})`` from the stacked stream columns."""
+    """``(V, {(d,): T_d, (a, b): S_ab})`` from the stacked stream columns
+    (the last axis)."""
     k = plan.out_dim
     taps = {}
     for i, d in enumerate(plan.firsts):
-        taps[(d,)] = out[:, (1 + i) * k:(2 + i) * k]
+        taps[(d,)] = out[..., (1 + i) * k:(2 + i) * k]
     for j, pair in enumerate(plan.pairs):
         s = 1 + len(plan.firsts) + j
-        taps[tuple(pair)] = out[:, s * k:(s + 1) * k]
-    return out[:, :k], taps
+        taps[tuple(pair)] = out[..., s * k:(s + 1) * k]
+    return out[..., :k], taps
 
 
 def fused_taylor_taps(packed, x, plan):

@@ -23,8 +23,8 @@ import contextlib
 import numpy as np
 import torch
 
-__all__ = ["Expr", "D", "V", "variable_scope", "as_array", "lift",
-           "EvalContext", "PLAN_MAX_ORDER", "staging", "as_device"]
+__all__ = ["Expr", "D", "V", "variable_scope", "member_scope", "as_array",
+           "lift", "EvalContext", "PLAN_MAX_ORDER", "staging", "as_device"]
 
 # Highest derivative order the Taylor plan will schedule (Bell(n) activation
 # terms and 2^n - 1 ansatz cross terms grow steeply past it); deeper nesting
@@ -365,6 +365,34 @@ def D(y, x):
 
 
 _VAR_SCOPES = []  # stack of (mode, store, device)
+_MEMBER_SCOPES = []  # stack of (n_models, rows per member)
+
+
+@contextlib.contextmanager
+def member_scope(n_models, rows):
+    """Scope under which ``V`` reads an ensemble's variables: each
+    member's value repeated over its ``rows`` member-major rows, so that
+    ``(n_models * rows, c)`` residuals and conditions broadcast against
+    their own member's value as a single model's ``(rows, c)`` ones do
+    against its value."""
+    _MEMBER_SCOPES.append((int(n_models), int(rows)))
+    try:
+        yield
+    finally:
+        _MEMBER_SCOPES.pop()
+
+
+def _member_value(value, n_models, rows):
+    """An ensemble variable ``(K,) + S`` as member-major rows: ``(K * rows,
+    c)`` for ``S`` of ``()``, ``(c,)`` or ``(1, c)``."""
+    shape = tuple(value.shape[1:])
+    if len(shape) > 2 or (len(shape) == 2 and shape[0] != 1):
+        raise ValueError(
+            f"an ensemble's V variable of shape {shape} per member: only "
+            "scalars, (c,) and (1, c) broadcast per point")
+    c = shape[-1] if shape else 1
+    return value.reshape(n_models, 1, c).expand(n_models, rows, c).reshape(
+        n_models * rows, c)
 
 
 @contextlib.contextmanager
@@ -415,4 +443,6 @@ def V(name, *args, **kwargs):
             f"V({name!r}): variable was not created during Solver "
             "initialization. Variables must be reachable from the equation "
             "or initial condition at Solver construction time.")
+    if _MEMBER_SCOPES and _MEMBER_SCOPES[-1][0] > 1:
+        return _member_value(store[name], *_MEMBER_SCOPES[-1])
     return store[name]

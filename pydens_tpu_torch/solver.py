@@ -42,8 +42,9 @@ import torch
 from .models import ConvBlockModel
 from .models.base import resolve_device
 from .ops.tokens import (Expr, EvalContext, _batch_diagonal_grad,
-                         as_array, as_device, staging, variable_scope)
-from .utils.criteria import resolve_criterion
+                         as_array, as_device, member_scope, staging,
+                         variable_scope)
+from .utils.criteria import member_losses, resolve_criterion
 from .utils.optimizers import LBFGS, LMConfig, resolve_optimizer
 
 __all__ = ["Solver"]
@@ -78,18 +79,23 @@ def _skeleton(tree):
 
 
 class _FlatSpec:
-    """Paths, shapes and offsets of the flat parameter vector."""
+    """Paths, shapes and offsets of the flat parameter vector: ``(P,)`` for
+    one model, ``(K, P)`` for an ensemble of ``n_models`` members whose
+    leaves carry a leading member axis (``_flatten_stacked`` of
+    ``pydens_tpu``); ``shapes`` are a member's."""
 
-    def __init__(self, tree):
+    def __init__(self, tree, n_models=1):
         self.skeleton = _skeleton(tree)
         leaves = _tree_leaves(tree)
+        self.lead = () if n_models == 1 else (n_models,)
         self.paths = [p for p, _ in leaves]
-        self.shapes = [tuple(t.shape) for _, t in leaves]
+        self.shapes = [tuple(t.shape)[len(self.lead):] for _, t in leaves]
         sizes = [int(np.prod(s)) for s in self.shapes]
         self.offsets = np.cumsum([0] + sizes).tolist()
 
     def flatten(self, tree):
-        return torch.cat([t.reshape(-1) for _, t in _tree_leaves(tree)])
+        return torch.cat([t.reshape(self.lead + (-1,))
+                          for _, t in _tree_leaves(tree)], dim=-1)
 
     def unflatten(self, theta):
         """The parameter tree as views into ``theta``."""
@@ -98,8 +104,9 @@ class _FlatSpec:
             node = tree
             for key in path[:-1]:
                 node = node[key]
-            node[path[-1]] = theta[self.offsets[i]:self.offsets[i + 1]].view(
-                self.shapes[i])
+            node[path[-1]] = theta[
+                ..., self.offsets[i]:self.offsets[i + 1]].view(
+                    self.lead + self.shapes[i])
         return tree
 
 
@@ -211,7 +218,12 @@ class _FitStep:
     With :class:`~pydens_tpu_torch.utils.optimizers.LMConfig` a step is one
     Levenberg-Marquardt update of the residual vector (``loss_fn.resvec``),
     its conjugate-gradient loop a fixed trip count in the graph; ``live``
-    sums the live CG iterations on the device."""
+    sums the live CG iterations on the device.
+
+    An ensemble's ``theta`` is ``(K, P)`` and ``loss_fn`` gives one loss a
+    member: a step descends their sum, so each member gets exactly its own
+    gradient, on the one shared batch, and the losses buffer, the guard and
+    ``until_loss`` read their mean (``pydens_tpu/solver.py:1403-1410``)."""
 
     def __init__(self, loss_fn, opt, mask, theta, chunk, batch_size,
                  resample, guard, capture, options=_Collocation(),
@@ -289,10 +301,11 @@ class _FitStep:
 
     def _grad_norms(self, terms):
         """Each term's mean |gradient| (``rebalance``,
-        ``pydens_tpu/solver.py:1120-1139``): a pullback per term through
-        the step's one forward pass."""
+        ``pydens_tpu/solver.py:1120-1139``; an ensemble's over its whole
+        ``(K, P)`` gradient): a pullback per term through the step's one
+        forward pass."""
         return torch.stack([torch.mean(torch.abs(self._masked(
-            torch.autograd.grad(t, self.theta, retain_graph=True,
+            torch.autograd.grad(_total(t), self.theta, retain_graph=True,
                                 allow_unused=True)[0]))) for t in terms])
 
     def _draw_probes(self):
@@ -307,24 +320,28 @@ class _FitStep:
         the Rademacher ``probes``, or the sum over the basis for a block of
         at most ``_NTK_PROBES`` entries (exact); a pullback each.  The
         probes are made (and drawn) when the first rebalance step, which
-        runs eagerly, meets the blocks."""
+        runs eagerly, meets the blocks.  An ensemble's blocks are ``(K,
+        size)``: each member has its own probes, one pullback serves all
+        (their Jacobians are independent), and the traces are the members'
+        mean (``pydens_tpu/solver.py:1198-1200``)."""
         if self.probes is None:
-            self.probes = {j: b.new_empty((_NTK_PROBES, b.numel()))
+            self.probes = {j: b.new_empty((_NTK_PROBES,) + b.shape)
                            for j, b in enumerate(blocks)
-                           if b.numel() > _NTK_PROBES}
+                           if b.shape[-1] > _NTK_PROBES}
             self._draw_probes()
         traces = []
         for j, b in enumerate(blocks):
             cts = self.probes.get(j)
             if cts is None:
-                cts = torch.eye(b.numel(), dtype=b.dtype, device=b.device)
+                cts = torch.eye(b.shape[-1], dtype=b.dtype, device=b.device)
             acc = 0.0
             for ct in cts:
                 g = self._masked(torch.autograd.grad(
-                    b, self.theta, ct, retain_graph=True,
+                    b, self.theta, ct.expand_as(b), retain_graph=True,
                     allow_unused=True)[0])
                 acc = acc + torch.sum(g * g)
-            traces.append(acc / _NTK_PROBES if j in self.probes else acc)
+            acc = acc / _NTK_PROBES if j in self.probes else acc
+            traces.append(acc if b.dim() == 1 else acc / b.shape[0])
         return torch.stack(traces)
 
     def _loss(self, rebalance=False):
@@ -336,7 +353,8 @@ class _FitStep:
         residuals, values, leaf = self.loss_fn.evaluate(self.theta, pts)
         if self.rba_w is not None:
             eta, gamma = self.options.rba
-            r = _abs_residual(residuals, leaf)[:, 0].detach()
+            r = self.loss_fn.member_mean(
+                _abs_residual(residuals, leaf))[:, 0].detach()
             self.rba_w.copy_(_rba_update(self.rba_w, r, eta, gamma))
             weight = self.rba_w * self.rba_w
         terms = self.loss_fn.terms(residuals, values, leaf, pts, weight,
@@ -374,12 +392,12 @@ class _FitStep:
             self.live.add_(live)
         else:
             loss = self._loss(rebalance)
-            grad, = torch.autograd.grad(loss, self.theta)
+            grad, = torch.autograd.grad(_total(loss), self.theta)
             if self.mask is not None:
                 grad = grad * self.mask
             loss = loss.detach()
             self.opt.update(self.theta, grad, self.state, gate=self.armed)
-        self._record(loss)
+        self._record(_mean(loss))
 
     def run(self, n, start=0):
         """Take ``n`` steps from the device index 0, the first being the
@@ -494,13 +512,13 @@ class _LinesearchFitStep(_FitStep):
         point = point.detach().requires_grad_(True)
         loss = self.loss_fn(point, self.step_points, self.step_weight,
                             causal_eps=self.causal_eps)
-        grad, = torch.autograd.grad(loss, point)
+        grad, = torch.autograd.grad(_total(loss), point)
         return loss.detach(), grad
 
     def trial(self):
         was = self.opt.trial(self.theta, self.state, self.ls,
                              self._value_and_grad)
-        self.live.add_(was.to(torch.int64))
+        self.live.add_(_any(was).to(torch.int64))
 
     def step(self):
         pts, weight = self._batch()
@@ -510,7 +528,7 @@ class _LinesearchFitStep(_FitStep):
                 self.step_weight.copy_(weight)
         loss = self.loss_fn(self.theta, self.step_points, self.step_weight,
                             causal_eps=self.causal_eps)
-        grad, = torch.autograd.grad(loss, self.theta)
+        grad, = torch.autograd.grad(_total(loss), self.theta)
         if self.mask is not None:
             grad = grad * self.mask
         loss = loss.detach()
@@ -520,11 +538,11 @@ class _LinesearchFitStep(_FitStep):
                   else 1)
         for _ in range(trials):
             self.trial()
-        self._record(loss)
+        self._record(_mean(loss))
 
     def _eager_step(self):
         self.step()
-        while bool(self.ls["active"]):
+        while bool(_any(self.ls["active"])):
             self.trial()
             self.eager_trials += 1
 
@@ -543,11 +561,27 @@ class _LinesearchFitStep(_FitStep):
             self.graph = self._capture(self.step)
         self.graph.replay()
         self.replays += 1
-        while bool(self.ls["active"]):   # the one host read of a trial
+        # The one host read of a trial, for every member at once.
+        while bool(_any(self.ls["active"])):
             if self.trial_graph is None:
                 self.trial_graph = self._capture(self.trial)
             self.trial_graph.replay()
             self.trial_replays += 1
+
+
+def _total(loss):
+    """What a step descends: a loss, or the sum of an ensemble's member
+    losses."""
+    return loss if loss.dim() == 0 else loss.sum()
+
+
+def _mean(loss):
+    """What the history records: a loss, or an ensemble's member mean."""
+    return loss if loss.dim() == 0 else loss.mean()
+
+
+def _any(flag):
+    return flag if flag.dim() == 0 else flag.any()
 
 
 def _abs_residual(residuals, leaf):
@@ -643,6 +677,14 @@ class Solver:
     seed : int
         Seed of the parameter-init generator (CPU) and of the sampling
         generator (on ``device``).
+    n_models : int
+        Train an ensemble of ``n_models`` independently initialized
+        networks at once, on one shared batch a step: every parameter leaf
+        carries a leading ``(n_models,)`` axis, V-token variables included
+        (one per member), and the Taylor and MLP kernels take the members
+        on their grid's second axis, one launch for all.  ``predict``
+        returns the member mean, :meth:`predict_std` the pointwise standard
+        deviation, :meth:`predict_all` every member.
     device : str or torch.device, optional
         Where parameters live and training runs; default the CUDA card
         (an error without one: pass ``device="cpu"`` for the CPU).
@@ -666,15 +708,18 @@ class Solver:
                  boundary_condition=None, domain=(0, 1), nparams=0,
                  model=ConvBlockModel, constraints=None, seed=0, device=None,
                  mesh=None, n_models=1, formulation="residual", **kwargs):
-        # pydens_tpu's defaults are taken; any other value is a feature of
-        # a later slice (ROADMAP.md Queue 1 item).
-        for name, value, default, item in (
-                ("n_models", n_models, 1, "11, ensembles"),
-                ("mesh", mesh, None, "15")):
-            if value is not default and value != default:
-                raise NotImplementedError(
-                    f"Solver({name}={value!r}) is not ported to "
-                    f"pydens_tpu_torch yet (ROADMAP.md, Queue 1 item {item})")
+        # pydens_tpu's default is taken; a mesh is a feature of a later
+        # slice (ROADMAP.md Queue 1 item).
+        if mesh is not None:
+            raise NotImplementedError(
+                f"Solver(mesh={mesh!r}) is not ported to pydens_tpu_torch "
+                "yet (ROADMAP.md, Queue 1 item 15)")
+        if (isinstance(n_models, bool)
+                or not isinstance(n_models, (int, np.integer))
+                or n_models < 1):
+            raise ValueError(
+                f"n_models must be an int >= 1, got {n_models!r}")
+        self.n_models = int(n_models)
         if formulation not in ("residual", "variational"):
             raise ValueError(
                 f"formulation must be 'residual' or 'variational', got "
@@ -754,6 +799,12 @@ class Solver:
         # Copies: on the CPU the variables share the registry's memory.
         self._initial_variables = {k: np.array(v) for k, v in
                                    registry.items()}
+        if self.n_models > 1:
+            # The members, drawn from the seed after the discovery run
+            # (which ran one model), as reset(seed) draws them.
+            self.model.make_ensemble(self.n_models)
+            self._init_generator.manual_seed(seed)
+            self.model.reset_parameters(self._init_generator)
 
     @property
     def params(self):
@@ -762,8 +813,9 @@ class Solver:
 
     def reset(self, seed=None):
         """Re-initialize the parameters and V variables as ``__init__``
-        does, and clear the loss history, the fit history, the optimizer
-        and its state and the step counter, keeping the cached fit steps
+        does (an ensemble's members anew from the generator), and clear
+        the loss history, the fit history, the optimizer and its state and
+        the step counter, keeping the cached fit steps
         (and their CUDA graphs), so a following ``fit`` with the same
         configuration replays its graph.  With ``seed``, the parameters
         equal those of a new ``Solver(..., seed=seed)`` and the sampling
@@ -787,6 +839,11 @@ class Solver:
     @property
     def optimizer(self):
         return self._opt
+
+    def _spec(self):
+        """The flat spec of the model's parameters (``(K, P)`` for an
+        ensemble)."""
+        return _FlatSpec(self.model.params, self.n_models)
 
     # ------------------------------------------------------------------
     # input normalization
@@ -878,8 +935,17 @@ class Solver:
         constraints too.  ``fwd.grad(*pts, wrt=k)`` evaluates the solution's
         derivative w.r.t. coordinate column ``k`` at fixed points (Neumann
         and Robin conditions); ``wrt`` also takes a multi-index tuple, e.g.
-        ``wrt=(0, 0)`` for the second derivative."""
+        ``wrt=(0, 0)`` for the second derivative.  In an ensemble fixed
+        points are evaluated by every member (member-major rows, one
+        block a member); coordinate expressions already hold a row block
+        a member."""
         model = self.model
+        K = self.n_models
+
+        def members(xs_c, pts):
+            if K == 1 or any(isinstance(p, Expr) for p in pts):
+                return xs_c
+            return xs_c.repeat(K, 1)
 
         def fwd(*pts):
             if any(isinstance(p, Expr) for p in pts):
@@ -888,11 +954,12 @@ class Solver:
                             for p in pts]
                     return model.apply(params, self._concat_points(vals))
                 return Expr(fn, ctx)
-            return model.apply(params, self._concat_points(list(pts)))
+            return model.apply(params, members(
+                self._concat_points(list(pts)), pts))
 
         def fwd_grad(*pts, wrt=0):
-            xs_c = self._concat_points(
-                [p.value if isinstance(p, Expr) else p for p in pts])
+            xs_c = members(self._concat_points(
+                [p.value if isinstance(p, Expr) else p for p in pts]), pts)
             multi = ((wrt,) if isinstance(wrt, (int, np.integer))
                      else tuple(wrt))
             cols = [xs_c[:, k:k + 1].detach().requires_grad_(True)
@@ -952,22 +1019,28 @@ class Solver:
         equation = self.equation
         total = model.total
         variational = self.formulation == "variational"
-        spec = _FlatSpec(model.params)
+        K = self.n_models
+        spec = self._spec()
         plan_derivs = self._plan_derivs if use_plan else None
 
         def term_values(theta, pts, with_equation=eq_weight is not None,
                         with_constraints=True):
             """The equation's residuals (None without ``with_equation``)
-            and the requested constraints' values at ``theta``."""
+            and the requested constraints' values at ``theta``; an
+            ensemble's ``(K * N, ...)`` member-major rows, the ``N`` points
+            repeated for each member, each member's derivative leaves its
+            own rows."""
             params = spec.unflatten(theta)
             with_constraints = with_constraints and bool(nums)
+            rows = pts if K == 1 else pts.repeat(K, 1)
             if plan_derivs is None or with_constraints:
-                leaves = [pts[:, k:k + 1].detach().requires_grad_(True)
+                leaves = [rows[:, k:k + 1].detach().requires_grad_(True)
                           for k in range(total)]
             else:
-                leaves = [pts[:, k:k + 1] for k in range(total)]
+                leaves = [rows[:, k:k + 1] for k in range(total)]
             residuals, values = None, []
-            with variable_scope("read", params["variables"]):
+            with variable_scope("read", params["variables"]), \
+                    member_scope(K, pts.shape[0]):
                 table = (model.full_taps(params, pts, plan_derivs)
                          if plan_derivs is not None else None)
                 ctx = EvalContext(leaves, table=table)
@@ -984,12 +1057,17 @@ class Solver:
                               for num, _ in nums]
             return residuals, values, leaves[0]
 
-        def causal_term(residuals, pts, eps):
+        def causal_term(residuals, pts, eps, K=K):
             """The 32-bin pointwise causal weighting of the squared
             residual (``pydens_tpu/solver.py:749-801``): bin i's mean L_i,
             weights ``exp(-eps * sum_{j<i} L_j / sum_j L_j)`` without
             gradient, self-normalized, so eps = 0 is the plain MSE.  The bin
             sums are one-hot reductions, in a fixed order (no atomics)."""
+            if K > 1:   # each member's own weights
+                n = pts.shape[0]
+                return torch.stack([causal_term(
+                    [r[k * n:(k + 1) * n] for r in residuals], pts, eps, 1)
+                    for k in range(K)])
             t_idx, t_lo, t_hi = causal
             n_bins = 32
             sq = 0.0
@@ -1015,23 +1093,30 @@ class Solver:
             if residuals is not None and causal is not None:
                 out.append(causal_term(residuals, pts, causal_eps))
             elif residuals is not None and variational:
-                out.append(sum(torch.mean(res) for res in residuals))
+                out.append(sum(member_mean_of(res) for res in residuals))
             elif residuals is not None:
                 acc = 0.0
+                if point_weight is not None and K > 1:
+                    point_weight = point_weight.repeat(K)
                 for res in residuals:
                     if point_weight is not None:
                         res = res * torch.sqrt(point_weight)[:, None]
-                    acc = acc + criterion(res, torch.zeros_like(leaf))
+                    acc = acc + member_losses(criterion, res,
+                                              torch.zeros_like(leaf), K)
                 out.append(acc)
             if values:
                 zero = leaf.new_zeros((1,))
-                out += [criterion(c, zero) for c in values]
+                out += [member_losses(criterion, c, zero, K) for c in values]
             return out
+
+        def member_mean_of(res):
+            """The mean over each member's rows."""
+            return torch.mean(res) if K == 1 else res.reshape(K, -1).mean(1)
 
         def combine(theta, parts, term_weights=None):
             if not parts:   # only unknown names: a zero loss
-                return theta[:0].sum()
-            loss = theta.new_zeros(())
+                return theta[..., :0].sum(-1)
+            loss = theta.new_zeros(theta.shape[:-1])
             for j, t in enumerate(parts):
                 w = weights[j] if term_weights is None else term_weights[j]
                 loss = loss + w * t
@@ -1044,17 +1129,29 @@ class Solver:
                                         point_weight, causal_eps),
                            term_weights)
 
+        def member_mean(t):
+            """An ensemble's member-major ``(K * N, c)`` rows averaged over
+            the members, ``(N, c)``: what the adaptive pool and RBA rank
+            (``pydens_tpu/solver.py:1234-1236, 1297-1299``)."""
+            return t if K == 1 else t.reshape(K, -1, t.shape[-1]).mean(0)
+
         def point_residual(theta, pts):
             residuals, _, leaf = term_values(theta, pts, with_equation=True,
                                              with_constraints=False)
-            return _abs_residual(residuals, leaf)
+            return member_mean(_abs_residual(residuals, leaf))
+
+        lead = () if K == 1 else (K,)
+
+        def block(t):
+            """A residual or constraint value as one member's flat block
+            scaled by ``1/sqrt(size)``, ``(K, size)`` for an ensemble."""
+            return t.reshape(lead + (-1,)) * (K / t.numel()) ** 0.5
 
         def blocks(residuals, values):
             out = []
             if residuals is not None:
-                out.append(torch.cat([r.reshape(-1) * (1.0 / r.numel()) ** 0.5
-                                      for r in residuals]))
-            out += [c.reshape(-1) * (1.0 / c.numel()) ** 0.5 for c in values]
+                out.append(torch.cat([block(r) for r in residuals], dim=-1))
+            out += [block(c) for c in values]
             return tuple(out)
 
         def term_blocks(theta, pts):
@@ -1069,8 +1166,8 @@ class Solver:
             out = [b * w ** 0.5 for b, w in zip(
                 blocks(*term_values(theta, pts)[:2]), weights)]
             if not out:
-                return theta.new_zeros((1,))
-            return torch.cat(out)
+                return theta.new_zeros(lead + (1,))
+            return torch.cat(out, dim=-1)
 
         loss_fn.spec = spec
         loss_fn.total = total
@@ -1080,6 +1177,7 @@ class Solver:
         loss_fn.combine = combine
         loss_fn.blocks = blocks
         loss_fn.point_residual = point_residual
+        loss_fn.member_mean = member_mean
         loss_fn.term_blocks = term_blocks
         loss_fn.resvec = resvec
         return loss_fn
@@ -1673,26 +1771,48 @@ class Solver:
     def residual(self, *xs):
         """The |equation residual| at the supplied points (the inputs of
         :meth:`predict`), summed over a system's components; under
-        ``formulation='variational'`` the |energy density|.  Returns an
-        ``(N, 1)`` numpy array.  On the planned path it runs the fused
-        Taylor forward on the card."""
+        ``formulation='variational'`` the |energy density|; an ensemble's
+        member mean.  Returns an ``(N, 1)`` numpy array.  On the planned
+        path it runs the fused Taylor forward on the card."""
         if self._residual_fn is None:
             self._residual_fn = self._build_loss_fn(
                 (("equation", 1.0),), lambda a, b: 0.0,
                 use_plan=bool(self._plan_ok)).point_residual
         x = torch.as_tensor(self._normalize_inputs(xs),
                             dtype=self.model.dtype, device=self.device)
-        theta = _FlatSpec(self.model.params).flatten(self.model.params)
+        theta = self._spec().flatten(self.model.params)
         with torch.enable_grad():
             out = self._residual_fn(theta.detach(), x)
         return out.detach().cpu().numpy()
+
+    def _predict_raw(self, xs):
+        x = torch.as_tensor(self._normalize_inputs(xs),
+                            dtype=self.model.dtype, device=self.device)
+        return self.model.predict_apply(self.model.params, x)
 
     def predict(self, *xs):
         """Evaluate the trained solution at the supplied points: arrays,
         numbers (tiled to the batch), lists, or one ``(N, ndims+nparams)``
         array of stacked coordinates.  Returns an ``(N, n_out)`` numpy
-        array."""
-        x = torch.as_tensor(self._normalize_inputs(xs),
-                            dtype=self.model.dtype, device=self.device)
-        out = self.model.predict_apply(self.model.params, x)
+        array; the ensemble mean when ``n_models > 1``."""
+        out = self._predict_raw(xs)
+        if self.n_models > 1:
+            out = out.mean(0)
         return out.cpu().numpy()
+
+    def predict_all(self, *xs):
+        """Every member's prediction, ``(n_models, N, n_out)`` (``(1, N,
+        n_out)`` for one model), from one network pass (one MLP launch
+        where the chain is in the kernel's scope)."""
+        out = self._predict_raw(xs)
+        if self.n_models == 1:
+            out = out[None]
+        return out.cpu().numpy()
+
+    def predict_std(self, *xs):
+        """The ensemble's pointwise standard deviation over its members
+        (numpy's ``ddof=0``), the epistemic uncertainty of the solution,
+        ``(N, n_out)``.  Requires ``n_models > 1``."""
+        if self.n_models <= 1:
+            raise ValueError("predict_std requires Solver(n_models > 1)")
+        return self._predict_raw(xs).std(0, correction=0).cpu().numpy()

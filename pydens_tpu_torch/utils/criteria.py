@@ -2,33 +2,67 @@
 
 A criterion is any ``fn(pred, target) -> scalar tensor``; string names and
 ``torch.nn`` criterion instances (matched by class name, as the reference
-passes ``nn.MSELoss()``) resolve through this registry.
+passes ``nn.MSELoss()``) resolve through this registry.  The registry's
+criteria are the mean of an elementwise loss, kept as ``fn.elementwise``:
+an ensemble takes each member's mean over its own rows in one op
+(:func:`member_losses`).
 """
 
 import torch
 
-__all__ = ["resolve_criterion", "mse_loss", "l1_loss", "huber_loss",
-           "smooth_l1_loss"]
+__all__ = ["resolve_criterion", "member_losses", "mse_loss", "l1_loss",
+           "huber_loss", "smooth_l1_loss"]
 
 
-def mse_loss(pred, target):
-    return torch.mean(torch.square(pred - target))
+def _squared(pred, target):
+    return torch.square(pred - target)
 
 
-def l1_loss(pred, target):
-    return torch.mean(torch.abs(pred - target))
+def _absolute(pred, target):
+    return torch.abs(pred - target)
 
 
-def huber_loss(pred, target, delta=1.0):
+def _huber(pred, target, delta=1.0):
     err = torch.abs(pred - target)
     quad = torch.clamp(err, max=delta)
-    return torch.mean(0.5 * quad ** 2 + delta * (err - quad))
+    return 0.5 * quad ** 2 + delta * (err - quad)
 
 
-def smooth_l1_loss(pred, target, beta=1.0):
+def _smooth_l1(pred, target, beta=1.0):
     err = torch.abs(pred - target)
-    return torch.mean(torch.where(err < beta, 0.5 * err ** 2 / beta,
-                                  err - 0.5 * beta))
+    return torch.where(err < beta, 0.5 * err ** 2 / beta, err - 0.5 * beta)
+
+
+def _mean_of(elementwise):
+    def criterion(pred, target):
+        return torch.mean(elementwise(pred, target))
+    criterion.elementwise = elementwise
+    return criterion
+
+
+mse_loss = _mean_of(_squared)
+l1_loss = _mean_of(_absolute)
+huber_loss = _mean_of(_huber)
+smooth_l1_loss = _mean_of(_smooth_l1)
+
+
+def member_losses(criterion, pred, target, n_models):
+    """Each ensemble member's own ``criterion`` over its rows of
+    member-major ``pred`` (``(n_models * rows, ...)``), as ``(n_models,)``;
+    ``target`` is per row or broadcasts.  A single model's is
+    ``criterion(pred, target)``.  A registry criterion is one op over all
+    members; any other callable runs member by member."""
+    if n_models == 1:
+        return criterion(pred, target)
+    elementwise = getattr(criterion, "elementwise", None)
+    if elementwise is not None:
+        return elementwise(pred, target).reshape(n_models, -1).mean(1)
+    preds = pred.reshape((n_models, -1) + tuple(pred.shape[1:]))
+    per_row = target.dim() > 0 and target.shape[0] == pred.shape[0]
+    targets = (target.reshape((n_models, -1) + tuple(target.shape[1:]))
+               if per_row else [target] * n_models)
+    return torch.stack([torch.as_tensor(criterion(p, t))
+                        for p, t in zip(preds, targets)])
 
 
 _CRITERIA = {

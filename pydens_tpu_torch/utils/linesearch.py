@@ -13,11 +13,38 @@ becoming a ``torch.where``.  An iteration is a no-op once the search has
 ended (``active`` false), so the caller may stop calling it when the host
 reads ``active``, or run a fixed number of iterations without reading
 anything.
+
+An ensemble's ``(K, P)`` parameters search per member, as ``jax.vmap`` of
+optax's search does: every scalar of the state is ``(K,)``, each member
+has its own stepsize and ends on its own, and a member that is done keeps
+its state while the others go on.
 """
 
 import torch
 
-__all__ = ["ZoomLinesearch"]
+__all__ = ["ZoomLinesearch", "dot", "col", "where"]
+
+
+def dot(a, b):
+    """``a . b`` over the last axis: 0-d for vectors (``torch.dot``), one
+    value a member for an ensemble's ``(K, P)`` rows."""
+    return torch.dot(a, b) if a.dim() == 1 else (a * b).sum(-1)
+
+
+def col(c):
+    """A per-member scalar as a column that scales ``(K, P)`` rows (a 0-d
+    one as ``(1,)``, the same product for a vector)."""
+    return c[..., None]
+
+
+def where(c, a, b, out=None):
+    """``torch.where`` with a per-member condition ``c`` broadcast over the
+    trailing axes of the operands (vectors of one model, rows of an
+    ensemble)."""
+    dims = max(t.dim() for t in (a, b) if torch.is_tensor(t))
+    if c.dim() < dims and c.dim() > 0:
+        c = c.reshape(c.shape + (1,) * (dims - c.dim()))
+    return torch.where(c, a, b, out=out)
 
 # The scalar fields of the search state (optax's ZoomLinesearchState), each
 # a 0-d float tensor, and the bool flags.
@@ -71,13 +98,15 @@ class ZoomLinesearch:
     interval_threshold = 1e-5   # stepsize_precision
 
     def buffers(self, theta):
-        """The search state for a flat vector like ``theta``."""
+        """The search state for a flat vector like ``theta`` (an
+        ensemble's ``(K, P)``: each scalar ``(K,)``)."""
         dev, dtype = theta.device, theta.dtype
-        state = {name: torch.zeros((), dtype=dtype, device=dev)
+        lead = tuple(theta.shape[:-1])
+        state = {name: torch.zeros(lead, dtype=dtype, device=dev)
                  for name in _SCALARS}
-        state.update({name: torch.zeros((), dtype=torch.bool, device=dev)
+        state.update({name: torch.zeros(lead, dtype=torch.bool, device=dev)
                       for name in _FLAGS})
-        state["count"] = torch.zeros((), dtype=torch.int32, device=dev)
+        state["count"] = torch.zeros(lead, dtype=torch.int32, device=dev)
         for name in ("params", "updates", "grad", "safe_grad"):
             state[name] = torch.zeros_like(theta)
         return state
@@ -85,7 +114,7 @@ class ZoomLinesearch:
     @torch.no_grad()
     def start(self, state, updates, params, value, grad):
         """optax's ``init_fn`` with the initial guess 1 (``'one'``)."""
-        slope = torch.dot(updates, grad)
+        slope = dot(updates, grad)
         inf = float("inf")
         for name, v in (("params", params), ("updates", updates),
                         ("grad", grad), ("safe_grad", grad),
@@ -154,7 +183,7 @@ class ZoomLinesearch:
             zoom_at, delta = self._zoom_point(s)
             zoom = s["interval_found"]
             eta = torch.where(zoom, zoom_at, search_at)
-            point = s["params"] + eta * s["updates"]
+            point = s["params"] + col(eta) * s["updates"]
         value, grad = value_and_grad(point)
         with torch.no_grad():
             return self._advance(s, was, it, eta, delta, value.detach(),
@@ -162,7 +191,7 @@ class ZoomLinesearch:
 
     def _advance(self, s, was, it, eta, delta, value, grad):
         tol = self.tol
-        slope = torch.dot(grad, s["updates"])
+        slope = dot(grad, s["updates"])
         dec = self._decrease_error(eta, value, slope, s["value_init"],
                                    s["slope_init"])
         curv = self._curvature_error(slope, s["slope_init"])
@@ -176,8 +205,7 @@ class ZoomLinesearch:
         # Interval search (Algorithm 3.5).
         keep_safe = {"safe_stepsize": eta, "safe_value": value,
                      "safe_grad": grad}
-        search = {k: torch.where(safe_dec, v, s[k])
-                  for k, v in keep_safe.items()}
+        search = {k: where(safe_dec, v, s[k]) for k, v in keep_safe.items()}
         set_high = (dec > 0.0) | ((value >= s["value"]) & (it > 0))
         set_low = (slope >= 0.0) & ~set_high
         prev = (s["stepsize"], s["value"], s["slope"])
@@ -193,8 +221,7 @@ class ZoomLinesearch:
 
         # Zoom (Algorithm 3.6).
         better = safe_dec & (value < s["safe_value"])
-        zoomed = {k: torch.where(better, v, s[k])
-                  for k, v in keep_safe.items()}
+        zoomed = {k: where(better, v, s[k]) for k, v in keep_safe.items()}
         high_to_mid = (dec > 0.0) | (value >= s["value_low"])
         high_to_low = ((slope * (s["high"] - s["low"]) >= 0.0)
                        & ~high_to_mid)
@@ -214,7 +241,7 @@ class ZoomLinesearch:
                                     & (zoomed["safe_stepsize"] > 0.0))) & ~done
 
         for name in search:
-            new[name] = torch.where(zoom, zoomed[name], search[name])
+            new[name] = where(zoom, zoomed[name], search[name])
         new.update(count=it + 1, stepsize=eta, value=value, grad=grad,
                    slope=slope, decrease_error=dec, curvature_error=curv,
                    error=err, done=done)
@@ -223,8 +250,8 @@ class ZoomLinesearch:
                                     | torch.isinf(dec))
         for name, safe in (("stepsize", "safe_stepsize"),
                            ("value", "safe_value"), ("grad", "safe_grad")):
-            new[name] = torch.where(fallback, new[safe], new[name])
+            new[name] = where(fallback, new[safe], new[name])
         new["active"] = ~(new["done"] | new["failed"])
         for name, t in new.items():
-            torch.where(was, t, s[name], out=s[name])
+            where(was, t, s[name], out=s[name])
         return was

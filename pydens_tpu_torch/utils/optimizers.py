@@ -22,7 +22,7 @@ import warnings
 
 import torch
 
-from .linesearch import ZoomLinesearch
+from .linesearch import ZoomLinesearch, col, dot, where
 
 __all__ = ["Adam", "AdamW", "Adamax", "NAdam", "RAdam", "SGD", "RMSprop",
            "Adagrad", "Adadelta", "Lion", "LBFGS", "LMConfig", "linearize",
@@ -304,7 +304,10 @@ class LBFGS:
     The trial that ends the search moves ``theta`` to ``params + stepsize *
     updates``.  ``gate`` (a 0-d bool device tensor, as in
     :class:`_FlatOptimizer`) taken at :meth:`begin` makes the whole step a
-    no-op on ``theta`` and the state where it is False."""
+    no-op on ``theta`` and the state where it is False.  An ensemble's
+    ``(K, P)`` parameters run one L-BFGS a member (``jax.vmap`` of optax's
+    update): their own memories, first-step scale and linesearch, one
+    count."""
 
     def __init__(self, memory_size=10):
         if int(memory_size) < 1:
@@ -315,6 +318,7 @@ class LBFGS:
     def init(self, theta):
         m = self.memory_size
         inf = float("inf")
+        lead = tuple(theta.shape[:-1])
         count = torch.zeros((), dtype=torch.int32, device=theta.device)
         return {
             "count": count,
@@ -322,13 +326,14 @@ class LBFGS:
             "updates": torch.zeros_like(theta),
             "diff_params_memory": theta.new_zeros((m,) + theta.shape),
             "diff_updates_memory": theta.new_zeros((m,) + theta.shape),
-            "weights_memory": theta.new_zeros((m,)),
+            "weights_memory": theta.new_zeros((m,) + lead),
             # scale_by_zoom_linesearch's state and its info.
-            "learning_rate": theta.new_full((), 1.0),
-            "value": theta.new_full((), inf),
-            "num_linesearch_steps": count.clone(),
-            "decrease_error": theta.new_full((), inf),
-            "curvature_error": theta.new_full((), inf),
+            "learning_rate": theta.new_full(lead, 1.0),
+            "value": theta.new_full(lead, inf),
+            "num_linesearch_steps": torch.zeros(lead, dtype=torch.int32,
+                                                device=theta.device),
+            "decrease_error": theta.new_full(lead, inf),
+            "curvature_error": theta.new_full(lead, inf),
         }
 
     def scratch(self, theta):
@@ -351,7 +356,7 @@ class LBFGS:
         started = count > 0
         diff_params = theta - state["params"]
         diff_updates = grad - state["updates"]
-        vdot = torch.dot(diff_updates, diff_params)
+        vdot = dot(diff_updates, diff_params)
         weight = torch.where(vdot == 0.0, 0.0, 1.0 / vdot)
         diff_params = torch.where(started, diff_params, 0.0)
         diff_updates = torch.where(started, diff_updates, 0.0)
@@ -365,10 +370,10 @@ class LBFGS:
             new[name] = state[name].index_copy(0, prev, row.unsqueeze(0))
         # The scaled initial preconditioner; at the first step the capped
         # reciprocal of the gradient's norm.
-        numerator = torch.dot(diff_updates, diff_params)
-        denominator = torch.dot(diff_updates, diff_updates)
+        numerator = dot(diff_updates, diff_params)
+        denominator = dot(diff_updates, diff_updates)
         scale = torch.where(denominator > 0.0, numerator / denominator, 1.0)
-        capped = torch.clamp_max(1.0 / torch.sqrt(torch.dot(grad, grad)), 1.0)
+        capped = torch.clamp_max(1.0 / torch.sqrt(dot(grad, grad)), 1.0)
         scale = torch.where(started, scale, capped)
         # _precondition_by_lbfgs: the two-loop recursion from memory_idx.
         order = torch.remainder(
@@ -378,12 +383,12 @@ class LBFGS:
         rhos = new["weights_memory"].index_select(0, order)
         vec, alphas = grad, [None] * m
         for j in reversed(range(m)):
-            alphas[j] = rhos[j] * torch.dot(dws[j], vec)
-            vec = vec + -alphas[j] * dus[j]
-        vec = scale * vec
+            alphas[j] = rhos[j] * dot(dws[j], vec)
+            vec = vec + col(-alphas[j]) * dus[j]
+        vec = col(scale) * vec
         for j in range(m):
-            beta = rhos[j] * torch.dot(dus[j], vec)
-            vec = vec + (alphas[j] - beta) * dws[j]
+            beta = rhos[j] * dot(dus[j], vec)
+            vec = vec + col(alphas[j] - beta) * dws[j]
         new.update(count=count + 1, params=theta, updates=grad)
         for name, t in new.items():
             torch.where(gate, t, state[name], out=state[name])
@@ -397,8 +402,8 @@ class LBFGS:
         with torch.no_grad():
             commit = was & ~ls["active"] & ls["gate"]
             lr = ls["stepsize"]
-            torch.where(commit, ls["params"] + lr * ls["updates"], theta,
-                        out=theta)
+            where(commit, ls["params"] + col(lr) * ls["updates"], theta,
+                  out=theta)
             for name, t in (("learning_rate", lr), ("value", ls["value"]),
                             ("num_linesearch_steps", ls["count"]),
                             ("decrease_error", ls["decrease_error"]),
@@ -438,7 +443,10 @@ class LMConfig:
 
     by conjugate gradients from 0 (``J v`` and ``J^T u`` by autograd; no
     Jacobian is formed), with Nielsen's gain-ratio damping.  The state is
-    ``{"damping": (lambda, nu)}``.  :meth:`update` runs one step."""
+    ``{"damping": (lambda, nu)}``, for an ensemble's ``(K, P)`` parameters
+    one pair a member, ``(K, 2)``: each member has its own damping, CG
+    scalars, early stop and accept test (``jax.vmap`` of ``pydens_tpu``'s
+    step).  :meth:`update` runs one step."""
 
     def __init__(self, cg_iters=50, cg_tol=1e-6, init_damping=1e-3,
                  damping_down=1.0 / 3.0, damping_up=2.0,
@@ -456,9 +464,10 @@ class LMConfig:
         self.max_damping = float(max_damping)
 
     def init(self, theta):
-        return {"damping": torch.tensor([self.init_damping, self.damping_up],
-                                        dtype=torch.float32,
-                                        device=theta.device)}
+        damping = torch.tensor([self.init_damping, self.damping_up],
+                               dtype=torch.float32, device=theta.device)
+        return {"damping": damping.expand(tuple(theta.shape[:-1]) + (2,))
+                .clone()}
 
     def update(self, theta, residual_fn, state, mask=None, gate=None):
         """One step in place (``gn_update`` of ``pydens_tpu/solver.py``):
@@ -469,7 +478,9 @@ class LMConfig:
         cg``'s (stop when ``r . r <= max(tol^2 b . b, 0)`` or after
         ``cg_iters``) as a fixed trip count with a device mask that freezes
         the iterate once the rule holds.  Returns ``(loss at theta, live
-        CG iterations)``, 0-d device tensors."""
+        CG iterations)``, 0-d device tensors; an ensemble's loss is one a
+        member, and its live iterations are those where any member's CG
+        runs."""
         r, jtr, jvp, vjp = linearize(residual_fn, theta)
 
         def matvec(v):
@@ -478,40 +489,41 @@ class LMConfig:
             out = vjp(jvp(v))
             if mask is not None:
                 out = out * mask
-            return out + lam * v
+            return out + col(lam) * v
 
         with torch.no_grad():
-            lam, nu = state["damping"][0], state["damping"][1]
-            loss = torch.dot(r, r)
+            lam, nu = state["damping"][..., 0], state["damping"][..., 1]
+            loss = dot(r, r)
             b = jtr if mask is None else jtr * mask
             x = torch.zeros_like(b)
             res, p = b, b
-            gamma = torch.dot(res, res)
+            gamma = dot(res, res)
             tol = torch.full((), self.cg_tol, dtype=b.dtype, device=b.device)
-            floor = torch.clamp_min(tol * tol * torch.dot(b, b), 0.0)
+            floor = torch.clamp_min(tol * tol * dot(b, b), 0.0)
             live_iters = torch.zeros((), dtype=torch.int32,
                                      device=theta.device)
         for _ in range(self.cg_iters):
             Ap = matvec(p)
             with torch.no_grad():
                 live = gamma > floor
-                alpha = gamma / torch.dot(p, Ap)
-                x = torch.where(live, x + alpha * p, x)
-                res_ = res - alpha * Ap
-                gamma_ = torch.dot(res_, res_)
-                p = torch.where(live, res_ + (gamma_ / gamma) * p, p)
-                res = torch.where(live, res_, res)
+                alpha = gamma / dot(p, Ap)
+                x = where(live, x + col(alpha) * p, x)
+                res_ = res - col(alpha) * Ap
+                gamma_ = dot(res_, res_)
+                p = where(live, res_ + col(gamma_ / gamma) * p, p)
+                res = where(live, res_, res)
                 gamma = torch.where(live, gamma_, gamma)
-                live_iters = live_iters + live.to(torch.int32)
+                live_iters = live_iters + (
+                    live if live.dim() == 0 else live.any()).to(torch.int32)
         del jvp, vjp, matvec   # the graphs of the solve
         with torch.no_grad():
             trial = theta - x
         with torch.enable_grad():
             r_t = residual_fn(trial).detach()
         with torch.no_grad():
-            loss_t = torch.dot(r_t, r_t)
+            loss_t = dot(r_t, r_t)
             actual = loss - loss_t
-            pred = torch.dot(x, lam * x + b)
+            pred = dot(x, col(lam) * x + b)
             rho = actual / torch.clamp_min(pred, 1e-30)
             accept = torch.isfinite(loss_t) & (actual > 0)
             t = 2.0 * rho - 1.0
@@ -521,12 +533,12 @@ class LMConfig:
                                                     self.min_damping),
                             torch.clamp_max(lam * nu, self.max_damping)),
                 torch.where(accept, self.damping_up,
-                            torch.clamp_max(nu * 2.0, 1e6))])
+                            torch.clamp_max(nu * 2.0, 1e6))], dim=-1)
             if gate is None:
-                torch.where(accept, trial, theta, out=theta)
+                where(accept, trial, theta, out=theta)
                 state["damping"].copy_(new)
             else:
-                torch.where(accept & gate, trial, theta, out=theta)
+                where(accept & gate, trial, theta, out=theta)
                 torch.where(gate, new, state["damping"],
                             out=state["damping"])
         return loss, live_iters

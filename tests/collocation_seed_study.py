@@ -6,6 +6,7 @@ read from chip_smoke.py.
     python tests/collocation_seed_study.py jax      # pydens_tpu
     python tests/collocation_seed_study.py torch    # pydens_tpu_torch
     python tests/collocation_seed_study.py jax 6 18 uniform   # seeds 6-17
+    python tests/collocation_seed_study.py torch_cuda 0 24 rba  # on the card
 
 Three studies, seeds 0-5 each unless given:
 
@@ -57,7 +58,7 @@ def study(pkg_name, arm, seeds):
         extra = {}
     else:
         import pydens_tpu_torch as pkg
-        extra = dict(device="cpu")
+        extra = dict(device="cuda" if pkg_name == "torch_cuda" else "cpu")
 
     def ode(f, x):
         return pkg.D(f, x) - 100 * pkg.exp(-2000 * (x - 0.8) ** 2)

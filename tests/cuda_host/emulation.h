@@ -2,7 +2,8 @@
 // and fused_mlp.cu use, for running their kernels on the CPU in tests: one
 // OS thread per CUDA thread, a std::barrier for __syncthreads, a per-block
 // buffer for dynamic shared memory, cp.async copies held per thread until
-// their group is waited for.  Blocks run one after another.
+// their group is waited for.  Blocks run one after another, over a grid's
+// x and then y axis (an ensemble's members).
 #include <algorithm>
 #include <barrier>
 #include <cmath>
@@ -20,7 +21,7 @@ inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
 struct HostDim {
-  unsigned x;
+  unsigned x, y;
 };
 thread_local HostDim threadIdx, blockIdx;
 HostDim gridDim, blockDim;
@@ -61,13 +62,15 @@ inline void host_cp_wait(size_t pending) {
   }
 }
 
-// Runs body() as `grid` blocks of `threads` threads with `smem` bytes of
-// shared memory each, filled with NaN so that a read before a write shows.
+// Runs body() as `grid` x `grid_y` blocks of `threads` threads with `smem`
+// bytes of shared memory each, filled with NaN so that a read before a
+// write shows.
 template <class F>
-void host_launch(int grid, int threads, size_t smem, F body) {
+void host_launch(int grid, int threads, size_t smem, F body, int grid_y = 1) {
   gridDim.x = grid;
+  gridDim.y = grid_y;
   blockDim.x = threads;
-  for (int b = 0; b < grid; ++b) {
+  for (int b = 0; b < grid * grid_y; ++b) {
     std::vector<float4> shared(smem / sizeof(float4) + 1);
     std::fill(&shared[0].x, &shared[0].x + 4 * shared.size(), NAN);
     std::barrier<> bar(threads);
@@ -75,7 +78,9 @@ void host_launch(int grid, int threads, size_t smem, F body) {
     for (int t = 0; t < threads; ++t)
       team.emplace_back([&, t] {
         threadIdx.x = t;
-        blockIdx.x = b;
+        threadIdx.y = 0;
+        blockIdx.x = b % grid;
+        blockIdx.y = b / grid;
         host_barrier = &bar;
         host_smem = shared.data();
         body();

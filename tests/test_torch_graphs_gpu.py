@@ -549,3 +549,60 @@ def test_rebalance_graph_replays_ten_times_a_fit(mode):
     assert step.eager_steps == 1 and step.replays == 2 * 110 - 1
     w = s.history[-1]["balanced_weights"]
     assert w[0] == 1.0 and np.all(np.isfinite(w))
+
+
+# examples/16's adaptive Burgers fit (the modified MLP, 8 candidates a
+# point), 60 steps, after ``sys.argv[1]`` first-order backward passes of
+# an unrelated graph; prints theta and the losses as hex.
+_ORDER_SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+from pydens_tpu_torch import D, NumpySampler as NS, Solver, sin
+
+x = torch.linspace(-1, 1, 64, device="cuda", requires_grad=True)
+for _ in range(int(sys.argv[1])):
+    torch.autograd.grad(torch.tanh(x).pow(3).sum(), x)
+torch.cuda.synchronize()
+
+
+def burgers(f, x, t):
+    return D(f, t) + f * D(f, x) - 0.01 / np.pi * D(D(f, x), x)
+
+
+s = Solver(burgers, ndims=2, seed=0, domain=[(-1.0, 1.0), (0.0, 1.0)],
+           initial_condition=lambda x: -sin(np.pi * x), boundary_condition=0,
+           arch="modified", features=[20] * 8 + [1], activation="Tanh")
+sampler = NS("u", low=-1, high=1, seed=0) & NS("u", low=0, high=1, seed=1)
+s.fit(niters=60, batch_size=2048, lr=2e-3, sampler=sampler, adaptive=8,
+      chunk_size=20, progress=False)
+theta = s._spec().flatten(s.model.params).detach().cpu().numpy()
+print(theta.tobytes().hex())
+print(np.asarray(s.losses, np.float32).tobytes().hex())
+"""
+
+
+@pytest.mark.gpu
+def test_fit_after_first_order_backward_work_is_bitwise_a_fresh_fit(
+        tmp_path):
+    # The ansatz composes in forward mode (Model.full_taps: nested
+    # torch.func.jvp), so no value of a step depends on the order in which
+    # the autograd engine runs nodes: examples/16's adaptive fit after
+    # 5,000 first-order backward passes in its process equals the fit in
+    # a fresh process, theta and the loss history bit for bit (with
+    # full_taps's nested autograd.grad, its candidate pool's residuals and
+    # so the fit moved with the earlier work).
+    _require_cuda()
+    import os
+    import subprocess
+    import sys
+    script = tmp_path / "order.py"
+    script.write_text(_ORDER_SCRIPT)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    runs = [subprocess.run([sys.executable, str(script), str(reps)],
+                           capture_output=True, text=True, env=env,
+                           check=True, timeout=600).stdout.split()
+            for reps in (0, 5000)]
+    assert len(runs[0]) == 2 and runs[0] == runs[1]

@@ -352,3 +352,121 @@ def test_model_options_route_on_cuda(kind):
     (pl, pg), (fl, fg) = results
     torch.testing.assert_close(pl, fl, rtol=2e-5, atol=0)
     torch.testing.assert_close(pg, fg, rtol=2e-3, atol=2e-5)
+
+
+def _member_case(layout, features, act, in_dim, closure, n_members):
+    """``(plan, MLP plan, (K, P) packed weights)``: one seeded network a
+    member, on the card."""
+    dev = torch.device("cuda")
+    packs = []
+    for k in range(n_members):
+        net = make_layout_network(layout, features, act, in_dim=in_dim,
+                                  device=dev)
+        net.reset_parameters(torch.Generator().manual_seed(5 + k))
+        with torch.no_grad():
+            packs.append(fused_taylor.pack_weights(net.params(),
+                                                   net.layer_names))
+    plan = fused_taylor.TaylorPlan(net.tokens, net.activations, closure,
+                                   net.layer_shapes, in_dim)
+    mlp = fused_mlp.MlpPlan(net.tokens, net.activations, net.layer_shapes,
+                            in_dim)
+    return plan, mlp, torch.stack(packs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_members", [1, 3, 8])
+@pytest.mark.parametrize("layout,features,act,in_dim,closure,n", [
+    ("fafaf", [12, 10, 1], "Tanh", 1, [(0,)], 400),     # examples/08
+    (*README_CHAIN, 1000),
+    ("fa fa f", [32, 32, 2], "Sigmoid", 2, POISSON_CLOSURE, 257),
+])
+def test_member_axis_kernels_match_single_and_plain_on_cuda(
+        layout, features, act, in_dim, closure, n, n_members):
+    # K members' (K, P) weights on shared points, one launch each kernel:
+    # every member's slice of the forward, the tangent and the MLP equals a
+    # single-member launch on its weights bit for bit, and so does d packed
+    # where the blocks a member are the single model's (else at the
+    # gradients' tolerance: another order of the partial sums); the whole
+    # against the plain versions (values rtol/atol 2e-5, gradients rtol
+    # 2e-3 / atol 2e-5, d x the sum over members); the backward bitwise
+    # repeatable; K = 1 launches the single model's grid.
+    _require_cuda()
+    plan, mlp, packed = _member_case(layout, features, act, in_dim, closure,
+                                     n_members)
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    same_grid = (plan.launch_shape(n, sm, 3, n_members)[0]
+                 == plan.launch_shape(n, sm, 3)[0])
+    if n_members == 1:
+        assert same_grid
+    gen = torch.Generator("cuda").manual_seed(1)
+    x = torch.rand((n, in_dim), device="cuda", generator=gen)
+    v = torch.randn(packed.shape, device="cuda", generator=gen)
+    out = fused_taylor.fused_taylor_forward(packed, x, plan)
+    g = torch.randn(out.shape, device="cuda", generator=gen)
+    dp, dx = fused_taylor.fused_taylor_backward(packed, x, g, plan)
+    dp2, dx2 = fused_taylor.fused_taylor_backward(packed, x, g, plan)
+    sv, tv = fused_taylor.fused_taylor_jvp(packed, x, v, plan)
+    with torch.no_grad():
+        mo = fused_mlp.fused_mlp_forward(packed, x, mlp)
+    torch.cuda.synchronize()
+    assert torch.equal(dp, dp2) and torch.equal(dx, dx2)
+    for k in range(n_members):
+        one = packed[k].contiguous()
+        assert torch.equal(out[k], fused_taylor.fused_taylor_forward(
+            one, x, plan))
+        d1 = fused_taylor.fused_taylor_backward(one, x, g[k].contiguous(),
+                                                plan)[0]
+        if same_grid:
+            assert torch.equal(dp[k], d1)
+        else:
+            torch.testing.assert_close(dp[k], d1, rtol=2e-3, atol=2e-5)
+        s1, t1 = fused_taylor.fused_taylor_jvp(one, x, v[k].contiguous(),
+                                               plan)
+        assert torch.equal(sv[k], s1) and torch.equal(tv[k], t1)
+        with torch.no_grad():
+            assert torch.equal(mo[k], fused_mlp.fused_mlp_forward(one, x,
+                                                                  mlp))
+    torch.testing.assert_close(
+        out, fused_taylor.fused_taylor_forward_plain(packed, x, plan),
+        rtol=2e-5, atol=2e-5)
+    rdp, rdx = fused_taylor.fused_taylor_backward_plain(packed, x, g, plan)
+    torch.testing.assert_close(dp, rdp, rtol=2e-3, atol=2e-5)
+    torch.testing.assert_close(dx, rdx, rtol=2e-3, atol=2e-5)
+    rsv, rtv = fused_taylor.fused_taylor_jvp_plain(packed, x, v, plan)
+    torch.testing.assert_close(sv, rsv, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(tv, rtv, rtol=2e-5, atol=2e-5)
+    with torch.no_grad():
+        torch.testing.assert_close(
+            mo, fused_mlp.fused_mlp_forward_plain(packed, x, mlp),
+            rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_ensemble_fit_launches_once_a_step_and_predicts_in_one_launch():
+    # An ensemble (K = 3) fit on the card: each eager step and capture
+    # launches the forward and backward once, whatever K, and predict,
+    # predict_all and predict_std one MLP launch each; the member mean of
+    # predict_all is predict.
+    _require_cuda()
+    import numpy as np
+    from pydens_tpu_torch import D, Solver
+
+    def ode(f, x):
+        return D(f, x) - 2 * np.pi * torch.cos(2 * np.pi * x)
+    s = Solver(ode, ndims=1, initial_condition=.5, activation="Tanh",
+               layout="fafaf", features=[12, 10, 1], n_models=3, seed=0)
+    counters = (fused_taylor.fused_taylor_forward,
+                fused_taylor.fused_taylor_backward,
+                fused_mlp.fused_mlp_forward)
+    for c in counters:
+        c.launches = 0
+    s.fit(niters=40, batch_size=256, lr=0.02, progress=False)
+    (step,) = s._step_cache.values()
+    assert step.eager_steps + step.replays == 40
+    assert counters[0].launches == counters[1].launches == 2   # eager, capture
+    xs = np.linspace(0, 1, 50)
+    mean, allp, std = s.predict(xs), s.predict_all(xs), s.predict_std(xs)
+    assert counters[2].launches == 3
+    assert allp.shape == (3, 50, 1)
+    np.testing.assert_allclose(mean, allp.mean(0), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(std, allp.std(0), rtol=1e-4, atol=1e-6)

@@ -174,7 +174,18 @@ def _jax_cg_iterations(js, terms, pts, cfg, lam):
     return k
 
 
-@pytest.mark.parametrize("cg_tol", [1e-6, 1e-3], ids=["default", "early"])
+# The early stop's tolerance: CG on this system is chaotic in f32 after
+# about five iterations (the residual norms of JAX's loop and the port's
+# part there, by orders of magnitude, however the rounding falls), so the
+# stop is compared where both loops still agree: at 0.07 both end at
+# iteration 9 (r . r below the floor by 2.6x, above it by 1.5x the
+# iteration before).  At 1e-3 JAX's loop ends at iteration 24 by a
+# margin of 0.80 against 1.03 at 23: a coin flip for any f32 loop.
+EARLY_CG_TOL = 0.07
+
+
+@pytest.mark.parametrize("cg_tol", [1e-6, EARLY_CG_TOL],
+                         ids=["default", "early"])
 def test_one_lm_step_matches_jax(cg_tol):
     # One fit step from the same theta on the same fixed 128 points: the
     # step d (rtol 1e-3 / atol 1e-3 max|d|: 50 f32 CG iterations in
@@ -208,7 +219,7 @@ def test_one_lm_step_matches_jax(cg_tol):
     np.testing.assert_allclose(ts.losses, js.losses, rtol=2e-5)
     (step,) = ts._step_cache.values()
     assert abs(int(step.live) - iters) <= 1, (int(step.live), iters)
-    if cg_tol == 1e-3:
+    if cg_tol == EARLY_CG_TOL:
         assert iters < cfg.cg_iters
 
 
@@ -321,13 +332,20 @@ def test_lm_rejects_other_criteria_and_unported_modes():
                        formulation="variational", **extra)
         with pytest.raises(ValueError, match="variational"):
             v.fit(niters=2, batch_size=32, optimizer="LM", progress=False)
-    # The ensemble and mesh cases of tests/test_gauss_newton need Solver
-    # options of later items; the separable model (item 13) is not exported
-    # yet.
-    for kw, item in ((dict(n_models=2), 11), (dict(mesh=object()), 15)):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            tpdt.Solver(eq, ndims=1, initial_condition=.5, device="cpu", **kw)
+    # The mesh case of tests/test_gauss_newton needs a Solver option of a
+    # later item, and the separable model (item 13) is not exported yet.
+    # Its ensemble case runs (test_lm_ensemble_per_member_damping, here 6
+    # of its 20 steps): one (lambda, nu) pair a member.
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        tpdt.Solver(eq, ndims=1, initial_condition=.5, device="cpu",
+                    mesh=object())
     assert not hasattr(tpdt, "SeparableModel")
+    ens = tpdt.Solver(eq, ndims=1, initial_condition=.5, n_models=2, seed=2,
+                      device="cpu")
+    ens.fit(niters=6, batch_size=128, optimizer="LM", resample=False,
+            progress=False)
+    assert ens.losses[-1] < ens.losses[0]
+    assert tuple(ens._opt_state["damping"].shape) == (2, 2)
 
 
 def _wide_poisson(pdt):

@@ -85,7 +85,7 @@ def host_lib(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(out / "libmlp_host.so"))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.host_mlp_forward.argtypes = [P, P, P, P] + [I] * 8
+    lib.host_mlp_forward.argtypes = [P, P, P, P] + [I] * 10
     lib.host_mlp_forward.restype = None
     lib.host_mlp_smem_bytes.argtypes = [I] * 5
     return lib
@@ -104,14 +104,17 @@ def _plan(layout, features, act, in_dim):
 
 
 def _run(host_lib, plan, packed, x, grid):
-    """The host kernel's output for points ``x`` on ``grid`` blocks; the
-    output starts as NaN, so a point the kernel did not write fails."""
-    out = np.full((x.shape[0], plan.out_dim), np.nan, np.float32)
-    w = packed.numpy()
+    """The host kernel's output for points ``x`` on ``grid`` blocks (a
+    member; ``(K, P)`` weights are ``K`` members on the grid's second
+    axis); the output starts as NaN, so a point the kernel did not write
+    fails."""
+    lead = tuple(packed.shape[:-1])
+    out = np.full(lead + (x.shape[0], plan.out_dim), np.nan, np.float32)
+    w = np.ascontiguousarray(packed.numpy())
     tab = np.asarray(plan.table, np.int32)
     host_lib.host_mlp_forward(_ptr(x), _ptr(w), _ptr(tab), _ptr(out),
                               x.shape[0], *plan.kernel_args(), plan.out_dim,
-                              grid)
+                              plan.n_params, grid, lead[0] if lead else 1)
     return out
 
 
@@ -268,3 +271,35 @@ def test_mlp_plan_takes_every_chain_the_first_design_took(layout):
                 assert fused_mlp.supports(net.tokens, net.activations,
                                           net.layer_shapes, in_dim), \
                     (layout, width, in_dim)
+
+
+@pytest.mark.parametrize("members", [1, 3])
+@pytest.mark.parametrize("layout,features,in_dim", [
+    ("fafaf", [12, 10, 1], 1), ("faR fa fa+ f", [16, 16, 16, 1], 3),
+    ("fa fa fa f", [10, 12, 15, 1], 2)])
+def test_mlp_member_axis_on_the_host(host_lib, layout, features, in_dim,
+                                     members):
+    # An ensemble's (K, P) weights on shared points in one launch (the
+    # grid's second axis): each member's slice equals a single-member
+    # launch on its weights bit for bit, and the plain version rtol/atol
+    # 2e-5; 300 points, the blocks a member the wrapper gives K members of
+    # a 2-SM card.
+    packs = []
+    for k in range(members):
+        net = make_layout_network(layout, features, "Tanh", in_dim=in_dim)
+        net.reset_parameters(torch.Generator().manual_seed(20 + k))
+        packs.append(pack_weights(net.params(), net.layer_names).detach())
+    plan = fused_mlp.MlpPlan(net.tokens, net.activations, net.layer_shapes,
+                             in_dim)
+    packed = torch.stack(packs)
+    x = _points(300, in_dim)
+    grid = plan.launch_shape(300, 2, 2, members)
+    if members == 1:
+        assert grid == plan.launch_shape(300, 2, 2)
+    out = _run(host_lib, plan, packed, x, grid)
+    for k in range(members):
+        assert np.array_equal(out[k], _run(host_lib, plan, packed[k], x,
+                                           grid))
+    ref = fused_mlp.fused_mlp_forward_plain(packed, torch.from_numpy(x),
+                                            plan)
+    np.testing.assert_allclose(out, ref.numpy(), **VALUE_TOL)

@@ -258,13 +258,20 @@ def test_freeze_names_of_the_new_layers():
         s.model.freeze_layers(["br2_fc1"])
 
 
-def test_only_n_models_is_left_unported():
-    # Every model option builds; n_models names the ensembles entry.
+def test_every_model_option_builds_and_n_models_trains():
+    # Every model option builds, and as an ensemble (n_models=2) too, with
+    # the member axis on every leaf; an ensemble trains (the member mean of
+    # the loss falls over a short fit).
     for kind in KINDS.values():
         _solver(tpdt, _dt, **kind)
-    with pytest.raises(NotImplementedError,
-                       match="n_models.*Queue 1 item 11, ensembles"):
-        _solver(tpdt, _dt, ndims=2, initial_condition=0.5, n_models=2)
+        ens = _solver(tpdt, _dt, n_models=2, **kind)
+        assert all(t.shape[0] == 2 for t in
+                   [ens.params["log_scale"]]
+                   + [leaf for layer in ens.params["net"].values()
+                      for leaf in layer.values()])
+    s = _solver(tpdt, _dt, ndims=2, initial_condition=0.5, n_models=2)
+    s.fit(niters=30, batch_size=64, lr=0.01, progress=False)
+    assert np.isfinite(s.losses).all() and s.losses[-1] < s.losses[0]
 
 
 FITS = {

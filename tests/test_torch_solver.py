@@ -241,13 +241,18 @@ def test_unported_options_raise():
         with pytest.raises(ValueError, match="no effect"):
             pkg.Solver(_poisson(pkg)[0], periodic=True, **extra, **kw)
     assert tpdt.Solver(pde, device="cpu", periodic=(0,), **kw)._plan_ok
-    # pydens_tpu.Solver's n_models / mesh: their defaults are taken, other
-    # values name their item.  Both formulations are ported, and any other
-    # raises pydens_tpu's ValueError.
-    for name, value, item in (("n_models", 2, 11), ("mesh", object(), 15)):
-        with pytest.raises(NotImplementedError,
-                           match=f"{name}.*Queue 1 item {item}"):
-            tpdt.Solver(pde, device="cpu", **{name: value}, **kw)
+    # pydens_tpu.Solver's mesh: its default is taken, another value names
+    # its item.  n_models is ported: an ensemble builds with its members on
+    # every leaf, and a count that is not an int >= 1 raises.  Both
+    # formulations are ported, and any other raises pydens_tpu's
+    # ValueError.
+    with pytest.raises(NotImplementedError, match="mesh.*Queue 1 item 15"):
+        tpdt.Solver(pde, device="cpu", mesh=object(), **kw)
+    ens = tpdt.Solver(pde, device="cpu", n_models=2, **kw)
+    assert ens._plan_ok and ens.params["net"]["fc1"]["w"].shape[0] == 2
+    for bad in (0, -1, 1.5, True):
+        with pytest.raises(ValueError, match="n_models"):
+            tpdt.Solver(pde, device="cpu", n_models=bad, **kw)
     assert tpdt.Solver(pde, device="cpu", formulation="residual",
                        n_models=1, mesh=None, **kw)._plan_ok
     assert tpdt.Solver(pde, device="cpu", formulation="variational",

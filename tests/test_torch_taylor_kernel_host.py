@@ -78,10 +78,10 @@ def host_lib(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(out / "libtaylor_host.so"))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.host_taylor_forward.argtypes = [P, P, P, P] + [I] * 6
-    lib.host_taylor_backward.argtypes = [P] * 8 + [I] * 6
+    lib.host_taylor_forward.argtypes = [P, P, P, P] + [I] * 7
+    lib.host_taylor_backward.argtypes = [P] * 8 + [I] * 7
     lib.host_taylor_smem_bytes.argtypes = [I] * 4
-    lib.host_taylor_jvp.argtypes = [P] * 6 + [I] * 8
+    lib.host_taylor_jvp.argtypes = [P] * 6 + [I] * 9
     lib.host_taylor_jvp_smem_bytes.argtypes = [I] * 5
     lib.host_taylor_forward.restype = None
     lib.host_taylor_backward.restype = None
@@ -156,7 +156,7 @@ def test_taylor_kernels_on_the_host_match_plain(host_lib, layout, features,
     out = np.full((n, S * plan.out_dim), np.nan, np.float32)
     grid, _ = plan.launch_shape(n, sm_count, 2)
     host_lib.host_taylor_forward(_ptr(x), _ptr(w), _ptr(tab), _ptr(out), n,
-                                 P, S, W, plan.out_dim, grid)
+                                 P, S, W, plan.out_dim, grid, 1)
     ref = fused_taylor.fused_taylor_forward_plain(packed, torch.from_numpy(x),
                                                   plan)
     np.testing.assert_allclose(out, ref.numpy(), rtol=2e-5, atol=2e-5)
@@ -168,7 +168,7 @@ def test_taylor_kernels_on_the_host_match_plain(host_lib, layout, features,
     dx = np.full((n, in_dim), np.nan, np.float32)
     host_lib.host_taylor_backward(
         _ptr(x), _ptr(w), _ptr(tab), _ptr(g), _ptr(saves), _ptr(partials),
-        _ptr(dw), _ptr(dx), n, P, S, W, plan.out_dim, grid)
+        _ptr(dw), _ptr(dx), n, P, S, W, plan.out_dim, grid, 1)
     rdp, rdx = fused_taylor.fused_taylor_backward_plain(
         packed, torch.from_numpy(x), torch.from_numpy(g), plan)
     np.testing.assert_allclose(dw, rdp.numpy(), rtol=2e-3, atol=2e-5)
@@ -260,7 +260,7 @@ def _check_host_jvp(host_lib, plan, packed, n, sm_count, offset, resident,
         host_lib.host_taylor_jvp(_ptr(x), _ptr(wbuf[offset:]),
                                  _ptr(vbuf[offset:]), _ptr(tab), _ptr(out),
                                  _ptr(tout), n, P, S, W, plan.out_dim, tile,
-                                 int(resident), grid)
+                                 int(resident), grid, 1)
         runs.append((out, tout))
     ref, tref = fused_taylor.fused_taylor_jvp_plain(
         packed, torch.from_numpy(x), torch.from_numpy(v), plan)
@@ -282,3 +282,95 @@ def test_jvp_cases_take_the_designs_paths():
                          POISSON_CLOSURE)
     assert plan.jvp_tile == 16 and plan.jvp_blocks_per_sm == 1
     assert not plan.jvp_resident
+
+
+def _host_members(host_lib, plan, packed, x, g, v, grid, jvp_grid):
+    """Forward streams, ``(d packed, d x per member)`` and the tangent of
+    ``K`` members' ``(K, P)`` weights in one member-axis launch each."""
+    K, P = packed.shape
+    S, W, n = plan.n_streams, plan.wmax, x.shape[0]
+    cols = S * plan.out_dim
+    tab = np.asarray(plan.table, np.int32)
+    w = np.ascontiguousarray(packed)
+    out = np.full((K, n, cols), np.nan, np.float32)
+    host_lib.host_taylor_forward(_ptr(x), _ptr(w), _ptr(tab), _ptr(out), n,
+                                 P, S, W, plan.out_dim, grid, K)
+    saves = np.full(max(K * grid * plan.save_rows
+                        * fused_taylor._TILE_POINTS, 1), np.nan, np.float32)
+    partials = np.full(K * grid * P, np.nan, np.float32)
+    dw = np.full((K, P), np.nan, np.float32)
+    dx = np.full((K, n, plan.in_dim), np.nan, np.float32)
+    host_lib.host_taylor_backward(
+        _ptr(x), _ptr(w), _ptr(tab), _ptr(np.ascontiguousarray(g)),
+        _ptr(saves), _ptr(partials), _ptr(dw), _ptr(dx), n, P, S, W,
+        plan.out_dim, grid, K)
+    sv = np.full((K, n, cols), np.nan, np.float32)
+    tv = np.full((K, n, cols), np.nan, np.float32)
+    host_lib.host_taylor_jvp(_ptr(x), _ptr(w), _ptr(np.ascontiguousarray(v)),
+                             _ptr(tab), _ptr(sv), _ptr(tv), n, P, S, W,
+                             plan.out_dim, plan.jvp_tile,
+                             int(plan.jvp_resident), jvp_grid, K)
+    return out, dw, dx, sv, tv
+
+
+# (layout, features, act, in_dim, closure, n, sm_count) of the member
+# axis: examples/08's chain (2 streams), a Sigmoid chain with a mixed
+# second-order stream, the 64-wide chain with 6 streams (the tangent's
+# weights streamed), a two-output chain with split K; a few tiles each.
+MEMBER_CASES = [
+    ("fafaf", [12, 10, 1], "Tanh", 1, [(0,)], 40, 2),
+    ("fa fa f", [16, 16, 1], "Sigmoid", 3, [(0,), (2,), (0, 2)], 37, 1),
+    ("fa fa fa f", [64, 64, 64, 1], "Tanh", 3,
+     [(0,), (1,), (2,), (0, 0), (1, 1)], 33, 1),
+    ("fa fa f", [32, 24, 2], "Sigmoid", 2, POISSON_CLOSURE, 33, 2),
+]
+
+
+@pytest.mark.parametrize("members", [1, 3])
+@pytest.mark.parametrize("case", MEMBER_CASES)
+def test_member_axis_kernels_on_the_host(host_lib, case, members):
+    # The member axis (the grid's second axis): K members' weights (K, P),
+    # shared points.  Each member's slice of the forward streams, d packed,
+    # d x and the tangent equals a single-member launch on that member's
+    # weights at the same blocks a member, bit for bit; the whole against
+    # the plain versions (values rtol/atol 2e-5, gradients rtol 2e-3 /
+    # atol 2e-5; d x the sum over members); from NaN-filled buffers.
+    layout, features, act, in_dim, closure, n, sm_count = case
+    plan, _ = _host_case(layout, features, act, in_dim, closure)
+    nets = []
+    for k in range(members):
+        net = make_layout_network(layout, features, act, in_dim=in_dim)
+        net.reset_parameters(torch.Generator().manual_seed(10 + k))
+        nets.append(fused_taylor.pack_weights(net.params(),
+                                              net.layer_names).detach())
+    packed = torch.stack(nets)
+    rng = np.random.default_rng(3)
+    x = rng.uniform(size=(n, in_dim)).astype(np.float32)
+    cols = plan.n_streams * plan.out_dim
+    g = rng.normal(size=(members, n, cols)).astype(np.float32)
+    v = rng.normal(size=(members, plan.n_params)).astype(np.float32)
+    grid, _ = plan.launch_shape(n, sm_count, 3, members)
+    jgrid, _ = plan.jvp_launch_shape(n, sm_count, plan.jvp_blocks_per_sm,
+                                     members)
+    if members == 1:
+        assert grid == plan.launch_shape(n, sm_count, 3)[0]
+    whole = _host_members(host_lib, plan, packed.numpy(), x, g, v, grid,
+                          jgrid)
+    for k in range(members):
+        one = _host_members(host_lib, plan, packed[k:k + 1].numpy(), x,
+                            g[k:k + 1], v[k:k + 1], grid, jgrid)
+        for a, b in zip(whole, one):
+            assert np.array_equal(a[k:k + 1], b)
+    out, dw, dx, sv, tv = whole
+    xt = torch.from_numpy(x)
+    np.testing.assert_allclose(
+        out, fused_taylor.fused_taylor_forward_plain(packed, xt, plan).numpy(),
+        rtol=2e-5, atol=2e-5)
+    rdp, rdx = fused_taylor.fused_taylor_backward_plain(
+        packed, xt, torch.from_numpy(g), plan)
+    np.testing.assert_allclose(dw, rdp.numpy(), rtol=2e-3, atol=2e-5)
+    np.testing.assert_allclose(dx.sum(0), rdx.numpy(), rtol=2e-3, atol=2e-5)
+    ref, tref = fused_taylor.fused_taylor_jvp_plain(packed, xt,
+                                                    torch.from_numpy(v), plan)
+    np.testing.assert_allclose(sv, ref.numpy(), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(tv, tref.numpy(), rtol=2e-5, atol=2e-5)
