@@ -1816,16 +1816,17 @@ MSE_BATCHES = 50
 # uniform) on these medians: 0.1998 against 0.6 x 0.1639.
 ADAPTIVE_JAX = dict(median=0.1998, max=0.7611)
 UNIFORM_JAX = dict(median=0.1639, max=0.3323)
-# The RBA arm's seeds and pydens_tpu's median and largest max error on
-# them (the CPU; tests/test_torch_rba_reference.py recomputes them); its
-# bounds are 3x those.  The largest of 6 seeds is a draw in both
-# packages: pydens_tpu's is 0.069 on seeds 0-5 (BENCHMARKS.md:740) and
-# 0.106 on 0-23; the port's on the card 0.059 on 0-5 and 0.256 on 0-23
-# with nested gradients in the ansatz, 0.309 on both with its jets (one
-# fit of 24 stalls in each; PERF.md §6).
-RBA_SEEDS = tuple(range(24))
-RBA_JAX = dict(median=0.0270, max=0.1062)
-RBA_BOUNDS = {k: 3 * v for k, v in RBA_JAX.items()}
+# 3x pydens_tpu's median and max error (BENCHMARKS.md:740: 0.026, 0.069).
+RBA_BOUNDS = dict(median=0.078, max=0.207)
+# The views of each seed's RBA fit: its initial network as drawn (0) and
+# moved by one ulp in patterns 1-4 (``one_ulp``).  A fit of this stiff
+# ODE now and then stalls at a max error of 0.3-0.7 where f32 rounding
+# happens to send it: over 13 such views of seeds 0-5 on the card, the
+# largest error of the six seeds broke RBA_BOUNDS' max in 3 views with
+# nested gradients in the ansatz and in 4 with its jets, and no seed
+# stalled in more than 3 of its 13 (tests/collocation_seed_study.py;
+# PERF.md §6, PR 10).  So each seed is read as the median over its views.
+RBA_VIEWS = tuple(range(5))
 HELMHOLTZ_K = 12.0
 BEAM_LT = {"equation": 1.0, "constraint_0": 1.0, "constraint_1": 1.0}
 # Each phase-10 Taylor chain (the network and the closure of its solver's
@@ -1860,6 +1861,28 @@ def _stiff_ode():
     def ode(f, x):
         return D(f, x) - 100 * exp(-2000 * (x - 0.8) ** 2)
     return ode
+
+
+def one_ulp(tree, pattern):
+    """Move every float32 entry of the parameter tree ``tree`` (nested
+    dicts of torch tensors or of arrays) by one ulp up or down or leave
+    it, each with probability 1/3, drawn from ``default_rng(pattern)``
+    over the leaves in sorted key order.  Returns the new tree as numpy
+    arrays: the same fit seen through another rounding."""
+    rng = np.random.default_rng(pattern)
+
+    def move(node):
+        if isinstance(node, dict):
+            return {key: move(node[key]) for key in sorted(node)}
+        a = np.array(node.detach().cpu() if hasattr(node, "detach")
+                     else node)
+        if a.dtype != np.float32:
+            return a
+        step = rng.integers(-1, 2, size=a.shape)
+        up = np.nextafter(a, np.float32(np.inf))
+        down = np.nextafter(a, np.float32(-np.inf))
+        return np.where(step > 0, up, np.where(step < 0, down, a))
+    return move(tree)
 
 
 def _stiff_exact(xs):
@@ -2028,7 +2051,8 @@ def phase_collocation():
     counters set to 0 just before and read just after each arm:
     adaptive (examples/09) against uniform fits, RBA (the stiff ODE of
     BENCHMARKS.md:722-745 on a fixed batch) against the fixed batch alone,
-    both on seeds 0-5; causal ``w3`` at eps 0 and 5 against its plain fit,
+    both on seeds 0-5 (RBA's each read over its views, ``RBA_VIEWS``);
+    causal ``w3`` at eps 0 and 5 against its plain fit,
     then eps annealed on the cached step; grad balancing on the raw beam of
     tests/test_loss_balancing.py (order 4: the plain traversal) against
     unbalanced fits; NTK balancing on examples/31's Helmholtz equation and
@@ -2097,9 +2121,11 @@ def phase_collocation():
     assert adaptive["step"]["taylor_fwd_kernel_per_step"] == 2.0
     assert adaptive["step"]["taylor_bwd_kernel_per_step"] == 1.0
     # The example's own claim, adaptive < 0.6 x uniform, is reported on
-    # the medians over the seeds (one seed's ratio spreads several-fold in
-    # both packages) and not asserted: pydens_tpu misses it on the same
-    # seeds (UNIFORM_JAX).  Asserted: the paired ratio below 1 on most
+    # the medians over the seeds and not asserted: pydens_tpu misses it on
+    # the same seeds (UNIFORM_JAX), and so does the port in 11 of 13 views
+    # of seeds 0-5 moved by one ulp (``one_ulp``) with nested gradients in
+    # the ansatz, 13 of 13 with its jets (ratios 0.54-1.13 and 0.66-1.27;
+    # PERF.md §6, PR 10).  Asserted: the paired ratio below 1 on most
     # seeds; the adaptive median within 1.5x pydens_tpu's and the largest
     # within 3x; the uniform median within 3x pydens_tpu's.
     log(f"adaptive: the example's 0.6 on the medians: "
@@ -2121,26 +2147,41 @@ def phase_collocation():
     def max_error(solver):
         return float(np.abs(solver.predict(xs).ravel() - truth).max())
 
+    def rba_solver(arm, seed_view):
+        seed, view = seed_view
+        solver = _assert_chain(Solver(_stiff_ode(), seed=seed, **STIFF),
+                               COLLOCATION_CHAINS["ex09"][0])
+        if view:
+            solver.model.load_params(dict(solver.model.params, net=one_ulp(
+                solver.model.params["net"], view)))
+        return solver
+
     start()
     rows, kept = _in_turns(
-        ("rba", "fixed"),
-        lambda arm, seed: _assert_chain(
-            Solver(_stiff_ode(), seed=seed, **STIFF),
-            COLLOCATION_CHAINS["ex09"][0]),
+        ("rba", "fixed"), rba_solver,
         lambda arm: (dict(RBA_FIT, **(dict(rba=RBA_ETA_GAMMA)
                                       if arm == "rba" else {})), True),
-        "rba", RBA_SEEDS, max_error)
+        "rba", [(s, v) for s in COLLOCATION_SEEDS for v in RBA_VIEWS],
+        max_error)
     read("rba")
-    err = {arm: [r["metric"] for r in rs] for arm, rs in rows.items()}
+    err = {arm: np.reshape([r["metric"] for r in rs],
+                           (len(COLLOCATION_SEEDS), len(RBA_VIEWS))).tolist()
+           for arm, rs in rows.items()}
+    per_seed = {a: np.median(v, axis=1) for a, v in err.items()}
     rba = dict(max_error=err, it_s=rates(rows),
-               median={a: float(np.median(v)) for a, v in err.items()},
-               max={a: float(np.max(v)) for a, v in err.items()},
+               seed_medians={a: v.tolist() for a, v in per_seed.items()},
+               median={a: float(np.median(v)) for a, v in per_seed.items()},
+               max={a: float(np.max(v)) for a, v in per_seed.items()},
                step=graph_launches(list(
                    kept["rba"]._step_cache.values())[0]),
                fixed_step=graph_launches(list(
                    kept["fixed"]._step_cache.values())[0]))
-    log(f"rba: max error {json.dumps(err)}; median {rba['median']}, max "
-        f"{rba['max']} (bounds {RBA_BOUNDS}); launches per replayed step "
+    log(f"rba: max error by seed and view {json.dumps(err)}; each seed's "
+        f"median over its views {json.dumps(rba['seed_medians'])}; their "
+        f"median {rba['median']}, max {rba['max']} (bounds {RBA_BOUNDS}; "
+        "the unmoved views alone: median "
+        f"{float(np.median([e[0] for e in err['rba']])):.4f}, max "
+        f"{max(e[0] for e in err['rba']):.4f}); launches per replayed step "
         f"{json.dumps(rba['step'])}")
     assert rba["step"]["taylor_fwd_kernel_per_step"] == 1.0
     assert rba["step"]["taylor_bwd_kernel_per_step"] == 1.0

@@ -25,7 +25,8 @@ from torch import nn
 from . import jets
 from .jets import Jet
 from .layout import make_layout_network, make_modified_mlp_network
-from ..ops.tokens import as_device, member_scope, variable_scope
+from ..ops.tokens import (as_device, member_scope, member_value,
+                          variable_scope)
 from ..ops import fused_mlp, fused_taylor
 
 __all__ = ["Model", "ConvBlockModel", "TorchModel", "resolve_device"]
@@ -267,15 +268,6 @@ class Model(nn.Module):
         """Member-major rows ``(K * N, c)`` as ``(K, N, c)``."""
         return (xs if self.n_models == 1
                 else xs.reshape(self.n_models, -1, xs.shape[-1]))
-
-    def _per_row(self, value, n_rows):
-        """A per-member scalar (``(K,)``) as an ``(n_rows, 1)`` column of
-        member-major rows; a single model's 0-d value as it is."""
-        if self.n_models == 1:
-            return value
-        K = self.n_models
-        return value.reshape(K, 1, 1).expand(K, n_rows // K, 1).reshape(
-            n_rows, 1)
 
     def trainable_mask(self, params):
         """Boolean tree matching ``params``: True where trainable.
@@ -583,8 +575,9 @@ class Model(nn.Module):
             t = coord(self.ndims - 1)
             ic = self._condition("initial_condition", self.initial_condition,
                                  xs, p, n_out)
-            gate = jets.sigmoid((t - t0) / self._per_row(
-                torch.exp(params["log_scale"]), rows)) - 0.5
+            gate = jets.sigmoid((t - t0) / member_value(
+                torch.exp(params["log_scale"]), self.n_models,
+                rows // self.n_models)) - 0.5
             ic_decay = 1.0
             if self.periodic_dims and self._ic_decay_engaged():
                 # The opt-in decay, on a fixed timescale of a quarter of

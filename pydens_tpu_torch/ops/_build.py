@@ -119,3 +119,20 @@ def check_operand(name, t, shape):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
+
+
+def check_packed(packed, x, plan):
+    """Validate a kernel's points ``x`` ``(n, plan.in_dim)`` and packed
+    weights ``(P,)``, or ``(K, P)`` for an ensemble's K members, on the
+    points' device; returns ``n``."""
+    n = x.shape[0]
+    check_operand("x", x, (n, plan.in_dim))
+    if packed.dim() not in (1, 2):
+        raise ValueError(f"packed weights of shape {tuple(packed.shape)}: "
+                         "expected (P,) or, for an ensemble, (K, P)")
+    check_operand("packed", packed,
+                  tuple(packed.shape[:-1]) + (plan.n_params,))
+    if packed.device != x.device:
+        raise ValueError(f"packed weights on {packed.device}, points on "
+                         f"{x.device}")
+    return n

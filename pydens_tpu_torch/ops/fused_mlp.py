@@ -16,9 +16,10 @@ from __future__ import annotations
 
 import torch
 
-from ._build import (MAX_SHARED_BYTES, check_operand, launch_checked,
+from ._build import (MAX_SHARED_BYTES, check_packed, launch_checked,
                      load_library)
-from .fused_taylor import SIGMOID, SIN, TANH, _sm_count, act_kind
+from .fused_taylor import (SIGMOID, SIN, TANH, _per_member, _sm_count,
+                           act_kind)
 
 __all__ = ["supports", "refusal", "MlpPlan", "fused_mlp_forward",
            "fused_mlp_forward_plain"]
@@ -157,8 +158,8 @@ class MlpPlan:
         persistent blocks, the ``blocks_per_sm`` on each of ``sm_count``
         SMs shared by the members (at least one each), at most one per
         tile."""
-        return min(-(-n // self.tile),
-                   max(1, sm_count * blocks_per_sm // n_members))
+        return _per_member(sm_count * blocks_per_sm, -(-n // self.tile),
+                           n_members)
 
     def kernel_args(self):
         """``(staged, in_dim, wmax, max_stack, tile)``: the sizes the C
@@ -196,16 +197,7 @@ def fused_mlp_forward(packed, x, plan):
                            "under torch.no_grad()")
     if x.device.type == "cpu":
         return fused_mlp_forward_plain(packed, x, plan)
-    n = x.shape[0]
-    check_operand("x", x, (n, plan.in_dim))
-    if packed.dim() not in (1, 2):
-        raise ValueError(f"packed weights of shape {tuple(packed.shape)}: "
-                         "expected (P,) or, for an ensemble, (K, P)")
-    check_operand("packed", packed,
-                  tuple(packed.shape[:-1]) + (plan.n_params,))
-    if packed.device != x.device:
-        raise ValueError(f"packed weights on {packed.device}, points on "
-                         f"{x.device}")
+    n = check_packed(packed, x, plan)
     out = torch.empty(tuple(packed.shape[:-1]) + (n, plan.out_dim),
                       dtype=x.dtype, device=x.device)
     if n == 0:

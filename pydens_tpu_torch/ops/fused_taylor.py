@@ -36,8 +36,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..models.layout import ACTIVATIONS
-from ._build import (MAX_SHARED_BYTES, check_operand, launch_checked,
-                     load_library)
+from ._build import (MAX_SHARED_BYTES, check_operand, check_packed,
+                     launch_checked, load_library)
 
 __all__ = ["supports", "TaylorPlan", "FusedTaylor", "fused_taylor_taps",
            "fused_taylor_forward", "fused_taylor_forward_plain",
@@ -348,20 +348,6 @@ def _sm_count(device):
     return _SM_COUNTS[device]
 
 
-def _check_kernel_args(packed, x, plan):
-    n = x.shape[0]
-    check_operand("x", x, (n, plan.in_dim))
-    if packed.dim() not in (1, 2):
-        raise ValueError(f"packed weights of shape {tuple(packed.shape)}: "
-                         "expected (P,) or, for an ensemble, (K, P)")
-    check_operand("packed", packed,
-                  tuple(packed.shape[:-1]) + (plan.n_params,))
-    if packed.device != x.device:
-        raise ValueError(f"packed weights on {packed.device}, points on "
-                         f"{x.device}")
-    return n
-
-
 def _stream_shape(packed, n, plan):
     return tuple(packed.shape[:-1]) + (n, plan.n_streams * plan.out_dim)
 
@@ -373,7 +359,7 @@ def fused_taylor_forward(packed, x, plan):
     for CPU tensors."""
     if x.device.type == "cpu":
         return fused_taylor_forward_plain(packed, x, plan)
-    n = _check_kernel_args(packed, x, plan)
+    n = check_packed(packed, x, plan)
     out = torch.empty(_stream_shape(packed, n, plan), dtype=x.dtype,
                       device=x.device)
     if n == 0:
@@ -434,7 +420,7 @@ def fused_taylor_backward(packed, x, g, plan):
     (:meth:`TaylorPlan.backward_workspace`)."""
     if x.device.type == "cpu":
         return fused_taylor_backward_plain(packed, x, g, plan)
-    n = _check_kernel_args(packed, x, plan)
+    n = check_packed(packed, x, plan)
     K = members(packed)
     check_operand("g", g, _stream_shape(packed, n, plan))
     d_packed = torch.empty(packed.shape, dtype=x.dtype, device=x.device)
@@ -480,7 +466,7 @@ def fused_taylor_jvp(packed, x, v, plan):
     (``v`` then ``(K, P)`` as the weights, each output ``(K, n, ...)``)."""
     if x.device.type == "cpu":
         return fused_taylor_jvp_plain(packed, x, v, plan)
-    n = _check_kernel_args(packed, x, plan)
+    n = check_packed(packed, x, plan)
     check_operand("v", v, tuple(packed.shape))
     shape = _stream_shape(packed, n, plan)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)

@@ -23,8 +23,9 @@ import contextlib
 import numpy as np
 import torch
 
-__all__ = ["Expr", "D", "V", "variable_scope", "member_scope", "as_array",
-           "lift", "EvalContext", "PLAN_MAX_ORDER", "staging", "as_device"]
+__all__ = ["Expr", "D", "V", "variable_scope", "member_scope", "member_value",
+           "as_array", "lift", "EvalContext", "PLAN_MAX_ORDER", "staging",
+           "as_device"]
 
 # Highest derivative order the Taylor plan will schedule (Bell(n) activation
 # terms and 2^n - 1 ansatz cross terms grow steeply past it); deeper nesting
@@ -382,9 +383,12 @@ def member_scope(n_models, rows):
         _MEMBER_SCOPES.pop()
 
 
-def _member_value(value, n_models, rows):
-    """An ensemble variable ``(K,) + S`` as member-major rows: ``(K * rows,
-    c)`` for ``S`` of ``()``, ``(c,)`` or ``(1, c)``."""
+def member_value(value, n_models, rows):
+    """A per-member value ``(K,) + S`` as member-major rows: ``(K * rows,
+    c)`` for ``S`` of ``()``, ``(c,)`` or ``(1, c)``; a single model's
+    value as it is."""
+    if n_models == 1:
+        return value
     shape = tuple(value.shape[1:])
     if len(shape) > 2 or (len(shape) == 2 and shape[0] != 1):
         raise ValueError(
@@ -443,6 +447,6 @@ def V(name, *args, **kwargs):
             f"V({name!r}): variable was not created during Solver "
             "initialization. Variables must be reachable from the equation "
             "or initial condition at Solver construction time.")
-    if _MEMBER_SCOPES and _MEMBER_SCOPES[-1][0] > 1:
-        return _member_value(store[name], *_MEMBER_SCOPES[-1])
+    if _MEMBER_SCOPES:
+        return member_value(store[name], *_MEMBER_SCOPES[-1])
     return store[name]

@@ -7,6 +7,8 @@ read from chip_smoke.py.
     python tests/collocation_seed_study.py torch    # pydens_tpu_torch
     python tests/collocation_seed_study.py jax 6 18 uniform   # seeds 6-17
     python tests/collocation_seed_study.py torch_cuda 0 24 rba  # on the card
+    python tests/collocation_seed_study.py torch_cuda 0 6 rba,fixed 0-8
+        # and with theta of each seed moved by one ulp, patterns 1-8
 
 Three studies, seeds 0-5 each unless given:
 
@@ -23,6 +25,15 @@ Three studies, seeds 0-5 each unless given:
   and with ``causal=5.0``; the plain MSE of the trained solver over 50
   batches of 1500 fresh points (the sampler's host draws, the same in both
   packages).
+
+The fourth argument names one arm, several joined by commas, or
+``all``.  A fifth, ``k`` or ``a-b``, runs the arms once for each pattern
+``k`` in it, and a pattern ``k`` > 0 moves every float32 entry of each seed's
+initial network parameters by one ulp, up, down or not at all, in a
+pattern drawn from ``numpy.random.default_rng(k)`` over the leaves in
+sorted key order (``chip_smoke.one_ulp``; pattern 0 is the seed's own
+draw): the same fit seen through another rounding, to tell a fit's
+spread under rounding from a change of method.
 
 Prints one JSON line per fit, then one with the medians and maxima.
 """
@@ -48,9 +59,10 @@ ARMS = {
 }
 
 
-def study(pkg_name, arm, seeds):
+def study(pkg_name, arm, seeds, pattern=0):
     """``arm``'s metric for each seed of ``seeds`` (a list), printing one
-    JSON line per fit."""
+    JSON line per fit; ``pattern`` > 0 moves each initial network by one
+    ulp (``chip_smoke.one_ulp``)."""
     if pkg_name == "jax":
         import jax
         jax.config.update("jax_platforms", "cpu")
@@ -114,6 +126,14 @@ def study(pkg_name, arm, seeds):
     values = []
     for seed in seeds:
         s = solver(seed)
+        if pattern:
+            net = cs.one_ulp(s.model.params["net"], pattern)
+            if pkg_name == "jax":
+                import jax.numpy as jnp
+                s.model.params = dict(s.model.params, net=jax.tree.map(
+                    jnp.asarray, net))
+            else:
+                s.model.load_params(dict(s.model.params, net=net))
         t0 = time.perf_counter()
         if arm.startswith("w3"):
             s.fit(sampler=w3_sampler(), progress=False, **ARMS[arm])
@@ -131,14 +151,16 @@ def study(pkg_name, arm, seeds):
             metric = "max_error"
         values.append(value)
         print(json.dumps({"package": pkg_name, "arm": arm, "seed": seed,
-                          metric: value, "wall_s": wall}), flush=True)
+                          "ulp_pattern": pattern, metric: value,
+                          "wall_s": wall}), flush=True)
     return values
 
 
-def main(pkg_name, seeds=cs.COLLOCATION_SEEDS, only=None):
-    results = {arm: study(pkg_name, arm, list(seeds)) for arm in ARMS
-               if only is None or arm == only}
-    print(json.dumps({"package": pkg_name, "summary": {
+def main(pkg_name, seeds=cs.COLLOCATION_SEEDS, only=None, pattern=0):
+    results = {arm: study(pkg_name, arm, list(seeds), pattern)
+               for arm in ARMS if only is None or arm in only}
+    print(json.dumps({"package": pkg_name, "ulp_pattern": pattern,
+                      "summary": {
         arm: {"median": float(np.median(v)), "max": float(np.max(v)),
               "values": v} for arm, v in results.items()},
         "adaptive_over_uniform": [a / u for a, u in
@@ -149,7 +171,10 @@ def main(pkg_name, seeds=cs.COLLOCATION_SEEDS, only=None):
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    main(args[0] if args else "torch",
-         range(int(args[1]), int(args[2])) if len(args) > 2
-         else cs.COLLOCATION_SEEDS,
-         args[3] if len(args) > 3 else None)
+    first, _, last = (args[4] if len(args) > 4 else "0").partition("-")
+    for k in range(int(first), int(last or first) + 1):
+        main(args[0] if args else "torch",
+             range(int(args[1]), int(args[2])) if len(args) > 2
+             else cs.COLLOCATION_SEEDS,
+             args[3].split(",") if len(args) > 3 and args[3] != "all"
+             else None, k)
