@@ -8,6 +8,7 @@
     python3 chip_smoke.py --collocation   # phases 1, 2 and 10 only
     python3 chip_smoke.py --model-features   # phases 1, 2 and 11 only
     python3 chip_smoke.py --ensembles  # phases 1, 2 and 12 only
+    python3 chip_smoke.py --symbolic   # phases 1, 2 and 13 only
     python3 chip_smoke.py --w3-repeat  # w3's eager fit, repeated
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -107,7 +108,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    tangents a LM step, one MLP launch a predict, ``predict_all`` and
    ``predict_std``; then examples/08's configuration at K = 1 and 8 and
    the 64-wide fit at K = 1 and 4, in turns: it/s, device ops and busy ms
-   a replayed step.
+   a replayed step;
+13. the symbolic layer and the separable model (``phase_symbolic``)
+   through the public Solver at the examples' widths, budgets and bounds:
+   examples/17 (``laplace`` in 3D, 2,500 steps at 2,048 Halton points, max
+   error < 0.05; ``predict_grad`` at 10,000 points, one Taylor forward
+   launch a call, against the analytic gradient), /22 (a ``Field``,
+   10,000 + 20,000 steps at 256, rel_s < 0.06 and err_u < 0.005), /24
+   (``laplace`` on the L-shape, rel < 0.03), whose planned chains launch
+   both Taylor kernels every step; the separable /26 (Poisson 3D on a 32^3
+   grid, rel < 0.02; ``predict_grid`` on 65^3 timed against ``predict`` of
+   the same 274,625 points and held equal to it), /27 (wave 2+1D, rel <
+   0.05) and /28 (causal Allen-Cahn, three stages of 4,000 steps in one
+   graph, rels[0] < 0.05, rels[-1] < 0.15), which launch none; and
+   tests/test_dtype.py's ODE in bfloat16 (max error < 0.2, float32
+   results).  Each arm prints it/s, points/s and, from ``torch.profiler``
+   over 5 replays of its step's graph, device ops, busy ms and Taylor
+   launches a step.
 
 Every fit of phases 4-8 runs the package's path: on the card a fit step
 is captured as a CUDA graph once per configuration and replayed.  A
@@ -133,7 +150,10 @@ and its 6-stream closure at 65,537, the ODE finisher's chain and the
 shared memory a block), and the member axis of the four kernels
 (``MEMBER_ROWS``: examples/08's chain at 400 points and the MLP at 10,000
 for K = 1, 3 and 8, the 64-wide chain at 65,537 points for K = 4), each
-member's slice against a single launch on its weights.
+member's slice against a single launch on its weights, and phase 13's
+chains (``SYMBOLIC_CHAINS``: examples/17's 3D Laplacian at 2,048 points
+and its first-order ``predict_grad`` plan at 10,000, examples/22's chain
+at 256, examples/24's at 1,024; the MLP at their predicts).
 
 Prints one JSON line of per-kernel results, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -686,6 +706,11 @@ def phase_kernels():
     tut_taylor.update({f"p11_{c}_n{n}": check_taylor(n=n, reps=200, **chain)
                        for c, (chain, counts, _)
                        in FEATURE_CHAINS.items() for n in counts})
+    # Phase 13's chains: examples/17's 3D Laplacian (7 streams) and its
+    # predict_grad plan (first-order streams only), examples/22 and /24.
+    tut_taylor.update({f"p13_{c}_n{n}": check_taylor(n=n, reps=200, **chain)
+                       for c, (chain, counts, _)
+                       in SYMBOLIC_CHAINS.items() for n in counts})
     # The tangent kernel (Levenberg-Marquardt's J v): the README chain at
     # the finishers' 1,024 points, the 64-wide chain and the 6-stream
     # closure, the ODE finisher's chain, and the 128-wide chain of phase
@@ -706,6 +731,12 @@ def phase_kernels():
                                            act=chain["act"])
                     for c, (chain, _, predicts) in COLLOCATION_CHAINS.items()
                     for n in predicts})
+    # Phase 13's predicts.
+    tut_mlp.update({f"p13_{c}_n{n}": check_mlp(
+        chain["layout"], chain["features"], chain["in_dim"], n, reps=200,
+        act=chain["act"])
+        for c, (chain, _, predicts) in SYMBOLIC_CHAINS.items()
+        for n in predicts})
     # Phase 11's predicts, the embedded ones at their embedded widths.
     tut_mlp.update({f"p11_{c}_n{n}": check_mlp(
         chain["layout"], chain["features"], chain["in_dim"], n,
@@ -3045,6 +3076,419 @@ def phase_ensembles():
     return path, rows
 
 
+# Phase 13: the symbolic layer and the separable model.  Each Taylor chain
+# of the phase at the point counts its fits and predict_grad give it, and
+# the MLP kernel at its predicts; phase 3 holds each against its plain
+# version and phase 13 asserts that each solver's chain is the one held.
+LAPLACE3 = [(0,), (1,), (2,), (0, 0), (1, 1), (2, 2)]
+SYMBOLIC_CHAINS = {
+    # examples/17: the 3D Laplacian at batch 2,048 (7 streams); the
+    # example's predict on 2,000 points.
+    "ex17": (dict(layout="fa fa f", features=[48, 48, 1], act="Tanh",
+                  in_dim=3, closure=LAPLACE3), (2048,), (2000,)),
+    # examples/17's predict_grad plan: first-order streams only, 10,000.
+    "ex17_grad": (dict(layout="fa fa f", features=[48, 48, 1], act="Tanh",
+                       in_dim=3, closure=[(0,), (1,), (2,)]), (10000,), ()),
+    # examples/22: u'' = s(x) at 256; its predicts on 100 points.
+    "ex22": (dict(layout="fa fa f", features=[24, 24, 1], act="Tanh",
+                  in_dim=1, closure=[(0,), (0, 0)]), (256,), (100,)),
+    # examples/24: the L-shape Laplacian at 1,024; its predict on 2,000.
+    "ex24": (dict(layout="fa fa fa f", features=[32, 32, 32, 1], act="Tanh",
+                  in_dim=2, closure=POISSON_CLOSURE), (1024,), (2000,)),
+}
+EX17_GRAD_POINTS = 10000
+EX26_GRID = 65                 # predict_grid's axis: 65 ** 3 = 274,625
+EX26_DENSE = 256               # and a dense one: 256 ** 3 = 16,777,216
+
+
+def _symbolic_counters():
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    from pydens_tpu_torch.ops import fused_taylor as ft
+    return (ft.fused_taylor_forward, ft.fused_taylor_backward,
+            fm.fused_mlp_forward)
+
+
+def _symbolic_fit(solver, tag, kernels, grid_dims=None, **fit):
+    """One fit through graphs (``collocation_fit``: every step ran, the
+    Taylor kernels launched as the design says, or never); it/s and
+    points/s, the points of a step being the batch, or batch ** d on a
+    separable model's grid."""
+    row = collocation_fit(solver, tag, kernels, **fit)
+    points = fit["batch_size"] ** (grid_dims or 1)
+    row.update(points_s=row["it_s"] * points, points_a_step=points)
+    log(f"symbolic {tag}: {row['it_s']:.1f} it/s, {row['points_s']:.4g} "
+        f"points/s ({points} a step)")
+    return row
+
+
+def _symbolic_profile(solver, row, kernels, tag):
+    """``torch.profiler`` over 5 replays of the solver's last fit step's
+    graph, after the arm's checks (the replays train on): device ops and
+    busy ms a step, and the Taylor launches a replayed step, one of each
+    for a planned chain and none on a grid (asserted)."""
+    prof = graph_launches(list(solver._step_cache.values())[-1],
+                          kernels=kernels)
+    per_step = [prof[f"{k}_per_step"] for k in TAYLOR_KERNELS]
+    assert per_step == ([1.0, 1.0] if kernels else [0.0, 0.0]), (tag, prof)
+    row.update(prof)
+    log(f"symbolic {tag}: a replayed step {prof['device_ops']:.1f} device "
+        f"ops, {prof['device_busy_ms']:.4f} ms busy, Taylor launches "
+        f"{per_step}")
+    return row
+
+
+def _timed_host(fn, reps=3):
+    """``(result, mean host ms)`` of ``fn`` (a synchronize on both sides;
+    the first call outside the mean)."""
+    out = fn()
+    walls = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.mean(walls))
+
+
+def _one_launch(counter, fn):
+    """``fn()``, asserted to launch ``counter``'s kernel exactly once."""
+    before = counter.launches
+    out = fn()
+    assert counter.launches == before + 1, (counter.__name__,
+                                            counter.launches - before)
+    return out
+
+
+def _arm_ex17():
+    """examples/17: laplace in 3D, Halton points, 2,500 Adam steps at
+    2,048; max error < 0.05; predict_grad at 10,000 points, one Taylor
+    forward launch a call, against the analytic gradient."""
+    from pydens_tpu_torch import HaltonSampler, Solver, laplace, sin
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    from pydens_tpu_torch.ops import fused_taylor as ft
+
+    def pde(f, x, y, z):
+        return laplace(f, x, y, z) + 3 * np.pi ** 2 * (
+            sin(np.pi * x) * sin(np.pi * y) * sin(np.pi * z))
+
+    s = _assert_chain(Solver(pde, ndims=3, boundary_condition=0, seed=0,
+                             layout="fa fa f", features=[48, 48, 1],
+                             activation="Tanh"),
+                      SYMBOLIC_CHAINS["ex17"][0])
+    assert s._plan_ok
+    row = _symbolic_fit(s, "ex17", True, niters=2500, batch_size=2048,
+                        lr=2e-3, sampler=HaltonSampler(dim=3))
+    edge = np.linspace(0, 1, 5)
+    assert np.max(np.abs(s.predict(np.zeros(5), edge, edge[::-1]))) < 1e-6
+    pts = np.random.default_rng(0).uniform(size=(2000, 3)).astype(np.float32)
+    pred = _one_launch(fm.fused_mlp_forward, lambda: s.predict(pts)).ravel()
+    err = float(np.max(np.abs(pred - np.prod(np.sin(np.pi * pts), axis=1))))
+    assert err < 0.05, err
+    gpts = np.random.default_rng(1).uniform(
+        size=(EX17_GRAD_POINTS, 3)).astype(np.float32)
+    grad, grad_ms = _timed_host(lambda: _one_launch(
+        ft.fused_taylor_forward, lambda: s.predict_grad(gpts)))
+    first = tuple(SYMBOLIC_CHAINS["ex17_grad"][0]["closure"])
+    assert s.model._taylor_plans[first] is not None   # the kernel's scope
+    sn, cs = np.sin(np.pi * gpts), np.cos(np.pi * gpts)
+    true = np.pi * np.stack([cs[:, 0] * sn[:, 1] * sn[:, 2],
+                             sn[:, 0] * cs[:, 1] * sn[:, 2],
+                             sn[:, 0] * sn[:, 1] * cs[:, 2]], axis=1)
+    assert grad.shape == (EX17_GRAD_POINTS, 3) and np.isfinite(grad).all()
+    grad_err = float(np.max(np.abs(grad - true)))
+    row.update(err_max=err, predict_grad_err_max=grad_err,
+               predict_grad_rel_l2=float(np.linalg.norm(grad - true)
+                                         / np.linalg.norm(true)),
+               predict_grad_ms=grad_ms)
+    log(f"symbolic ex17: max err {err:.4f} (< 0.05); predict_grad at "
+        f"{EX17_GRAD_POINTS} points {grad_ms:.3f} ms, one Taylor forward "
+        f"launch a call, max |grad - exact| {grad_err:.4f} (|grad| <= "
+        f"{np.pi:.2f}), rel-L2 {row['predict_grad_rel_l2']:.4f}")
+    return _symbolic_profile(s, row, True, "ex17")
+
+
+def _arm_ex22():
+    """examples/22: the unknown source field, 10,000 + 20,000 steps at 256
+    (the data term weighted 1,000); rel_s < 0.06, err_u < 0.005."""
+    from pydens_tpu_torch import D, Field, Solver
+    rng = np.random.default_rng(0)
+    obs_x = rng.uniform(0, 1, (64, 1)).astype(np.float32)
+    obs_u = torch.as_tensor(np.sin(np.pi * obs_x), device="cuda")
+    s_field = Field("s", features=[16, 1])
+    s = _assert_chain(Solver(
+        lambda f, x: D(D(f, x), x) - s_field(x), ndims=1, seed=0,
+        boundary_condition=0, layout="fa fa f", features=[24, 24, 1],
+        activation="Tanh", constraints=lambda f, x: f(obs_x) - obs_u),
+        SYMBOLIC_CHAINS["ex22"][0])
+    assert s._plan_ok
+    terms = {"equation": 1.0, "constraint_0": 1000.0}
+    rows = [_symbolic_fit(s, f"ex22 stage {i}", True, niters=n,
+                          batch_size=256, lr=lr, loss_terms=terms)
+            for i, (n, lr) in enumerate(((10000, 5e-3), (20000, 1e-3)))]
+    xs = np.linspace(0, 1, 100)
+    s_hat = s_field.predict(s, xs).ravel()
+    s_true = -np.pi ** 2 * np.sin(np.pi * xs)
+    rel_s = float(np.linalg.norm(s_hat - s_true) / np.linalg.norm(s_true))
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    u = _one_launch(fm.fused_mlp_forward, lambda: s.predict(xs)).ravel()
+    err_u = float(np.max(np.abs(u - np.sin(np.pi * xs))))
+    log(f"symbolic ex22: field rel-L2 {rel_s:.4f} (< 0.06), solution max "
+        f"err {err_u:.5f} (< 0.005)")
+    assert rel_s < 0.06, rel_s
+    assert err_u < 0.005, err_u
+    _symbolic_profile(s, rows[-1], True, "ex22 stage 1")
+    return dict(stages=rows, rel_s=rel_s, err_u=err_u)
+
+
+def _lshape_exact(p):
+    r = np.sqrt(p[:, 0] ** 2 + p[:, 1] ** 2)
+    th = np.mod(np.arctan2(p[:, 1], p[:, 0]), 2 * np.pi)
+    return (r ** (2 / 3)) * np.sin(2 * th / 3)
+
+
+def _lshape_boundary(n):
+    """examples/24's arc-length-uniform points on the L's six segments."""
+    t = (np.arange(n) + 0.5) / n * 8.0
+    pts = np.zeros((n, 2))
+    seg = [((0, 1), lambda s: np.c_[s, 0 * s]),
+           ((1, 2), lambda s: np.c_[1 + 0 * s, s - 1]),
+           ((2, 4), lambda s: np.c_[3 - s, 1 + 0 * s]),
+           ((4, 6), lambda s: np.c_[-1 + 0 * s, 5 - s]),
+           ((6, 7), lambda s: np.c_[s - 7, -1 + 0 * s]),
+           ((7, 8), lambda s: np.c_[0 * s, s - 8])]
+    for (lo, hi), fn in seg:
+        m = (t >= lo) & (t < hi)
+        pts[m] = fn(t[m])
+    return pts.astype(np.float32)
+
+
+def _arm_ex24():
+    """examples/24: laplace on the L-shape, 4,000 steps at 1,024 from the
+    geometry sampler, the boundary data weighted 500; rel-L2 < 0.03."""
+    from pydens_tpu_torch import GeometrySampler, Solver, laplace
+    from pydens_tpu_torch.ops import fused_mlp as fm
+
+    def inside(p):
+        return ~((p[..., 0] > 0) & (p[..., 1] < 0))
+
+    bp = _lshape_boundary(512)
+    gb = torch.as_tensor(_lshape_exact(bp).reshape(-1, 1).astype(np.float32),
+                         device="cuda")
+    s = _assert_chain(Solver(
+        lambda f, x, y: laplace(f, x, y), ndims=2, seed=0,
+        domain=[(-1, 1), (-1, 1)], layout="fa fa fa f",
+        features=[32, 32, 32, 1], activation="Tanh",
+        constraints=lambda f, x, y: f(bp[:, 0:1], bp[:, 1:2]) - gb),
+        SYMBOLIC_CHAINS["ex24"][0])
+    row = _symbolic_fit(
+        s, "ex24", True, niters=4000, batch_size=1024, lr=3e-3,
+        sampler=GeometrySampler(inside, bbox=[(-1, 1), (-1, 1)],
+                                oversample=4, seed=0),
+        loss_terms={"equation": 1.0, "constraint_0": 500.0})
+    ev = GeometrySampler(inside, bbox=[(-1, 1), (-1, 1)], oversample=4,
+                         seed=99).sample(2000).astype(np.float32)
+    truth = _lshape_exact(ev)
+    pred = _one_launch(fm.fused_mlp_forward, lambda: s.predict(ev)).ravel()
+    rel = float(np.linalg.norm(pred - truth) / np.linalg.norm(truth))
+    log(f"symbolic ex24: rel-L2 {rel:.4f} (< 0.03)")
+    assert rel < 0.03, rel
+    row["rel_l2"] = rel
+    return _symbolic_profile(s, row, True, "ex24")
+
+
+def _arm_ex26():
+    """examples/26: separable Poisson 3D, [32, 32, 32], 500 steps on a 32^3
+    grid; rel-L2 < 0.02 from predict_grid on the 65^3 grid, timed against
+    predict at the same 274,625 points and held equal to it; the device
+    time of each one's forward (CUDA events, on device inputs), and both
+    calls again on a 256^3 grid."""
+    from pydens_tpu_torch import D, SeparableModel, Solver, sin
+
+    def poisson(f, x, y, z):
+        return (D(D(f, x), x) + D(D(f, y), y) + D(D(f, z), z)
+                + 3 * np.pi ** 2 * sin(np.pi * x) * sin(np.pi * y)
+                * sin(np.pi * z))
+
+    s = Solver(poisson, ndims=3, boundary_condition=0.0,
+               model=SeparableModel, layout="fa fa f", features=[32, 32, 32],
+               activation="Tanh", seed=0)
+    assert not s._plan_ok and not s.model.supports_taylor
+    row = _symbolic_fit(s, "ex26", False, grid_dims=3, niters=500,
+                        batch_size=32, lr=2e-3)
+    g = np.linspace(0, 1, EX26_GRID)
+    grid, grid_ms = _timed_host(lambda: s.predict_grid(g, g, g))
+    pts = np.stack([c.ravel() for c in np.meshgrid(g, g, g, indexing="ij")],
+                   axis=1).astype(np.float32)
+    flat, flat_ms = _timed_host(lambda: s.predict(pts))
+    np.testing.assert_allclose(grid.reshape(-1, 1), flat, rtol=2e-5,
+                               atol=2e-5)
+    sn = np.sin(np.pi * g)
+    true = sn[:, None, None] * sn[None, :, None] * sn[None, None, :]
+    rel = float(np.linalg.norm(grid[..., 0] - true) / np.linalg.norm(true))
+    params = s.model.params
+    leaves = [torch.as_tensor(g, dtype=torch.float32, device="cuda").reshape(
+        (1,) * k + (-1,) + (1,) * (3 - k)) for k in range(3)]
+    xs = torch.as_tensor(pts, device="cuda")
+    with torch.no_grad():
+        grid_dev = time_ms(lambda: s.model.apply_leaves(params, leaves), 20)
+        flat_dev = time_ms(lambda: s.model.predict_apply(params, xs), 20)
+    del xs
+    d = np.linspace(0, 1, EX26_DENSE)
+    _, dense_grid_ms = _timed_host(lambda: s.predict_grid(d, d, d), reps=1)
+    dense = np.stack([c.ravel() for c in np.meshgrid(d, d, d, indexing="ij")],
+                     axis=1).astype(np.float32)
+    _, dense_ms = _timed_host(lambda: s.predict(dense), reps=1)
+    del dense
+    log(f"symbolic ex26: rel-L2 {rel:.5f} (< 0.02); predict_grid "
+        f"{EX26_GRID}^3 {grid_ms:.3f} ms, predict of the same "
+        f"{pts.shape[0]} points {flat_ms:.3f} ms (x{flat_ms / grid_ms:.2f}),"
+        f" equal within rtol/atol 2e-5; their forwards on the device "
+        f"{grid_dev:.4f} / {flat_dev:.4f} ms; at {EX26_DENSE}^3 "
+        f"{dense_grid_ms:.2f} / {dense_ms:.2f} ms")
+    assert rel < 0.02, rel
+    row.update(rel_l2=rel, predict_grid_ms=grid_ms, predict_ms=flat_ms,
+               predict_points=int(pts.shape[0]),
+               predict_grid_device_ms=grid_dev, predict_device_ms=flat_dev,
+               dense_predict_grid_ms=dense_grid_ms, dense_predict_ms=dense_ms,
+               dense_points=EX26_DENSE ** 3)
+    return _symbolic_profile(s, row, False, "ex26")
+
+
+def _arm_ex27():
+    """examples/27: separable wave 2+1D, 700 steps on a 32^3 grid, both
+    initial conditions; rel-L2 < 0.05 on the 21^3 grid."""
+    from pydens_tpu_torch import D, SeparableModel, Solver, sin
+
+    def wave(f, x, y, t):
+        return D(D(f, t), t) - D(D(f, x), x) - D(D(f, y), y)
+
+    s = Solver(wave, ndims=3, boundary_condition=0.0,
+               initial_condition=lambda x, y: sin(np.pi * x)
+               * sin(np.pi * y), initial_condition_t=0.0,
+               model=SeparableModel, layout="fa fa f", features=[32, 32, 32],
+               activation="Tanh", seed=0)
+    row = _symbolic_fit(s, "ex27", False, grid_dims=3, niters=700,
+                        batch_size=32, lr=2e-3)
+    g = np.linspace(0, 1, 21)
+    pred = s.predict_grid(g, g, g)[..., 0]
+    X, Y, T = np.meshgrid(g, g, g, indexing="ij")
+    true = (np.sin(np.pi * X) * np.sin(np.pi * Y)
+            * np.cos(np.sqrt(2) * np.pi * T))
+    rel = float(np.linalg.norm(pred - true) / np.linalg.norm(true))
+    log(f"symbolic ex27: rel-L2 {rel:.5f} (< 0.05)")
+    assert rel < 0.05, rel
+    row["rel_l2"] = rel
+    return _symbolic_profile(s, row, False, "ex27")
+
+
+def _allen_cahn_truth(nx=512, nt=2001, t_evals=(0.25, 0.5, 1.0)):
+    """examples/28's 512-mode Fourier spectral RK4 ground truth."""
+    x = np.linspace(-1, 1, nx, endpoint=False)
+    k = np.fft.fftfreq(nx, d=2.0 / nx) * 2 * np.pi
+    u = (x ** 2) * np.cos(np.pi * x)
+    dt = 1.0 / (nt - 1)
+
+    def rhs(u):
+        return (1e-4 * np.real(np.fft.ifft(-(k ** 2) * np.fft.fft(u)))
+                + 5 * (u - u ** 3))
+
+    out = {}
+    for i in range(nt - 1):
+        k1 = rhs(u)
+        k2 = rhs(u + dt / 2 * k1)
+        k3 = rhs(u + dt / 2 * k2)
+        k4 = rhs(u + dt * k3)
+        u = u + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+        t = (i + 1) * dt
+        for te in t_evals:
+            if abs(t - te) < dt / 2:
+                out[te] = u.copy()
+    return x, out
+
+
+def _arm_ex28():
+    """examples/28: separable Allen-Cahn, 10 harmonics, three causal stages
+    (eps 1, 5, 20) of 4,000 steps on a 64^2 grid, one graph for all (eps is
+    a buffer); rel-L2 at t = 0.25 < 0.05 and at t = 1 < 0.15."""
+    from pydens_tpu_torch import D, SeparableModel, Solver, cos
+
+    def allen_cahn(f, x, t):
+        return D(f, t) - 1e-4 * D(D(f, x), x) - 5.0 * (f - f ** 3)
+
+    s = Solver(allen_cahn, ndims=2, seed=0, domain=[(-1, 1), (0, 1)],
+               initial_condition=lambda x: x ** 2 * cos(np.pi * x),
+               periodic={0: 10}, periodic_ic_decay=False,
+               model=SeparableModel, activation="Tanh",
+               layout="fa fa fa f", features=[64, 64, 64, 64])
+    rows = [_symbolic_fit(s, f"ex28 eps {eps:g}", False, grid_dims=2,
+                          niters=4000, batch_size=64, lr=1e-3, causal=eps,
+                          chunk_size=4000)
+            for eps in (1.0, 5.0, 20.0)]
+    eager, replays, graphs = fit_tally(s)
+    assert len(s._step_cache) == 1 and graphs == 1 and eager == 1, (
+        eager, replays, graphs)
+    x_ref, truths = _allen_cahn_truth()
+    rels = []
+    for te, ut in sorted(truths.items()):
+        pred = s.predict(x_ref, np.full_like(x_ref, te)).ravel()
+        rels.append(float(np.linalg.norm(pred - ut) / np.linalg.norm(ut)))
+    log(f"symbolic ex28: rel-L2 at t = 0.25 / 0.5 / 1.0 "
+        + " / ".join(f"{r:.4f}" for r in rels)
+        + f" (< 0.05 first, < 0.15 last); one graph for the three stages "
+        f"({eager} eager step, {replays} replays)")
+    assert rels[0] < 0.05 and rels[-1] < 0.15, rels
+    _symbolic_profile(s, rows[-1], False, "ex28")
+    return dict(stages=rows, rels=rels)
+
+
+def _arm_bf16():
+    """tests/test_dtype.py's ODE in bfloat16 on the card: 400 steps at 400,
+    max error < 0.2, float32 results."""
+    from pydens_tpu_torch import Solver
+    s = Solver(_ode(), seed=0, dtype=torch.bfloat16, **ODE)
+    row = collocation_fit(s, "bf16", False, niters=400, batch_size=400,
+                          lr=0.02)
+    xs = np.linspace(0, 1, 50)
+    out = {"predict": s.predict(xs), "residual": s.residual(xs),
+           "predict_grad": s.predict_grad(xs)}
+    assert all(v.dtype == np.float32 for v in out.values()), out
+    assert s.params["net"]["fc1"]["w"].dtype == torch.bfloat16
+    err = float(np.max(np.abs(out["predict"].ravel() - _ode_truth(xs))))
+    log(f"symbolic bf16: {row['it_s']:.1f} it/s, max err {err:.4f} (< 0.2), "
+        "float32 results")
+    assert err < 0.2, err
+    row["err_max"] = err
+    return _symbolic_profile(s, row, False, "bf16")
+
+
+SYMBOLIC_ARMS = {"ex17": _arm_ex17, "ex22": _arm_ex22, "ex24": _arm_ex24,
+                 "ex26": _arm_ex26, "ex27": _arm_ex27, "ex28": _arm_ex28,
+                 "bf16": _arm_bf16}
+
+
+def phase_symbolic():
+    """Phase 13, the symbolic layer and the separable model through the
+    public Solver with graphs, at the examples' widths, budgets and bounds:
+    examples/17 (``laplace`` in 3D, and ``predict_grad``), /22 (a
+    ``Field``), /24 (``laplace`` on the L-shape), whose planned chains take
+    both Taylor kernels on every step; the separable /26 (Poisson 3D, with
+    ``predict_grid`` against ``predict``), /27 (wave 2+1D) and /28 (causal
+    Allen-Cahn), which launch none; and a bfloat16 fit.  The launch
+    counters are set to 0 just before the phase and read just after."""
+    counters = _symbolic_counters()
+    for c in counters:
+        c.launches = 0
+    rows = {}
+    for name, arm in SYMBOLIC_ARMS.items():
+        rows[name] = arm()
+        free_card()
+    path = {c.__name__: c.launches for c in counters}
+    log(f"symbolic path launches (counted from 0 before the phase): {path}")
+    assert all(path.values()), path
+    return path, rows
+
+
 def carry_probe(steps, out_dir=os.path.join("build", "carry")):
     """Runs ``steps`` in this one process, in order: earlier phases by name,
     phase 11's arms (``FEATURE_ARMS``), and ``deterministic``, which turns
@@ -3663,6 +4107,11 @@ def main():
                   flush=True)
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--symbolic"]:
+        with _plain_refused():
+            print(json.dumps({"symbolic": phase_symbolic()[1]}), flush=True)
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:2] == ["--carry"]:
         carry_probe(sys.argv[2].split(","), *sys.argv[3:4])
         print(smi, flush=True)
@@ -3696,13 +4145,17 @@ def main():
     with _plain_refused():
         ensemble_launches, ensembles = phase_ensembles()
     print(json.dumps({"ensembles": ensembles}), flush=True)
+    with _plain_refused():
+        symbolic_launches, symbolic = phase_symbolic()
+    print(json.dumps({"symbolic": symbolic}), flush=True)
     path_launches = {k: {"w1": launches[k],
                          **{w: t[0][k] for w, t in tutorials.items()},
                          **{f"p10_{arm}": n[k] for arm, n
                             in collocation_launches.items()},
                          **{f"p11_{arm}": n[k] for arm, n
                             in feature_launches.items()},
-                         "p12_ensembles": ensemble_launches[k]}
+                         "p12_ensembles": ensemble_launches[k],
+                         "p13_symbolic": symbolic_launches.get(k, 0)}
                      for k in launches}
     # Launches on the card: the Taylor kernels once per fit step (eager or
     # replayed), the MLP kernel once per predict (never captured).

@@ -10,23 +10,29 @@ on the CPU their plain PyTorch versions run instead.
 """
 
 from .ops.tokens import D, V, Expr, lift
+from .ops.fields import Field
+from .ops.functional import grad, div, laplace, hessian_diag, dt, dn
 from .ops.math import (sin, cos, tan, arcsin, arccos, arctan, arctan2, sinh,
                        cosh, tanh, exp, expm1, log, log1p, log2, log10, sqrt,
                        square, power, sign, maximum, minimum, where, clip,
                        sigmoid, softplus, erf)
-from .models import Model, ConvBlockModel, TorchModel
+from .models import Model, ConvBlockModel, TorchModel, SeparableModel
 from .solver import Solver
 from .samplers import (Sampler, NumpySampler, NS, ConstantSampler,
                        HistoSampler, ScipySampler, ProductSampler,
                        MixtureSampler, GeometrySampler, BoundarySampler,
                        HaltonSampler)
+from .utils.grids import cart_prod, uniform_grid
 from .interop import params_from_jax
 
 __version__ = "0.5.0"
 
 __all__ = [
-    "Solver", "D", "V", "Expr", "lift", "Model", "ConvBlockModel",
-    "TorchModel", "params_from_jax",
+    "Solver", "D", "V", "Field", "Expr", "lift",
+    "grad", "div", "laplace", "hessian_diag", "dt", "dn",
+    "cart_prod", "uniform_grid",
+    "Model", "ConvBlockModel", "TorchModel", "SeparableModel",
+    "params_from_jax",
     "Sampler", "NumpySampler", "NS", "ConstantSampler", "HistoSampler",
     "ScipySampler", "ProductSampler", "MixtureSampler", "GeometrySampler",
     "BoundarySampler", "HaltonSampler",

@@ -192,7 +192,11 @@ class Model(nn.Module):
 
         self.log_scale = nn.Parameter(
             torch.zeros((), dtype=dtype, device=self.device))
+        # The V-token variables (and a Field's leaves), under keys of
+        # their own: a module's parameter name cannot hold the dots of
+        # ``kappa.fc1.w``.
         self.variables = nn.ParameterDict()
+        self._variable_keys = {}   # name -> key in self.variables
         self.periodic_dims = ()   # set by models with a periodic embedding
         # The decaying IC binding of a periodic model: True opts in, False
         # keeps the persistent binding silently, None keeps it after the
@@ -231,7 +235,12 @@ class Model(nn.Module):
     def params(self):
         """The live parameter tree (``nn.Parameter`` leaves)."""
         return {"net": self.network_params(), "log_scale": self.log_scale,
-                "variables": dict(self.variables.items())}
+                "variables": {name: self.variables[key] for name, key
+                              in self._variable_keys.items()}}
+
+    def variable(self, name):
+        """The parameter of the ``V`` variable (or Field leaf) ``name``."""
+        return self.variables[self._variable_keys[name]]
 
     def set_variables(self, values):
         """Create the ``V``-token variables from their initial values (in
@@ -241,7 +250,9 @@ class Model(nn.Module):
                                     device=self.device)
             if self.n_models > 1:
                 value = value.expand((self.n_models,) + value.shape).clone()
-            self.variables[name] = nn.Parameter(value)
+            key = self._variable_keys.setdefault(
+                name, f"v{len(self._variable_keys)}")
+            self.variables[key] = nn.Parameter(value)
         self._params_ready = True
 
     def make_ensemble(self, n_models):

@@ -25,7 +25,7 @@ import torch
 
 __all__ = ["Expr", "D", "V", "variable_scope", "member_scope", "member_value",
            "as_array", "lift", "EvalContext", "PLAN_MAX_ORDER", "staging",
-           "as_device"]
+           "as_device", "to_host"]
 
 # Highest derivative order the Taylor plan will schedule (Bell(n) activation
 # terms and 2^n - 1 ansatz cross terms grow steeply past it); deeper nesting
@@ -90,6 +90,16 @@ def as_device(value, device, dtype=None):
                 "compute changing values with torch from the coordinates")
         store[key] = torch.as_tensor(value, dtype=dtype, device=device)
     return store[key]
+
+
+def to_host(t):
+    """A tensor's values as a numpy array; bfloat16 and float16 as float32
+    (exact: numpy has no bfloat16, and each of their values is a float32
+    value)."""
+    t = t.detach()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.cpu().numpy()
 
 
 def _const(a, ref):
@@ -303,15 +313,37 @@ def lift(tfn):
     return wrapped
 
 
+def _grid_tangent(y, leaf):
+    """Per-point partial of ``y`` w.r.t. a broadcast-shaped grid leaf
+    ``(1, .., N_c, .., 1, 1)`` (a separable model's axis ``c``): forward
+    mode, ``J 1``, by the double-vjp identity ``d/dv (J^T v) . 1``.  Every
+    grid point depends on exactly one row of the leaf, so ``J 1`` is the
+    derivative at each point, where the reverse-mode gradient of
+    ``y.sum()`` would sum it over every other grid axis.  Both pullbacks
+    keep their graphs, so it composes to any order and mix of axes."""
+    if not y.requires_grad:
+        return torch.zeros_like(y)
+    v = torch.zeros_like(y, requires_grad=True)
+    g, = torch.autograd.grad(y, leaf, v, create_graph=True, allow_unused=True)
+    if g is None:
+        return torch.zeros_like(y)
+    out, = torch.autograd.grad(g, v, torch.ones_like(g), create_graph=True,
+                               allow_unused=True)
+    return torch.zeros_like(y) if out is None else out
+
+
 def _batch_diagonal_grad(y, leaf):
     """Per-point partial of every column of ``y`` w.r.t. the ``(N, 1)`` leaf
     column (one ``autograd.grad`` per output column; graph kept for the
-    outer derivative and the parameter gradient)."""
+    outer derivative and the parameter gradient); w.r.t. a grid leaf by
+    :func:`_grid_tangent`."""
     if not leaf.requires_grad:
         raise RuntimeError(
             "D(y, x) took the nested-gradient path on a coordinate leaf "
             "that does not require grad; evaluate equations through the "
             "Solver")
+    if leaf.ndim > 2:
+        return _grid_tangent(y, leaf)
     if not y.requires_grad:  # constant w.r.t. the coordinates
         return torch.zeros_like(y if y.ndim == 2 else leaf)
 
@@ -366,7 +398,7 @@ def D(y, x):
 
 
 _VAR_SCOPES = []  # stack of (mode, store, device)
-_MEMBER_SCOPES = []  # stack of (n_models, rows per member)
+_MEMBER_SCOPES = []  # stack of (n_models, rows per member or grid shape)
 
 
 @contextlib.contextmanager
@@ -375,8 +407,11 @@ def member_scope(n_models, rows):
     member's value repeated over its ``rows`` member-major rows, so that
     ``(n_models * rows, c)`` residuals and conditions broadcast against
     their own member's value as a single model's ``(rows, c)`` ones do
-    against its value."""
-    _MEMBER_SCOPES.append((int(n_models), int(rows)))
+    against its value.  On a separable model's grid ``rows`` is the grid's
+    shape ``(N_1, .., N_d)`` and the residuals ``(n_models, N_1, .., N_d,
+    c)``."""
+    _MEMBER_SCOPES.append((int(n_models), tuple(int(r) for r in rows)
+                           if isinstance(rows, (tuple, list)) else int(rows)))
     try:
         yield
     finally:
@@ -385,8 +420,9 @@ def member_scope(n_models, rows):
 
 def member_value(value, n_models, rows):
     """A per-member value ``(K,) + S`` as member-major rows: ``(K * rows,
-    c)`` for ``S`` of ``()``, ``(c,)`` or ``(1, c)``; a single model's
-    value as it is."""
+    c)`` for ``S`` of ``()``, ``(c,)`` or ``(1, c)``; on a grid of shape
+    ``rows`` (a tuple), ``(K, 1, .., 1, c)``; a single model's value as it
+    is."""
     if n_models == 1:
         return value
     shape = tuple(value.shape[1:])
@@ -395,6 +431,8 @@ def member_value(value, n_models, rows):
             f"an ensemble's V variable of shape {shape} per member: only "
             "scalars, (c,) and (1, c) broadcast per point")
     c = shape[-1] if shape else 1
+    if isinstance(rows, tuple):
+        return value.reshape((n_models,) + (1,) * len(rows) + (c,))
     return value.reshape(n_models, 1, c).expand(n_models, rows, c).reshape(
         n_models * rows, c)
 

@@ -1,8 +1,9 @@
 """Solver: trains a neural network to satisfy a differential equation.
 
 Counterpart of ``pydens_tpu/solver.py`` with the same public surface for the
-ported slice (``__init__`` / ``fit`` / ``predict`` / ``reshape_and_concat``
-/ ``.losses`` / ``.model``) and the same reference quirks:
+ported slice (``__init__`` / ``fit`` / ``predict`` / ``predict_grad`` /
+``predict_grid`` / ``reshape_and_concat`` / ``.losses`` / ``.model``) and
+the same reference quirks:
 
 * ``V``-token variables are discovered by a fake run of model + equation
   at construction (``model_torch.py:319-325``) — here a real forward on one
@@ -42,7 +43,7 @@ import torch
 from .models import ConvBlockModel
 from .models.base import resolve_device
 from .ops.tokens import (Expr, EvalContext, _batch_diagonal_grad,
-                         as_array, as_device, member_scope, staging,
+                         as_array, as_device, member_scope, staging, to_host,
                          variable_scope)
 from .utils.criteria import member_losses, resolve_criterion
 from .utils.optimizers import LBFGS, LMConfig, resolve_optimizer
@@ -667,7 +668,10 @@ class Solver:
         kwargs (``layout``, ``features``/``units``, ``activation``,
         ``periodic``, ``fourier_features``, ``arch``, ``branches``,
         ``adaptive_activation``, ``initial_condition_t``,
-        ``periodic_ic_decay``, ...).
+        ``periodic_ic_decay``, ...).  With
+        :class:`~pydens_tpu_torch.SeparableModel` a fit trains on the
+        tensor-product grid of each batch's columns (``batch_size`` points
+        per axis, the default sampler over the declared domain).
     constraints : callable or sequence of callables, optional
         ``constraint(f, *coords)``, where ``f`` evaluates the model at any
         points (``f(np.array([0.5]))``; ``D`` works on ``f(x, ...)`` of
@@ -796,6 +800,8 @@ class Solver:
         self._plan_ok = (ctx.plan_ok and bool(ctx.derivs)
                          and self.model.supports_taylor)
         self.model.set_variables(registry)
+        if getattr(self.model, "separable", False):
+            self._probe_grid()
         # Copies: on the CPU the variables share the registry's memory.
         self._initial_variables = {k: np.array(v) for k, v in
                                    registry.items()}
@@ -805,6 +811,41 @@ class Solver:
             self.model.make_ensemble(self.n_models)
             self._init_generator.manual_seed(seed)
             self.model.reset_parameters(self._init_generator)
+
+    def _probe_grid(self):
+        """A separable model's grid-shape probe (``pydens_tpu/solver.py:
+        389-425``): the equation once on broadcast-shaped axis leaves of
+        DISTINCT sizes; a residual that collapses a grid axis is rejected.
+        The classic trap is the pointwise component slice ``f[:, 0:1]`` —
+        axis 1 of a separable field is a GRID axis; the portable spelling
+        ``f[..., k:k+1]`` works for both model kinds."""
+        total = self.model.total
+        sizes = tuple(2 + k for k in range(total))
+        spans = list(self.model.domain) + [(0.0, 1.0)] * self.model.nparams
+        leaves = [torch.linspace(
+            0.75 * float(lo) + 0.25 * float(hi),
+            0.25 * float(lo) + 0.75 * float(hi), sizes[k],
+            dtype=self.model.dtype, device=self.device).reshape(
+                (1,) * k + (sizes[k],) + (1,) * (total - k)
+            ).requires_grad_(True) for k, (lo, hi) in enumerate(spans)]
+        params = self.model.params
+        with variable_scope("read", params["variables"]):
+            ctx = EvalContext(leaves)
+            f = Expr(lambda: self.model.apply_leaves(params, ctx.leaves), ctx,
+                     deriv=())
+            coords = [Expr(_leaf_fn(ctx, k), ctx, leaf_index=k)
+                      for k in range(total)]
+            shapes = [tuple(as_array(r).shape)
+                      for r in _as_residual_list(self.equation(f, *coords))]
+        for j, shape in enumerate(shapes):
+            if shape[:total] != sizes:
+                raise ValueError(
+                    f"residual {j} of the equation has shape {shape} "
+                    f"on a {sizes} collocation grid — a grid axis was "
+                    "collapsed.  On a separable model the field is "
+                    "grid-shaped: slice solution components with "
+                    "f[..., k:k+1] (not the pointwise f[:, k:k+1]) and "
+                    "keep all math elementwise/broadcasting")
 
     @property
     def params(self):
@@ -827,7 +868,7 @@ class Solver:
         self.model.reset_parameters(self._init_generator)
         with torch.no_grad():
             for name, value in self._initial_variables.items():
-                self.model.variables[name].copy_(torch.as_tensor(value))
+                self.model.variable(name).copy_(torch.as_tensor(value))
         self.losses = []
         self.history = []
         self._opt = None
@@ -936,9 +977,8 @@ class Solver:
         derivative w.r.t. coordinate column ``k`` at fixed points (Neumann
         and Robin conditions); ``wrt`` also takes a multi-index tuple, e.g.
         ``wrt=(0, 0)`` for the second derivative.  In an ensemble fixed
-        points are evaluated by every member (member-major rows, one
-        block a member); coordinate expressions already hold a row block
-        a member."""
+        points are evaluated by every member, ``(K, n, c)``; coordinate
+        expressions already hold a row block a member."""
         model = self.model
         K = self.n_models
 
@@ -947,6 +987,13 @@ class Solver:
                 return xs_c
             return xs_c.repeat(K, 1)
 
+        def per_member(out, pts):
+            """Fixed points' member-major rows as ``(K, n, c)``, so that a
+            per-point target ``(n, c)`` broadcasts against each member."""
+            if K == 1 or any(isinstance(p, Expr) for p in pts):
+                return out
+            return out.reshape(K, -1, out.shape[-1])
+
         def fwd(*pts):
             if any(isinstance(p, Expr) for p in pts):
                 def fn():
@@ -954,8 +1001,8 @@ class Solver:
                             for p in pts]
                     return model.apply(params, self._concat_points(vals))
                 return Expr(fn, ctx)
-            return model.apply(params, members(
-                self._concat_points(list(pts)), pts))
+            return per_member(model.apply(params, members(
+                self._concat_points(list(pts)), pts)), pts)
 
         def fwd_grad(*pts, wrt=0):
             xs_c = members(self._concat_points(
@@ -968,7 +1015,7 @@ class Solver:
                 out = model.apply(params, torch.cat(cols, dim=1))
                 for k in multi:
                     out = _batch_diagonal_grad(out, cols[k])
-            return out
+            return per_member(out, pts)
 
         fwd.grad = fwd_grad
         return fwd
@@ -1022,25 +1069,39 @@ class Solver:
         K = self.n_models
         spec = self._spec()
         plan_derivs = self._plan_derivs if use_plan else None
+        # A separable model trains on the tensor-product grid of the batch's
+        # columns (pydens_tpu/solver.py:1270-1285); one column is a grid of
+        # one axis, the pointwise path.
+        on_grid = getattr(model, "separable", False) and total > 1
 
         def term_values(theta, pts, with_equation=eq_weight is not None,
-                        with_constraints=True):
+                        with_constraints=True, grid=on_grid):
             """The equation's residuals (None without ``with_equation``)
             and the requested constraints' values at ``theta``; an
             ensemble's ``(K * N, ...)`` member-major rows, the ``N`` points
             repeated for each member, each member's derivative leaves its
-            own rows."""
+            own rows.  With ``grid`` the leaves are the columns of ``pts``
+            as broadcast-shaped axes ``(1, .., N, .., 1, 1)``: the residuals
+            are ``(N, .., N, c)`` (an ensemble's ``(K, N, .., N, c)``)."""
             params = spec.unflatten(theta)
             with_constraints = with_constraints and bool(nums)
-            rows = pts if K == 1 else pts.repeat(K, 1)
-            if plan_derivs is None or with_constraints:
-                leaves = [rows[:, k:k + 1].detach().requires_grad_(True)
+            n = pts.shape[0]
+            if grid:
+                leaves = [pts[:, k].reshape((1,) * k + (n,)
+                                            + (1,) * (total - k))
+                          .detach().requires_grad_(True)
                           for k in range(total)]
+                scope = member_scope(K, (n,) * total)
             else:
-                leaves = [rows[:, k:k + 1] for k in range(total)]
+                rows = pts if K == 1 else pts.repeat(K, 1)
+                if plan_derivs is None or with_constraints:
+                    leaves = [rows[:, k:k + 1].detach().requires_grad_(True)
+                              for k in range(total)]
+                else:
+                    leaves = [rows[:, k:k + 1] for k in range(total)]
+                scope = member_scope(K, n)
             residuals, values = None, []
-            with variable_scope("read", params["variables"]), \
-                    member_scope(K, pts.shape[0]):
+            with variable_scope("read", params["variables"]), scope:
                 table = (model.full_taps(params, pts, plan_derivs)
                          if plan_derivs is not None else None)
                 ctx = EvalContext(leaves, table=table)
@@ -1086,11 +1147,43 @@ class Solver:
             w_pt = torch.exp(-eps * cum)[bins]
             return torch.sum(w_pt * sq) / w_pt.sum().clamp(min=1e-30)
 
+        def causal_grid_term(residuals, pts, eps):
+            """Causal weighting on a separable grid
+            (``pydens_tpu/solver.py:715-748``): the time axis is a grid
+            axis, so each time SAMPLE gets its exact slice-mean squared
+            residual L; the weights ``exp(-eps * cumulative earlier L /
+            total L)`` over the samples sorted by time, without gradient,
+            self-normalized, so eps = 0 is the plain MSE.  An ensemble's
+            per member."""
+            t_idx = causal[0]
+            lead = 0 if K == 1 else 1
+            sq = 0.0
+            for res in residuals:
+                if res.dim() == total + lead:   # component axis already gone
+                    res = res[..., None]
+                sq = sq + torch.mean(res * res, dim=-1)
+            other = tuple(lead + a for a in range(total) if a != t_idx)
+            L = torch.mean(sq.detach(), dim=other)      # lead + (N_t,)
+            order = torch.argsort(pts[:, t_idx].detach())
+            L = L.index_select(-1, order)
+            cum = torch.cat([torch.zeros_like(L[..., :1]),
+                             torch.cumsum(L, -1)[..., :-1]], dim=-1)
+            cum = cum / (cum[..., -1:] + L[..., -1:]).clamp(min=1e-30)
+            w = torch.exp(-eps * cum).index_select(-1, torch.argsort(order))
+            w_b = w.reshape(w.shape[:lead] + (1,) * t_idx + (-1,)
+                            + (1,) * (total - 1 - t_idx))
+            n_other = sq[0].numel() if lead else sq.numel()
+            n_other //= w.shape[-1]     # the grid's cross-section
+            return (torch.sum((w_b * sq).flatten(lead), -1)
+                    / (w.sum(-1) * n_other).clamp(min=1e-30))
+
         def terms(residuals, values, leaf, pts, point_weight=None,
                   causal_eps=None):
             """The unweighted terms, in ``term_order``."""
             out = []
-            if residuals is not None and causal is not None:
+            if residuals is not None and causal is not None and on_grid:
+                out.append(causal_grid_term(residuals, pts, causal_eps))
+            elif residuals is not None and causal is not None:
                 out.append(causal_term(residuals, pts, causal_eps))
             elif residuals is not None and variational:
                 out.append(sum(member_mean_of(res) for res in residuals))
@@ -1137,7 +1230,8 @@ class Solver:
 
         def point_residual(theta, pts):
             residuals, _, leaf = term_values(theta, pts, with_equation=True,
-                                             with_constraints=False)
+                                             with_constraints=False,
+                                             grid=False)
             return member_mean(_abs_residual(residuals, leaf))
 
         lead = () if K == 1 else (K,)
@@ -1185,13 +1279,25 @@ class Solver:
     def _sample(self, sampler, n, batch_size):
         """``(n, batch_size, total)`` collocation points on the device: the
         default U(0, 1) quirk and samplers with a device path draw from the
-        Solver's generator; the others on the host."""
+        Solver's generator; the others on the host.  A separable model's
+        ``batch_size`` is points per axis, and its default sampler draws
+        the declared domain (parameter columns U(0, 1)): it has no
+        reference quirk to keep (``pydens_tpu/solver.py:998-1011``)."""
         total = self.model.total
         if sampler is None:
             # Reference quirk: U(0, 1) per column, ignoring `domain`.
-            return torch.rand((n, batch_size, total),
-                              generator=self._generator, device=self.device,
-                              dtype=self.model.dtype)
+            pts = torch.rand((n, batch_size, total),
+                             generator=self._generator, device=self.device,
+                             dtype=self.model.dtype)
+            if getattr(self.model, "separable", False):
+                dom = (list(self.model.domain)
+                       + [(0.0, 1.0)] * self.model.nparams)
+                lo, span = (torch.as_tensor(
+                    np.asarray(v, np.float32), dtype=self.model.dtype,
+                    device=self.device) for v in (
+                        [d[0] for d in dom], [d[1] - d[0] for d in dom]))
+                pts = lo + span * pts
+            return pts
         if getattr(sampler, "supports_device", False):
             pts = sampler.sample_device(self._generator, n * batch_size)
             return pts.to(self.model.dtype).reshape(n, batch_size, total)
@@ -1605,6 +1711,17 @@ class Solver:
                     "the Adam phase, then polish without it")
             rba_cfg = (eta, gamma)
 
+        if getattr(self.model, "separable", False):
+            # Tensor-product-grid training: adaptive refinement and RBA
+            # weights assume a flat batch of independent points.
+            if adaptive is not None:
+                raise ValueError("adaptive collocation is per-point; a "
+                                 "separable model trains on a tensor-product "
+                                 "grid — drop adaptive=")
+            if rba_cfg is not None:
+                raise ValueError("rba weights are per flat batch point; not "
+                                 "supported for separable grid training")
+
         causal_eps = 0.0
         if causal is None and causal_axis is not None:
             raise ValueError(
@@ -1778,27 +1895,31 @@ class Solver:
             self._residual_fn = self._build_loss_fn(
                 (("equation", 1.0),), lambda a, b: 0.0,
                 use_plan=bool(self._plan_ok)).point_residual
-        x = torch.as_tensor(self._normalize_inputs(xs),
-                            dtype=self.model.dtype, device=self.device)
+        x = self._device_inputs(xs)
         theta = self._spec().flatten(self.model.params)
         with torch.enable_grad():
             out = self._residual_fn(theta.detach(), x)
-        return out.detach().cpu().numpy()
+        return to_host(out)
+
+    def _device_inputs(self, xs):
+        return torch.as_tensor(self._normalize_inputs(xs),
+                               dtype=self.model.dtype, device=self.device)
 
     def _predict_raw(self, xs):
-        x = torch.as_tensor(self._normalize_inputs(xs),
-                            dtype=self.model.dtype, device=self.device)
-        return self.model.predict_apply(self.model.params, x)
+        return self.model.predict_apply(self.model.params,
+                                        self._device_inputs(xs))
 
     def predict(self, *xs):
         """Evaluate the trained solution at the supplied points: arrays,
         numbers (tiled to the batch), lists, or one ``(N, ndims+nparams)``
         array of stacked coordinates.  Returns an ``(N, n_out)`` numpy
-        array; the ensemble mean when ``n_models > 1``."""
+        array; the ensemble mean when ``n_models > 1``.  Results come back
+        in the model's dtype, a bfloat16 model's as float32 (every results
+        method does so)."""
         out = self._predict_raw(xs)
         if self.n_models > 1:
             out = out.mean(0)
-        return out.cpu().numpy()
+        return to_host(out)
 
     def predict_all(self, *xs):
         """Every member's prediction, ``(n_models, N, n_out)`` (``(1, N,
@@ -1807,7 +1928,7 @@ class Solver:
         out = self._predict_raw(xs)
         if self.n_models == 1:
             out = out[None]
-        return out.cpu().numpy()
+        return to_host(out)
 
     def predict_std(self, *xs):
         """The ensemble's pointwise standard deviation over its members
@@ -1815,4 +1936,66 @@ class Solver:
         ``(N, n_out)``.  Requires ``n_models > 1``."""
         if self.n_models <= 1:
             raise ValueError("predict_std requires Solver(n_models > 1)")
-        return self._predict_raw(xs).std(0, correction=0).cpu().numpy()
+        return to_host(self._predict_raw(xs).std(0, correction=0))
+
+    def predict_grad(self, *xs):
+        """First derivatives of the trained solution w.r.t. every coordinate
+        (and parameter) column at the supplied points (the inputs of
+        :meth:`predict`): flux or velocity fields.
+
+        Returns ``(N, ndims+nparams)`` for scalar problems, ``(N,
+        ndims+nparams, n_out)`` for systems; the ensemble mean when
+        ``n_models > 1``.  A model with a Taylor plan computes every first
+        derivative in one traversal (``Model.full_taps``; on the card one
+        launch of the fused Taylor forward kernel); any other takes nested
+        ``D``."""
+        model, K = self.model, self.n_models
+        total = model.total
+        x = self._device_inputs(xs)
+        params = model.params
+        with variable_scope("read", params["variables"]):
+            if model.supports_taylor:
+                with torch.no_grad():
+                    table = model.full_taps(params, x,
+                                            {(a,) for a in range(total)})
+                cols = [table[(a,)] for a in range(total)]
+            else:
+                rows = x if K == 1 else x.repeat(K, 1)
+                leaves = [rows[:, k:k + 1].detach().requires_grad_(True)
+                          for k in range(total)]
+                with torch.enable_grad():
+                    out = model.apply(params, torch.cat(leaves, dim=1))
+                    cols = [_batch_diagonal_grad(out, leaf).detach()
+                            for leaf in leaves]
+        g = torch.stack(cols, dim=1)        # (K * N, total, n_out)
+        if K > 1:
+            g = g.reshape((K, -1) + g.shape[1:]).mean(0)
+        g = to_host(g)
+        return g[..., 0] if g.shape[-1] == 1 else g
+
+    def predict_grid(self, *axes):
+        """Evaluate the trained solution on the tensor-product grid of the
+        given 1-D per-axis arrays; returns ``(N_1, ..., N_d, n_out)``.
+
+        A :class:`~pydens_tpu_torch.SeparableModel` takes the factorized
+        path: ``d`` small MLP evaluations and one ``torch.einsum``, network
+        work that grows with the axes' lengths, not with their product; an
+        ensemble's is the member mean.  Other models take ``meshgrid`` and
+        :meth:`predict` (pointwise cost)."""
+        model, K = self.model, self.n_models
+        total = model.total
+        if len(axes) != total:
+            raise ValueError(f"predict_grid needs one 1-D array per input "
+                             f"column ({total}), got {len(axes)}")
+        axes = [np.asarray(a, np.float32).ravel() for a in axes]
+        if not getattr(model, "separable", False) or total == 1:
+            grids = np.meshgrid(*axes, indexing="ij")
+            out = self.predict(*[g.ravel() for g in grids])
+            return out.reshape(grids[0].shape + (out.shape[-1],))
+        leaves = [torch.as_tensor(a, dtype=model.dtype, device=self.device)
+                  .reshape((1,) * k + (-1,) + (1,) * (total - k))
+                  for k, a in enumerate(axes)]
+        params = model.params
+        with torch.no_grad(), variable_scope("read", params["variables"]):
+            out = model.apply_leaves(params, leaves)
+        return to_host(out.mean(0) if K > 1 else out)

@@ -5,7 +5,10 @@ The training state of a Solver — the parameter tree (network,
 counter, the sampling generator's state, the fit history, the condition
 modes, the frozen names and a balanced fit's live term weights — in a
 format that needs neither jax nor flax: a ``numpy.savez`` archive of
-arrays, with a format tag and one JSON member for what is not an array.  It is written to a temporary file and renamed
+arrays, with a format tag and one JSON member for what is not an array.
+numpy has no bfloat16: a bfloat16 solver's parameters and optimizer state
+are stored as float32 (exact) with the dtype recorded, and load into the
+solver's bfloat16 leaves.  It is written to a temporary file and renamed
 into place, so a crash mid-write keeps the previous checkpoint.  Enough
 state is kept that a resumed run continues the saving run's next fit bit
 for bit on the same device.
@@ -18,6 +21,7 @@ import zipfile
 import numpy as np
 import torch
 
+from ..ops.tokens import to_host
 from ..solver import _tree_leaves
 
 __all__ = ["save_solver", "load_solver"]
@@ -26,7 +30,7 @@ _FORMAT = "pydens_tpu_torch checkpoint 1"
 
 
 def _host(t):
-    return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+    return to_host(t) if torch.is_tensor(t) else np.asarray(t)
 
 
 def save_solver(solver, path, *, params=None, opt_state=None, losses=None,
@@ -57,6 +61,7 @@ def save_solver(solver, path, *, params=None, opt_state=None, losses=None,
         "frozen_variables": sorted(solver.model._frozen_variables),
         "generator_device": solver.device.type,
         "balanced_weights": balanced_weights,
+        "dtype": str(solver.model.dtype),
     }))
     tmp = f"{path}.tmp"
     with open(tmp, "wb") as fh:
@@ -91,6 +96,10 @@ def load_solver(solver, path):
                         for keys, leaf in current.items()
                         if tuple(saved[keys].shape) != tuple(leaf.shape)),
                        None)
+    meta = json.loads(str(data["meta"]))
+    saved_dtype = meta.get("dtype", str(torch.float32))
+    if problem is None and saved_dtype != str(solver.model.dtype):
+        problem = f"dtype {saved_dtype} vs {solver.model.dtype}"
     if problem is not None:
         raise ValueError(f"checkpoint at {path} does not match this solver's "
                          f"model configuration: {problem}")
@@ -99,7 +108,6 @@ def load_solver(solver, path):
             leaf.copy_(torch.from_numpy(saved[keys]))
     solver.losses = data["losses"].tolist()
     solver._step_counter = int(data["step_counter"])
-    meta = json.loads(str(data["meta"]))
     if meta["generator_device"] == solver.device.type:
         solver._generator.set_state(torch.from_numpy(data["generator_state"]))
     solver.history = meta["history"]

@@ -11,7 +11,10 @@ its first 20 steps (where Adam's steps are still large and any
 disagreement would show) and to rtol 1e-3 at its end.  The collocation
 options (adaptive, RBA, causal, grad and NTK balancing) are held so too;
 annealing causal eps replays the captured graph, and the rebalance graph
-replays 10 times a fit.
+replays 10 times a fit.  So are the symbolic layer's and the separable
+model's fits (a Laplacian, a Field, grid fits with causal weighting and
+an ensemble), whose grid leaves are rebuilt from the graph's points
+buffer on every replay.
 """
 
 import gc
@@ -21,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from pydens_tpu_torch import D, NS, Solver, V
+from pydens_tpu_torch import (D, NS, Field, SeparableModel, Solver, V,
+                              laplace)
 from pydens_tpu_torch.ops import fused_taylor
 from pydens_tpu_torch.utils import schedules
 
@@ -549,6 +553,72 @@ def test_rebalance_graph_replays_ten_times_a_fit(mode):
     assert step.eager_steps == 1 and step.replays == 2 * 110 - 1
     w = s.history[-1]["balanced_weights"]
     assert w[0] == 1.0 and np.all(np.isfinite(w))
+
+
+def _laplace3():
+    # examples/17 at a narrower width: the 3D Laplacian, planned.
+    def pde(f, x, y, z):
+        return laplace(f, x, y, z) + 3 * np.pi ** 2 * (
+            torch.sin(np.pi * x) * torch.sin(np.pi * y)
+            * torch.sin(np.pi * z))
+    return pde, dict(ndims=3, boundary_condition=0, layout="fa fa f",
+                     features=[24, 24, 1], activation="Tanh")
+
+
+def _field():
+    # examples/22 at a narrower width: an unknown source Field.
+    obs_x = np.linspace(0.05, 0.95, 32, dtype=np.float32).reshape(-1, 1)
+    obs_u = torch.sin(np.pi * torch.as_tensor(obs_x, device="cuda"))
+    field = Field("s", features=[8, 1])
+    return (lambda f, x: D(D(f, x), x) - field(x),
+            dict(ndims=1, boundary_condition=0, layout="fa f",
+                 features=[16, 1], activation="Tanh",
+                 constraints=lambda f, x: f(obs_x) - obs_u))
+
+
+def _grid_poisson(n_models=1):
+    def pde(f, x, y):
+        return laplace(f, x, y) + 2 * np.pi ** 2 * torch.sin(
+            np.pi * x) * torch.sin(np.pi * y)
+    return pde, dict(ndims=2, boundary_condition=0.0, model=SeparableModel,
+                     layout="fa fa f", features=[16, 16, 16],
+                     activation="Tanh", n_models=n_models)
+
+
+def _grid_heat():
+    def pde(f, x, t):
+        return D(f, t) - 0.25 * D(D(f, x), x)
+    return pde, dict(ndims=2, model=SeparableModel, periodic={0: 2},
+                     initial_condition=lambda x: torch.sin(2 * np.pi * x),
+                     layout="fa fa f", features=[16, 16, 16],
+                     activation="Tanh")
+
+
+SYMBOLIC_FITS = {
+    "laplace": (_laplace3, dict(niters=200, batch_size=512, chunk_size=100)),
+    "field": (_field, dict(niters=200, batch_size=256, chunk_size=100,
+                           loss_terms={"equation": 1.0,
+                                       "constraint_0": 100.0})),
+    "grid": (_grid_poisson, dict(niters=200, batch_size=16, lr=2e-3,
+                                 chunk_size=100)),
+    "grid_causal": (_grid_heat, dict(niters=200, batch_size=16, lr=2e-3,
+                                     causal=5.0, chunk_size=100)),
+    "grid_ensemble": (lambda: _grid_poisson(3),
+                      dict(niters=200, batch_size=16, lr=2e-3,
+                           chunk_size=100)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SYMBOLIC_FITS))
+def test_symbolic_fit_graph_matches_eager(case):
+    # The slice's fits through their graphs against the same fits eagerly:
+    # losses rtol 1e-5 over the first 20 steps and 1e-3 at the end, every
+    # step after the first a replay.
+    _require_cuda()
+    make, fit = SYMBOLIC_FITS[case]
+    graph, eager = _pair(make, [fit])
+    _assert_agree(graph, eager)
 
 
 # examples/16's adaptive Burgers fit (the modified MLP, 8 candidates a

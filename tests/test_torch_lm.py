@@ -367,13 +367,23 @@ def test_lm_rejects_other_criteria_and_unported_modes():
         with pytest.raises(ValueError, match="variational"):
             v.fit(niters=2, batch_size=32, optimizer="LM", progress=False)
     # The mesh case of tests/test_gauss_newton needs a Solver option of a
-    # later item, and the separable model (item 13) is not exported yet.
-    # Its ensemble case runs (test_lm_ensemble_per_member_damping, here 6
-    # of its 20 steps): one (lambda, nu) pair a member.
+    # later item.  Its separable case runs on the grid (test_lm_separable_
+    # grid_training at a narrow width, 5 of its 15 steps: the losses never
+    # rise), and its ensemble case (test_lm_ensemble_per_member_damping,
+    # here 6 of its 20 steps): one (lambda, nu) pair a member.
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         tpdt.Solver(eq, ndims=1, initial_condition=.5, device="cpu",
                     mesh=object())
-    assert not hasattr(tpdt, "SeparableModel")
+    sep = tpdt.Solver(lambda f, x, y: tpdt.D(tpdt.D(f, x), x)
+                      + tpdt.D(tpdt.D(f, y), y) + 2 * (np.pi ** 2)
+                      * tpdt.sin(np.pi * x) * tpdt.sin(np.pi * y), ndims=2,
+                      boundary_condition=0, model=tpdt.SeparableModel,
+                      layout="fa fa f", features=[12, 12, 8], seed=0,
+                      device="cpu")
+    sep.fit(niters=5, batch_size=12, optimizer="LM", resample=False,
+            progress=False)
+    losses = np.asarray(sep.losses)
+    assert np.all(np.diff(losses) <= 1e-12) and losses[-1] < losses[0]
     ens = tpdt.Solver(eq, ndims=1, initial_condition=.5, n_models=2, seed=2,
                       device="cpu")
     ens.fit(niters=6, batch_size=128, optimizer="LM", resample=False,

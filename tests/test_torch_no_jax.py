@@ -100,6 +100,31 @@ s4 = Solver(lambda f, x: 0.5 * D(f, x) ** 2 - f, ndims=1,
             boundary_condition=0, formulation="variational", device="cpu")
 s4.fit(batch_size=32, niters=3, progress=False)
 assert np.isfinite(s3.losses).all() and np.isfinite(s4.losses).all()
+
+# The symbolic layer and the separable model: a Field inverse problem, a
+# laplace fit, predict_grad, a separable fit and predict_grid.
+field = pdt.Field("s", features=[8, 1])
+obs = torch.linspace(0, 1, 8).reshape(-1, 1)
+s5 = Solver(lambda f, x: D(D(f, x), x) - field(x), ndims=1,
+            boundary_condition=0, layout="fa f", features=[8, 1],
+            device="cpu", constraints=lambda f, x: f(obs.numpy()) - obs)
+s5.fit(batch_size=32, niters=3, loss_terms=["equation", "constraint_0"],
+       progress=False)
+assert field.predict(s5, np.linspace(0, 1, 4)).shape == (4, 1)
+s6 = Solver(lambda f, x, y: pdt.laplace(f, x, y) - 1.0, ndims=2,
+            boundary_condition=0, layout="fa f", features=[8, 1],
+            device="cpu")
+assert s6._plan_ok
+s6.fit(batch_size=32, niters=3, progress=False)
+assert s6.predict_grad(np.zeros(4), np.ones(4)).shape == (4, 2)
+s7 = Solver(lambda f, x, y: pdt.laplace(f, x, y) - 1.0, ndims=2,
+            boundary_condition=0, model=pdt.SeparableModel, layout="fa f",
+            features=[8, 4], device="cpu")
+s7.fit(batch_size=8, niters=3, progress=False)
+assert s7.predict_grid(np.linspace(0, 1, 5), np.linspace(0, 1, 3)).shape \
+    == (5, 3, 1)
+assert pdt.uniform_grid([(0, 1), (0, 1)], 3).shape == (9, 2)
+assert all(np.isfinite(s.losses).all() for s in (s5, s6, s7))
 loaded = sorted(n for n in sys.modules
                 if n.split(".")[0] in ("jax", "optax")
                 and sys.modules[n] is not None)

@@ -115,6 +115,13 @@ HOST_CASES = [
     # input column, 2 streams) and the second-IC wave (5 streams)
     ("fa fa f", [32, 32, 2], "Tanh", 1, [(0,)], 90, 2),
     ("fa fa f", [32, 32, 1], "Tanh", 2, [(0,), (1,), (0, 0), (1, 1)], 45, 2),
+    # chip_smoke.py phase 13's chains: examples/17's Laplacian in 3D (7
+    # streams), its predict_grad plan (first-order streams only), and
+    # first-order streams of a 3-output chain of 2 inputs
+    ("fa fa f", [48, 48, 1], "Tanh", 3,
+     [(0,), (1,), (2,), (0, 0), (1, 1), (2, 2)], 40, 1),
+    ("fa fa f", [48, 48, 1], "Tanh", 3, [(0,), (1,), (2,)], 50, 2),
+    ("fa fa f", [16, 16, 3], "Sigmoid", 2, [(0,), (1,)], 33, 1),
 ]
 
 
