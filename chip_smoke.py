@@ -9,6 +9,7 @@
     python3 chip_smoke.py --model-features   # phases 1, 2 and 11 only
     python3 chip_smoke.py --ensembles  # phases 1, 2 and 12 only
     python3 chip_smoke.py --symbolic   # phases 1, 2 and 13 only
+    python3 chip_smoke.py --scale-out  # phases 1, 2 and 14 only
     python3 chip_smoke.py --w3-repeat  # w3's eager fit, repeated
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -124,7 +125,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    tests/test_dtype.py's ODE in bfloat16 (max error < 0.2, float32
    results).  Each arm prints it/s, points/s and, from ``torch.profiler``
    over 5 replays of its step's graph, device ops, busy ms and Taylor
-   launches a step.
+   launches a step;
+14. scale-out and serving (``phase_scale_out``): tests/test_flax_adapter.py's
+   ODE with a torch twin of its net through ``module_model`` (500 Adam
+   steps at batch 400, max error < 0.08; no Taylor kernel); ``w1``
+   exported (``Solver.export``, with and without ``with_grad``) and served
+   by a child process that imports torch alone at 1, 1,000 and 1,048,576
+   points, held to ``predict`` / ``predict_grad`` within rtol / atol 2e-5
+   (export, load and serve ms); ``w1`` and the wide fit with
+   ``mesh=make_mesh()`` (one rank over NCCL) in turns with the same fits
+   without a mesh, held to the graph-vs-eager bounds (bitwise equality
+   reported), one Taylor forward and backward a replayed step
+   (``torch.profiler``) and one all-reduce issued a captured step
+   (``Shards.collectives``: NCCL launches no kernel for one rank);
+   examples/08 (K = 8) on a ``(1, 1)`` ``models x data`` mesh with its
+   bounds; the README ladder on the mesh (phase 9's bounds, 50 tangents a
+   LM step).
 
 Every fit of phases 4-8 runs the package's path: on the card a fit step
 is captured as a CUDA graph once per configuration and replayed.  A
@@ -3489,6 +3505,352 @@ def phase_symbolic():
     return path, rows
 
 
+# Phase 14: scale out and serving.  The module adapter, the serving
+# artifact (held to predict in a process that imports torch alone) and
+# data parallelism on a mesh of one rank over NCCL.
+SERVE_BATCHES = (1, 1000, 1 << 20)
+SERVE_DIR = os.path.join("build", "scale_out")
+# The serving side of the export arm: torch alone (the package and jax are
+# made unimportable), each artifact loaded onto the card and run at every
+# batch; prints one JSON line of its timings.
+SERVE_CHILD = r"""
+import io, json, sys, time
+for name in ("pydens_tpu_torch", "pydens_tpu", "jax"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+from torch.export.passes import move_to_device_pass
+
+MAGIC = b"PDTTORCHEXP1"
+torch.zeros(1, device="cuda")          # the CUDA context, outside the timing
+out, load_ms, serve_ms = {}, {}, {}
+for tag in ("u", "du"):
+    # Loaded twice: the first load in a process also imports the export
+    # machinery (its serializer, sympy).
+    load_ms[tag] = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = open(tag + ".pdtx", "rb").read()
+        assert blob.startswith(MAGIC)
+        program = torch.export.load(io.BytesIO(blob[len(MAGIC):]))
+        fn = move_to_device_pass(program, "cuda").module()
+        fn(torch.zeros((2, 2), device="cuda"))
+        torch.cuda.synchronize()
+        load_ms[tag].append((time.perf_counter() - t0) * 1e3)
+    data = np.load("xs.npz")
+    for name in data.files:
+        xs = torch.from_numpy(data[name]).cuda()
+        with torch.no_grad():
+            res = fn(xs)
+            res = res if isinstance(res, tuple) else (res,)
+            for i, r in enumerate(res):
+                out[f"{tag}_{name}_{i}"] = r.cpu().numpy()
+            if xs.shape[0] == max(int(n[1:]) for n in data.files):
+                walls = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn(xs)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                serve_ms[tag] = float(np.median(walls))
+np.savez("served.npz", **out)
+print(json.dumps({"torch": torch.__version__,
+                  "modules": sorted(n.split(".")[0] for n in sys.modules
+                                    if n.startswith("pydens")
+                                    and sys.modules[n] is not None),
+                  "load_ms": load_ms, "serve_ms": serve_ms}))
+"""
+
+
+def _json_default(o):
+    """numpy values in a JSON line."""
+    if isinstance(o, (np.ndarray, np.generic)):
+        return o.tolist()
+    raise TypeError(f"{type(o).__name__} is not JSON serializable")
+
+
+def _scale_adapter():
+    """tests/test_flax_adapter.py's ODE with a torch twin of its ``Net``
+    (two Tanh layers of 24) through ``module_model``: 500 Adam steps at
+    batch 400, lr 0.01, max error < 0.08; no Taylor kernel (the module has
+    no plan: nested ``D``), the step through graphs."""
+    from pydens_tpu_torch import Solver, module_model
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.Dense_0 = torch.nn.Linear(1, 24)
+            self.Dense_1 = torch.nn.Linear(24, 24)
+            self.Dense_2 = torch.nn.Linear(24, 1)
+
+        def forward(self, x):
+            x = torch.tanh(self.Dense_0(x))
+            return self.Dense_2(torch.tanh(self.Dense_1(x)))
+
+    s = Solver(_ode(), ndims=1, initial_condition=.5,
+               model=module_model(Net()), seed=0)
+    assert not s._plan_ok
+    row = collocation_fit(s, "module_adapter", kernels=False, niters=500,
+                          batch_size=400, lr=0.01)
+    xs = np.linspace(0, 1, 50)
+    err = float(np.abs(s.predict(xs).ravel() - _ode_truth(xs)).max())
+    assert err < 0.08, err
+    prof = graph_launches(list(s._step_cache.values())[-1], kernels=False)
+    row.update(err_max=err, **prof)
+    log(f"scale-out module adapter: max err {err:.5f} (< 0.08), "
+        f"{row['it_s']:.1f} it/s, a replayed step {prof['device_ops']:.1f} "
+        f"device ops, {prof['device_busy_ms']:.4f} ms busy")
+    return row
+
+
+def _scale_export():
+    """``w1`` trained, exported (with and without ``with_grad``) and served
+    by a process that imports torch alone, at 1, 1,000 and 1,048,576
+    points: ``u`` against ``Solver.predict`` (one MLP launch each) and
+    ``du`` against ``predict_grad`` (one Taylor forward launch each),
+    within rtol / atol 2e-5; export and load ms, and the served ms at
+    1,048,576 points against ``predict``'s (host arrays in and out) and
+    ``predict_apply``'s (a device tensor in and out)."""
+    from pydens_tpu_torch import Solver
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    from pydens_tpu_torch.ops import fused_taylor as ft
+    s = Solver(_pde(), seed=0, **README)
+    s.fit(niters=1500, batch_size=100, progress=False)
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    export_ms = {}
+    for tag, grad in (("u", False), ("du", True)):
+        sync()
+        t0 = time.perf_counter()
+        blob = s.export(os.path.join(SERVE_DIR, f"{tag}.pdtx"),
+                        with_grad=grad)
+        export_ms[tag] = (time.perf_counter() - t0) * 1e3
+        log(f"scale-out export ({tag}): {len(blob)} bytes in "
+            f"{export_ms[tag]:.1f} ms")
+    rng = np.random.default_rng(14)
+    xs = {f"n{n}": rng.uniform(size=(n, 2)).astype(np.float32)
+          for n in SERVE_BATCHES}
+    np.savez(os.path.join(SERVE_DIR, "xs.npz"), **xs)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", SERVE_CHILD],
+                          cwd=SERVE_DIR, env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert child["modules"] == [], child
+    served = np.load(os.path.join(SERVE_DIR, "served.npz"))
+    errs = {}
+    for name, x in xs.items():
+        u = _one_launch(fm.fused_mlp_forward, lambda: s.predict(x))
+        du = _one_launch(ft.fused_taylor_forward, lambda: s.predict_grad(x))
+        for tag, got, want in ((f"u_{name}", served[f"u_{name}_0"], u),
+                               (f"du_{name}_u", served[f"du_{name}_0"], u),
+                               (f"du_{name}", served[f"du_{name}_1"][..., 0],
+                                du)):
+            np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5,
+                                       err_msg=tag)
+            errs[tag] = float(np.abs(got - want).max())
+    big = xs[f"n{SERVE_BATCHES[-1]}"]
+    _, predict_ms = _timed_host(lambda: s.predict(big))
+    dev = torch.as_tensor(big, device="cuda")
+    _, apply_ms = _timed_host(lambda: s.model.predict_apply(
+        s.model.params, dev))
+    _, grad_ms = _timed_host(lambda: s.predict_grad(big))
+    n = SERVE_BATCHES[-1]
+    row = dict(export_ms=export_ms, child=child, max_abs_err=errs,
+               predict_ms=predict_ms, predict_apply_ms=apply_ms,
+               predict_grad_ms=grad_ms,
+               served_points_s=n / child["serve_ms"]["u"] * 1e3,
+               predict_points_s=n / predict_ms * 1e3,
+               predict_apply_points_s=n / apply_ms * 1e3)
+    log(f"scale-out serving (torch {child['torch']} alone): load "
+        f"{child['load_ms']} ms; at {n} points the artifact "
+        f"{child['serve_ms']} ms (device tensors), predict {predict_ms:.3f} "
+        f"ms (host arrays), predict_apply {apply_ms:.3f} ms, predict_grad "
+        f"{grad_ms:.3f} ms; max |served - package| {max(errs.values()):.3e}")
+    del s
+    free_card()
+    return row
+
+
+def _collectives_every_step(solver, steps):
+    """The mesh fit's collectives, from ``Shards.collectives`` (counted at
+    each eager step and capture): one all-reduce a step kind run."""
+    from pydens_tpu_torch.parallel.shards import Shards
+    eager, replays, graphs = fit_tally(solver)
+    assert eager + replays == steps, (eager, replays, steps)
+    assert Shards.collectives == eager + graphs, (Shards.collectives, eager,
+                                                  graphs)
+    return Shards.collectives
+
+
+def _nccl_profile(solver):
+    """``graph_launches`` over 5 replays of the solver's step, and the NCCL
+    kernels on the device in the same kind of window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step = list(solver._step_cache.values())[-1]
+    row = graph_launches(step)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            step.index.zero_()
+            step.graph.replay()
+        sync()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    row["nccl_kernels_per_step"] = sum("nccl" in e.name.lower()
+                                       for e in dev) / 5
+    return row
+
+
+def _scale_mesh(mesh):
+    """``w1`` (1,500 steps at batch 100) and the wide fit (WIDE_STEPS at
+    WIDE_BATCH) with ``mesh=make_mesh()`` (one rank, NCCL) in turns with the
+    same fits without a mesh (plain, mesh, mesh, plain): the losses held to
+    the graph-vs-eager bounds (rtol 1e-5 over the first 20 steps, 1e-3 at
+    the end; bitwise equality reported), every step of each, one
+    all-reduce issued a captured step, and from ``torch.profiler`` over
+    replays one Taylor forward and one backward a replayed step, device ops
+    and busy ms with and without the mesh."""
+    from pydens_tpu_torch import Solver
+    from pydens_tpu_torch.parallel.shards import Shards
+    counters = _ensemble_counters()[:2]
+    rows = {}
+    for tag, make, fit in (
+            ("w1", lambda m: Solver(_pde(), seed=0, mesh=m, **README),
+             dict(niters=1500, batch_size=100)),
+            ("wide", lambda m: Solver(_pde(), seed=0, mesh=m, **WIDE),
+             dict(niters=WIDE_STEPS, batch_size=WIDE_BATCH))):
+        arms = {"plain": [], "mesh": []}
+        for arm in ("plain", "mesh", "mesh", "plain"):
+            s = make(mesh if arm == "mesh" else None)
+            before = [c.launches for c in counters]
+            Shards.collectives = 0
+            sync()
+            t0 = time.perf_counter()
+            s.fit(progress=False, **fit)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = {c.__name__: c.launches - b
+                        for c, b in zip(counters, before)}
+            assert_taylor_every_step(s, fit["niters"], launches)
+            issued = (_collectives_every_step(s, fit["niters"])
+                      if arm == "mesh" else Shards.collectives)
+            assert arm == "mesh" or issued == 0
+            arms[arm].append(dict(it_s=fit["niters"] / wall,
+                                  losses=np.asarray(s.losses),
+                                  collectives=issued))
+            if len(arms[arm]) == 1:
+                arms[arm][0]["profile"] = _nccl_profile(s)
+                assert_profiled_taylor(arms[arm][0]["profile"], tag)
+            del s
+            free_card()
+        a, b = arms["plain"][0]["losses"], arms["mesh"][0]["losses"]
+        np.testing.assert_allclose(b[:20], a[:20], rtol=1e-5)
+        np.testing.assert_allclose(b[-1], a[-1], rtol=1e-3)
+        row = {arm: dict(it_s=[r["it_s"] for r in runs],
+                         it_s_mean=float(np.mean([r["it_s"] for r in runs])),
+                         collectives=runs[0]["collectives"],
+                         final_loss=float(runs[0]["losses"][-1]),
+                         **runs[0]["profile"])
+               for arm, runs in arms.items()}
+        row["bitwise_equal"] = bool(np.array_equal(a, b))
+        row["max_rel_diff"] = float(np.max(np.abs(a - b) / np.abs(a)))
+        row["busy_ratio"] = (row["mesh"]["device_busy_ms"]
+                             / row["plain"]["device_busy_ms"])
+        rows[tag] = row
+        log(f"scale-out mesh {tag}: plain {row['plain']['it_s_mean']:.1f} "
+            f"it/s, {row['plain']['device_ops']:.1f} ops, "
+            f"{row['plain']['device_busy_ms']:.4f} ms busy a step; mesh "
+            f"{row['mesh']['it_s_mean']:.1f} it/s, "
+            f"{row['mesh']['device_ops']:.1f} ops, "
+            f"{row['mesh']['device_busy_ms']:.4f} ms busy, NCCL kernels "
+            f"{row['mesh']['nccl_kernels_per_step']} a replayed step, "
+            f"{row['mesh']['collectives']} all-reduces issued (eager step + "
+            f"capture); losses bitwise equal {row['bitwise_equal']}, max rel "
+            f"diff {row['max_rel_diff']:.3e}")
+    return rows
+
+
+def _scale_ensemble():
+    """examples/08 at K = 8 (500 Adam steps at batch 400) on a (1, 1)
+    ``models x data`` mesh, with its bounds (mean max error < 0.05, std
+    mean < 0.05) and both Taylor kernels every step."""
+    from pydens_tpu_torch import Solver, make_mesh
+    counters = _ensemble_counters()[:2]
+    mesh = make_mesh(shape=(1, 1), axis_names=("models", "data"))
+    s = Solver(_ode(), seed=0, n_models=8, mesh=mesh, **ODE)
+    assert s._shards.model_axis == "models" and s._shards.k_local == 8
+    before = [c.launches for c in counters]
+    s.fit(progress=False, **EX08_FIT)
+    launches = {c.__name__: c.launches - b for c, b in zip(counters, before)}
+    assert_taylor_every_step(s, EX08_FIT["niters"], launches)
+    xs = np.linspace(0, 1, 100)
+    mean, std = s.predict(xs), s.predict_std(xs)
+    err = float(np.abs(mean.ravel() - _ode_truth(xs)).max())
+    assert err < 0.05 and std.mean() < 0.05, (err, std.mean())
+    log(f"scale-out ex08 (K=8, models x data (1, 1)): mean max err "
+        f"{err:.4f} (< 0.05), std mean {std.mean():.5f} (< 0.05)")
+    del s
+    free_card()
+    return dict(err_max=err, std_mean=float(std.mean()))
+
+
+def _scale_lm(mesh):
+    """The README ladder on the mesh: Adam 1,500 at batch 100, L-BFGS 200
+    and LM 50 at 1,024 fixed points (phase 9's bounds: L-BFGS below Adam,
+    LM below 1.9e-5), with ``cg_iters`` tangent launches a replayed LM step
+    (``finisher_profile``)."""
+    from pydens_tpu_torch import Solver
+    s = Solver(_pde(), seed=0, mesh=mesh, **README)
+    s.fit(niters=1500, batch_size=100, progress=False)
+    adam = float(s.losses[-1])
+    rows = dict(lbfgs=run_finisher(s, "LBFGS", 200, 1024, "mesh_lbfgs"),
+                lm=run_finisher(s, "LM", 50, 1024, "mesh_lm"))
+    assert rows["lbfgs"]["final_loss"] < adam, rows
+    assert rows["lm"]["final_loss"] < 1.9e-5, rows
+    rows["lm_profile"] = finisher_profile(s, 1024, 3, "mesh LM")
+    assert rows["lm_profile"]["taylor_jvp_kernel_per_step"] == 50.0
+    log(f"scale-out README ladder on the mesh: Adam {adam:.4e}, L-BFGS "
+        f"{rows['lbfgs']['final_loss']:.4e}, LM {rows['lm']['final_loss']:.4e}")
+    del s
+    free_card()
+    return rows
+
+
+def phase_scale_out():
+    """Phase 14 through the public entry points (``module_model``,
+    ``Solver.export``, ``load_exported``'s format, ``make_mesh``,
+    ``Solver(mesh=)``): the module adapter, the serving artifact, the mesh
+    fits, examples/08 on a models axis and the README ladder on the mesh.
+    The launch counters are set to 0 just before and read just after.
+    Every kernel's plain version raises but in the export arm, whose
+    artifact holds the Taylor kernels' plain twin by design."""
+    from pydens_tpu_torch import make_mesh
+    from pydens_tpu_torch.parallel.mesh import destroy_local_world
+    counters = _ensemble_counters()
+    for c in counters:
+        c.launches = 0
+    rows = {}
+    try:
+        mesh = make_mesh()
+        assert torch.distributed.get_backend() == "nccl"
+        with _plain_refused():
+            rows["adapter"] = _scale_adapter()
+        # The artifact holds the Taylor kernels' plain twin by design.
+        rows["export"] = _scale_export()
+        with _plain_refused():
+            rows["mesh"] = _scale_mesh(mesh)
+            rows["ex08_models_axis"] = _scale_ensemble()
+            rows["ladder"] = _scale_lm(mesh)
+    finally:
+        destroy_local_world()
+    path = {c.__name__: c.launches for c in counters}
+    log(f"scale-out path launches (counted from 0 before the phase): {path}")
+    return path, rows
+
+
 def carry_probe(steps, out_dir=os.path.join("build", "carry")):
     """Runs ``steps`` in this one process, in order: earlier phases by name,
     phase 11's arms (``FEATURE_ARMS``), and ``deterministic``, which turns
@@ -4112,6 +4474,11 @@ def main():
             print(json.dumps({"symbolic": phase_symbolic()[1]}), flush=True)
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--scale-out"]:
+        print(json.dumps({"scale_out": phase_scale_out()[1]},
+                         default=_json_default), flush=True)
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:2] == ["--carry"]:
         carry_probe(sys.argv[2].split(","), *sys.argv[3:4])
         print(smi, flush=True)
@@ -4148,6 +4515,9 @@ def main():
     with _plain_refused():
         symbolic_launches, symbolic = phase_symbolic()
     print(json.dumps({"symbolic": symbolic}), flush=True)
+    scale_launches, scale_out = phase_scale_out()
+    print(json.dumps({"scale_out": scale_out}, default=_json_default),
+          flush=True)
     path_launches = {k: {"w1": launches[k],
                          **{w: t[0][k] for w, t in tutorials.items()},
                          **{f"p10_{arm}": n[k] for arm, n
@@ -4155,7 +4525,8 @@ def main():
                          **{f"p11_{arm}": n[k] for arm, n
                             in feature_launches.items()},
                          "p12_ensembles": ensemble_launches[k],
-                         "p13_symbolic": symbolic_launches.get(k, 0)}
+                         "p13_symbolic": symbolic_launches.get(k, 0),
+                         "p14_scale_out": scale_launches[k]}
                      for k in launches}
     # Launches on the card: the Taylor kernels once per fit step (eager or
     # replayed), the MLP kernel once per predict (never captured).
@@ -4222,6 +4593,7 @@ def main():
                                              "jvp_smem_bytes")}
                  for tag, (_, times) in jvp.items()},
         "path_launches": finisher_launches,
+        "p14_scale_out_launches": scale_launches["fused_taylor_jvp"],
         "lm_launches_per_step":
             finishers["ode_lm"]["taylor_jvp_kernel_per_step"]}
     # The member axis (the grid's second axis, K ensemble members in one

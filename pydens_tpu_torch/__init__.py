@@ -16,13 +16,16 @@ from .ops.math import (sin, cos, tan, arcsin, arccos, arctan, arctan2, sinh,
                        cosh, tanh, exp, expm1, log, log1p, log2, log10, sqrt,
                        square, power, sign, maximum, minimum, where, clip,
                        sigmoid, softplus, erf)
-from .models import Model, ConvBlockModel, TorchModel, SeparableModel
+from .models import (Model, ConvBlockModel, TorchModel, ModuleModel,
+                     module_model, SeparableModel)
 from .solver import Solver
 from .samplers import (Sampler, NumpySampler, NS, ConstantSampler,
                        HistoSampler, ScipySampler, ProductSampler,
                        MixtureSampler, GeometrySampler, BoundarySampler,
                        HaltonSampler)
+from .parallel import make_mesh
 from .utils.grids import cart_prod, uniform_grid
+from .utils.export import load_exported
 from .interop import params_from_jax
 
 __version__ = "0.5.0"
@@ -31,11 +34,12 @@ __all__ = [
     "Solver", "D", "V", "Field", "Expr", "lift",
     "grad", "div", "laplace", "hessian_diag", "dt", "dn",
     "cart_prod", "uniform_grid",
-    "Model", "ConvBlockModel", "TorchModel", "SeparableModel",
-    "params_from_jax",
+    "Model", "ConvBlockModel", "TorchModel", "ModuleModel", "module_model",
+    "SeparableModel", "params_from_jax",
     "Sampler", "NumpySampler", "NS", "ConstantSampler", "HistoSampler",
     "ScipySampler", "ProductSampler", "MixtureSampler", "GeometrySampler",
     "BoundarySampler", "HaltonSampler",
+    "make_mesh", "load_exported",
     "sin", "cos", "tan", "arcsin", "arccos", "arctan", "arctan2", "sinh",
     "cosh", "tanh", "exp", "expm1", "log", "log1p", "log2", "log10", "sqrt",
     "square", "power", "sign", "maximum", "minimum", "where", "clip",

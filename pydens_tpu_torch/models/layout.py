@@ -154,7 +154,10 @@ def _dense_taps(layer, V, taps, closure):
     take shared ``(N, in)`` points or ``(K, N, in)`` states alike."""
     blocks = [V] + [taps[mi] for mi in closure]
     out = torch.cat(blocks, dim=-2) @ layer["w"]
-    parts = torch.split(out, V.shape[-2], dim=-2)
+    n = V.shape[-2]
+    # Slices by count, not torch.split: the count of parts stays known
+    # when the batch is symbolic (torch.export).
+    parts = [out.narrow(-2, i * n, n) for i in range(len(blocks))]
     return (parts[0] + _feature(layer["b"]),
             {mi: parts[1 + i] for i, mi in enumerate(closure)})
 

@@ -398,8 +398,10 @@ def fused_taylor_forward_plain(packed, x, plan):
             w = packed[w_off:w_off + K * N].view(K, N)
             out = torch.stack([V] + T + S) @ w
             V = out[0] + packed[b_off:b_off + N]
-            T = list(out[1:1 + len(T)])
-            S = list(out[1 + len(T):])
+            # Indexed rows, not list(): unbinding an empty slice does not
+            # survive torch.export's serialization.
+            S = [out[1 + len(T) + j] for j in range(len(S))]
+            T = [out[1 + i] for i in range(len(T))]
         else:
             d = sigma_table(op[1], V)
             S = [d[2] * T[pos[a]] * T[pos[b]] + d[1] * s

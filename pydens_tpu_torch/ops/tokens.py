@@ -410,8 +410,10 @@ def member_scope(n_models, rows):
     against its value.  On a separable model's grid ``rows`` is the grid's
     shape ``(N_1, .., N_d)`` and the residuals ``(n_models, N_1, .., N_d,
     c)``."""
-    _MEMBER_SCOPES.append((int(n_models), tuple(int(r) for r in rows)
-                           if isinstance(rows, (tuple, list)) else int(rows)))
+    # Sizes are kept as given: int() of a traced size (torch.export)
+    # would fix the batch to the example's.
+    _MEMBER_SCOPES.append((int(n_models), tuple(rows)
+                           if isinstance(rows, (tuple, list)) else rows))
     try:
         yield
     finally:

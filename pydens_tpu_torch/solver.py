@@ -39,9 +39,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from .models import ConvBlockModel
 from .models.base import resolve_device
+from .parallel.shards import Shards, mesh_axes
 from .ops.tokens import (Expr, EvalContext, _batch_diagonal_grad,
                          as_array, as_device, member_scope, staging, to_host,
                          variable_scope)
@@ -93,6 +95,14 @@ class _FlatSpec:
         self.shapes = [tuple(t.shape)[len(self.lead):] for _, t in leaves]
         sizes = [int(np.prod(s)) for s in self.shapes]
         self.offsets = np.cumsum([0] + sizes).tolist()
+
+    def with_members(self, n_models):
+        """The same spec for ``n_models`` members (a mesh's models axis
+        gives a rank its share of them)."""
+        spec = _FlatSpec.__new__(_FlatSpec)
+        spec.__dict__.update(self.__dict__)
+        spec.lead = () if n_models == 1 else (n_models,)
+        return spec
 
     def flatten(self, tree):
         return torch.cat([t.reshape(self.lead + (-1,))
@@ -153,10 +163,22 @@ def _adaptive_pick(r, u, m_pool):
     return idx, 1.0 / (m_pool * probs[idx] + 1e-30)
 
 
-def _rba_update(rba_w, r, eta, gamma):
+def _rba_update(rba_w, r, eta, gamma, shards=None):
     """Residual-based attention's EMA of the normalized |residual| ``r``
-    (``pydens_tpu/solver.py:1280-1294``)."""
-    return gamma * rba_w + eta * r / (torch.max(r) + 1e-30)
+    (``pydens_tpu/solver.py:1280-1294``); on a mesh ``r`` is this rank's
+    points' and the maximum is over every rank's."""
+    top = torch.max(r)
+    if shards is not None:
+        top = shards.max(top)
+    return gamma * rba_w + eta * r / (top + 1e-30)
+
+
+def _member_axis(name):
+    """The member axis of an optimizer state buffer of an ensemble: L-BFGS'
+    memories lead with their slots, the step count has none."""
+    if name == "count":
+        return None
+    return 1 if name.endswith("_memory") else 0
 
 
 def _anchored_ema(stat, wts, anchor):
@@ -224,11 +246,20 @@ class _FitStep:
     An ensemble's ``theta`` is ``(K, P)`` and ``loss_fn`` gives one loss a
     member: a step descends their sum, so each member gets exactly its own
     gradient, on the one shared batch, and the losses buffer, the guard and
-    ``until_loss`` read their mean (``pydens_tpu/solver.py:1403-1410``)."""
+    ``until_loss`` read their mean (``pydens_tpu/solver.py:1403-1410``).
+
+    On a mesh (``shards``, :class:`~pydens_tpu_torch.parallel.shards.
+    Shards`) the points rows hold this rank's slice of each batch (``rows``
+    of ``batch_size``; the whole candidate pool with ``adaptive``, whose
+    residuals are gathered before the pick; the whole batch on a separable
+    model's grid, which the loss shards), RBA's weights this rank's, and a
+    step's loss and gradient are summed over the data ranks (its share
+    each) before the update, so every rank takes the same one: one
+    all-reduce a step, inside the captured graph on the card."""
 
     def __init__(self, loss_fn, opt, mask, theta, chunk, batch_size,
                  resample, guard, capture, options=_Collocation(),
-                 generator=None):
+                 generator=None, shards=None):
         dev, dtype = theta.device, theta.dtype
         total = loss_fn.total
         self.loss_fn = loss_fn
@@ -237,6 +268,14 @@ class _FitStep:
         self.options = options
         self.generator = generator
         self.batch_size = batch_size
+        self.shards = shards
+        self.rows = (shards.rows(batch_size)
+                     if shards is not None and not loss_fn.on_grid
+                     else batch_size)
+        # Rows of one draw of the sampler, and whether the step keeps its
+        # slice of them only.
+        self.pool = (options.adaptive or 1) * batch_size
+        self.shard_points = self.rows != batch_size and not options.adaptive
         self.theta = theta.detach().clone().requires_grad_(True)
         self.state = opt.init(self.theta.detach())
         self.armed = (torch.ones((), dtype=torch.bool, device=dev)
@@ -248,14 +287,14 @@ class _FitStep:
         self.resample = resample or bool(options.adaptive)
         self.points = torch.zeros(
             (chunk if self.resample else 1,
-             (options.adaptive or 1) * batch_size, total),
+             self.rows if self.shard_points else self.pool, total),
             dtype=dtype, device=dev)
         self.uniforms = (torch.zeros((chunk, batch_size // 2), dtype=dtype,
                                      device=dev)
                          if options.adaptive else None)
         self.causal_eps = (torch.zeros((), dtype=dtype, device=dev)
                            if options.causal else None)
-        self.rba_w = (torch.ones((batch_size,), dtype=dtype, device=dev)
+        self.rba_w = (torch.ones((self.rows,), dtype=dtype, device=dev)
                       if options.rba else None)
         self.wts = (torch.tensor([w for _, w in loss_fn.term_order],
                                  dtype=dtype, device=dev)
@@ -289,12 +328,19 @@ class _FitStep:
             return pts, None
         n_uni = self.batch_size - self.batch_size // 2
         m_pool = pts.shape[0] - n_uni
-        r = self.loss_fn.point_residual(self.theta.detach(),
-                                        pts[:m_pool])[:, 0].detach()
+        theta = self.theta.detach()
+
+        def residual(rows):
+            return self.loss_fn.point_residual(theta, rows)[:, 0].detach()
+        r = (residual(pts[:m_pool]) if self.shards is None
+             else self.shards.gather_rows(residual, pts[:m_pool]))
         idx, w_sel = _adaptive_pick(
             r, self.uniforms.index_select(0, self.index)[0], m_pool)
-        return (torch.cat([pts[m_pool:], pts[idx]]),
-                torch.cat([w_sel.new_ones((n_uni,)), w_sel]))
+        batch = torch.cat([pts[m_pool:], pts[idx]])
+        weight = torch.cat([w_sel.new_ones((n_uni,)), w_sel])
+        if self.shards is not None:
+            return self.shards.shard(batch), self.shards.shard(weight)
+        return batch, weight
 
     def _masked(self, g):
         g = torch.zeros_like(self.theta) if g is None else g
@@ -304,17 +350,24 @@ class _FitStep:
         """Each term's mean |gradient| (``rebalance``,
         ``pydens_tpu/solver.py:1120-1139``; an ensemble's over its whole
         ``(K, P)`` gradient): a pullback per term through the step's one
-        forward pass."""
-        return torch.stack([torch.mean(torch.abs(self._masked(
-            torch.autograd.grad(_total(t), self.theta, retain_graph=True,
-                                allow_unused=True)[0]))) for t in terms])
+        forward pass; on a mesh the gradients are summed over the ranks
+        first, and an ensemble's mean is over every rank's members."""
+        grads = [self._masked(torch.autograd.grad(
+            _total(t), self.theta, retain_graph=True, allow_unused=True)[0])
+            for t in terms]
+        if self.shards is None:
+            return torch.stack([torch.mean(torch.abs(g)) for g in grads])
+        g, = self.shards.share_sum(torch.stack(grads))
+        sums = self.shards.member_sum(torch.abs(g).reshape(len(terms),
+                                                           -1).sum(1))
+        return sums / (grads[0].numel() * self.shards.n_member_ranks)
 
     def _draw_probes(self):
         for p in (self.probes or {}).values():
             p.copy_(torch.randint(0, 2, p.shape, generator=self.generator,
                                   device=p.device).to(p.dtype) * 2 - 1)
 
-    def _ntk_traces(self, blocks):
+    def _ntk_traces(self, blocks, layout=None):
         """Each term's NTK trace ``|d block / d theta|_F^2`` without the
         frozen coordinates (``rebalance_ntk``,
         ``pydens_tpu/solver.py:1141-1204``): the mean of ``|J^T u|^2`` over
@@ -324,25 +377,58 @@ class _FitStep:
         runs eagerly, meets the blocks.  An ensemble's blocks are ``(K,
         size)``: each member has its own probes, one pullback serves all
         (their Jacobians are independent), and the traces are the members'
-        mean (``pydens_tpu/solver.py:1198-1200``)."""
+        mean (``pydens_tpu/solver.py:1198-1200``).
+
+        On a mesh (``layout``: each block's size over every rank and the
+        indices of this rank's entries in it, None for a block that every
+        rank holds whole) the probes are drawn at the whole blocks' shape,
+        as in one process, each rank pulls back its entries of them (a
+        whole block's pullback at its share), and the pullbacks are summed
+        over the ranks before they are squared."""
+        shards = self.shards
         if self.probes is None:
-            self.probes = {j: b.new_empty((_NTK_PROBES,) + b.shape)
-                           for j, b in enumerate(blocks)
-                           if b.shape[-1] > _NTK_PROBES}
+            self.probes = {}
+            for j, b in enumerate(blocks):
+                size = b.shape[-1] if layout is None else layout[j][0]
+                lead = (tuple(b.shape[:-1]) if shards is None
+                        or shards.n_models == 1 else (shards.n_models,))
+                if size > _NTK_PROBES:
+                    self.probes[j] = b.new_empty((_NTK_PROBES,) + lead
+                                                 + (size,))
             self._draw_probes()
-        traces = []
+        pulls = []
         for j, b in enumerate(blocks):
             cts = self.probes.get(j)
             if cts is None:
-                cts = torch.eye(b.shape[-1], dtype=b.dtype, device=b.device)
-            acc = 0.0
+                size = b.shape[-1] if layout is None else layout[j][0]
+                cts = torch.eye(size, dtype=b.dtype, device=b.device)
+            elif shards is not None:
+                cts = shards.local_members(cts, axis=1)
+            index = None if layout is None else layout[j][1]
+            pulls.append([])
             for ct in cts:
+                if index is not None:
+                    ct = ct.index_select(-1, index)
                 g = self._masked(torch.autograd.grad(
                     b, self.theta, ct.expand_as(b), retain_graph=True,
                     allow_unused=True)[0])
+                if shards is not None and index is None and shards.n_data > 1:
+                    g = g * (1.0 / shards.n_data)
+                pulls[-1].append(g)
+        if shards is not None:
+            flat = shards.sum_parts(*[g for gs in pulls for g in gs])
+            pulls = [[flat.pop(0) for _ in gs] for gs in pulls]
+        traces = []
+        for j, (b, gs) in enumerate(zip(blocks, pulls)):
+            acc = 0.0
+            for g in gs:
                 acc = acc + torch.sum(g * g)
             acc = acc / _NTK_PROBES if j in self.probes else acc
-            traces.append(acc if b.dim() == 1 else acc / b.shape[0])
+            if shards is not None and shards.n_models > 1:
+                acc = shards.member_sum(acc) / shards.n_models
+            elif b.dim() > 1:
+                acc = acc / b.shape[0]
+            traces.append(acc)
         return torch.stack(traces)
 
     def _loss(self, rebalance=False):
@@ -356,12 +442,16 @@ class _FitStep:
             eta, gamma = self.options.rba
             r = self.loss_fn.member_mean(
                 _abs_residual(residuals, leaf))[:, 0].detach()
-            self.rba_w.copy_(_rba_update(self.rba_w, r, eta, gamma))
+            self.rba_w.copy_(_rba_update(self.rba_w, r, eta, gamma,
+                                         self.shards))
             weight = self.rba_w * self.rba_w
         terms = self.loss_fn.terms(residuals, values, leaf, pts, weight,
                                    self.causal_eps)
         if rebalance:
-            stat = (self._ntk_traces(self.loss_fn.blocks(residuals, values))
+            stat = (self._ntk_traces(
+                self.loss_fn.blocks(residuals, values),
+                None if self.shards is None
+                else self.loss_fn.block_layout(residuals, values))
                     if self.options.balance_mode == "ntk"
                     else self._grad_norms(terms))
             new = _anchored_ema(stat, self.wts,
@@ -381,6 +471,22 @@ class _FitStep:
         self.losses.index_copy_(0, self.index, loss)
         self.index.add_(1)
 
+    def _mean(self, loss):
+        """What the history records: a loss, or the mean of an ensemble's
+        member losses, over every rank's members on a models axis."""
+        if self.shards is None or self.shards.model_axis is None:
+            return _mean(loss)
+        return self.shards.member_sum(loss.sum()) / self.shards.n_models
+
+    def _value_and_grad(self, loss, point):
+        """``loss`` (at ``point``, which requires grad) and its gradient,
+        summed over the data ranks on a mesh."""
+        grad, = torch.autograd.grad(_total(loss), point)
+        loss = loss.detach()
+        if self.shards is not None:
+            loss, grad = self.shards.share_sum(loss, grad)
+        return loss, grad
+
     def step(self, rebalance=False):
         """One training step; reads and writes only the buffers above.  The
         update of the iteration that trips the guard is kept; every later
@@ -389,16 +495,17 @@ class _FitStep:
             pts = self._points_row()
             loss, live = self.opt.update(
                 self.theta, lambda th: self.loss_fn.resvec(th, pts),
-                self.state, mask=self.mask, gate=self.armed)
+                self.state, mask=self.mask, gate=self.armed,
+                reduce=None if self.shards is None
+                else self.shards.sum_parts)
             self.live.add_(live)
         else:
-            loss = self._loss(rebalance)
-            grad, = torch.autograd.grad(_total(loss), self.theta)
+            loss, grad = self._value_and_grad(self._loss(rebalance),
+                                              self.theta)
             if self.mask is not None:
                 grad = grad * self.mask
-            loss = loss.detach()
             self.opt.update(self.theta, grad, self.state, gate=self.armed)
-        self._record(_mean(loss))
+        self._record(self._mean(loss))
 
     def run(self, n, start=0):
         """Take ``n`` steps from the device index 0, the first being the
@@ -500,25 +607,24 @@ class _LinesearchFitStep(_FitStep):
         super().__init__(*args, **kwargs)
         self.ls = self.opt.scratch(self.theta.detach())
         theta = self.theta.detach()
-        self.step_points = theta.new_zeros((self.batch_size,
+        self.step_points = theta.new_zeros((self.rows,
                                             self.points.shape[2]))
-        self.step_weight = (theta.new_zeros((self.batch_size,))
+        self.step_weight = (theta.new_zeros((self.rows,))
                             if self.options.adaptive else None)
         self.masked = masked
         self.trial_graph = None
         self.eager_trials = 0    # trials after a step's first, run eagerly
         self.trial_replays = 0   # and as replays of the trial graph
 
-    def _value_and_grad(self, point):
+    def _trial_value_and_grad(self, point):
         point = point.detach().requires_grad_(True)
-        loss = self.loss_fn(point, self.step_points, self.step_weight,
-                            causal_eps=self.causal_eps)
-        grad, = torch.autograd.grad(_total(loss), point)
-        return loss.detach(), grad
+        return self._value_and_grad(self.loss_fn(
+            point, self.step_points, self.step_weight,
+            causal_eps=self.causal_eps), point)
 
     def trial(self):
         was = self.opt.trial(self.theta, self.state, self.ls,
-                             self._value_and_grad)
+                             self._trial_value_and_grad)
         self.live.add_(_any(was).to(torch.int64))
 
     def step(self):
@@ -527,19 +633,18 @@ class _LinesearchFitStep(_FitStep):
             self.step_points.copy_(pts)
             if weight is not None:
                 self.step_weight.copy_(weight)
-        loss = self.loss_fn(self.theta, self.step_points, self.step_weight,
-                            causal_eps=self.causal_eps)
-        grad, = torch.autograd.grad(_total(loss), self.theta)
+        loss, grad = self._value_and_grad(self.loss_fn(
+            self.theta, self.step_points, self.step_weight,
+            causal_eps=self.causal_eps), self.theta)
         if self.mask is not None:
             grad = grad * self.mask
-        loss = loss.detach()
         self.opt.begin(self.theta.detach(), loss, grad, self.state, self.ls,
                        gate=self.armed)
         trials = (self.opt.linesearch.max_linesearch_steps if self.masked
                   else 1)
         for _ in range(trials):
             self.trial()
-        self._record(_mean(loss))
+        self._record(self._mean(loss))
 
     def _eager_step(self):
         self.step()
@@ -692,6 +797,18 @@ class Solver:
     device : str or torch.device, optional
         Where parameters live and training runs; default the CUDA card
         (an error without one: pass ``device="cpu"`` for the CPU).
+    mesh : torch.distributed.device_mesh.DeviceMesh, optional
+        Data parallelism over the ranks of a mesh
+        (:func:`~pydens_tpu_torch.make_mesh`; one process a rank, every
+        rank constructing the Solver and calling it in lockstep): each
+        rank draws the same full batch and trains on its contiguous slice
+        over the mesh's data axes (every axis but ``'models'``, jointly),
+        the loss and gradient summed over the ranks once a step, so the
+        parameters stay the same on every rank.  ``batch_size`` must divide
+        by the data axes' size.  With ``n_models > 1`` an axis named
+        ``'models'`` shards the members (``n_models`` must divide by its
+        size); ``predict``, ``save`` and ``export`` see every member.  The
+        mesh's first rank writes checkpoints.
     formulation : str
         ``'residual'`` (default): the equation returns a strong-form
         residual, trained to zero in mean square.  ``'variational'``: the
@@ -712,12 +829,10 @@ class Solver:
                  boundary_condition=None, domain=(0, 1), nparams=0,
                  model=ConvBlockModel, constraints=None, seed=0, device=None,
                  mesh=None, n_models=1, formulation="residual", **kwargs):
-        # pydens_tpu's default is taken; a mesh is a feature of a later
-        # slice (ROADMAP.md Queue 1 item).
-        if mesh is not None:
-            raise NotImplementedError(
-                f"Solver(mesh={mesh!r}) is not ported to pydens_tpu_torch "
-                "yet (ROADMAP.md, Queue 1 item 15)")
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(
+                "mesh must be a torch.distributed.device_mesh.DeviceMesh "
+                f"(pydens_tpu_torch.make_mesh()), got {type(mesh).__name__}")
         if (isinstance(n_models, bool)
                 or not isinstance(n_models, (int, np.integer))
                 or n_models < 1):
@@ -739,6 +854,11 @@ class Solver:
         else:
             self.constraints = (constraints,)
         self.device = resolve_device(device)
+        # Data parallelism: every rank of the mesh constructs the Solver
+        # and drives it in lockstep (one process a rank).
+        self.mesh = mesh
+        self._shards = (None if mesh is None
+                        else Shards(mesh, self.n_models, self.device))
         self.losses = []
         self.history = []   # one record per fit call
         self.last_balanced_weights = None   # set by load() from a snapshot
@@ -980,7 +1100,7 @@ class Solver:
         points are evaluated by every member, ``(K, n, c)``; coordinate
         expressions already hold a row block a member."""
         model = self.model
-        K = self.n_models
+        K = model.n_models
 
         def members(xs_c, pts):
             if K == 1 or any(isinstance(p, Expr) for p in pts):
@@ -1066,8 +1186,11 @@ class Solver:
         equation = self.equation
         total = model.total
         variational = self.formulation == "variational"
-        K = self.n_models
-        spec = self._spec()
+        # This rank's members (all of them but on a mesh's models axis).
+        K = model.n_models
+        spec = self._spec().with_members(K)
+        shards = self._shards
+        n_data = 1 if shards is None else shards.n_data
         plan_derivs = self._plan_derivs if use_plan else None
         # A separable model trains on the tensor-product grid of the batch's
         # columns (pydens_tpu/solver.py:1270-1285); one column is a grid of
@@ -1087,11 +1210,14 @@ class Solver:
             with_constraints = with_constraints and bool(nums)
             n = pts.shape[0]
             if grid:
-                leaves = [pts[:, k].reshape((1,) * k + (n,)
-                                            + (1,) * (total - k))
+                # On a mesh grid axis 0 is sharded: this rank's rows of it.
+                cols = [pts[:, k] if k or shards is None
+                        else shards.shard(pts[:, 0]) for k in range(total)]
+                leaves = [c.reshape((1,) * k + (c.shape[0],)
+                                    + (1,) * (total - k))
                           .detach().requires_grad_(True)
-                          for k in range(total)]
-                scope = member_scope(K, (n,) * total)
+                          for k, c in enumerate(cols)]
+                scope = member_scope(K, tuple(c.shape[0] for c in cols))
             else:
                 rows = pts if K == 1 else pts.repeat(K, 1)
                 if plan_derivs is None or with_constraints:
@@ -1123,7 +1249,10 @@ class Solver:
             residual (``pydens_tpu/solver.py:749-801``): bin i's mean L_i,
             weights ``exp(-eps * sum_{j<i} L_j / sum_j L_j)`` without
             gradient, self-normalized, so eps = 0 is the plain MSE.  The bin
-            sums are one-hot reductions, in a fixed order (no atomics)."""
+            sums are one-hot reductions, in a fixed order (no atomics).  On
+            a mesh the bin sums and counts are every rank's, and the term is
+            this rank's estimate of the whole batch's (its share of the
+            weighted sum, times the ranks)."""
             if K > 1:   # each member's own weights
                 n = pts.shape[0]
                 return torch.stack([causal_term(
@@ -1139,12 +1268,19 @@ class Solver:
             onehot = (bins[:, None] == torch.arange(
                 n_bins, device=pts.device)).to(sq.dtype)
             sums = (onehot * sq.detach()[:, None]).sum(0)
-            L = sums / onehot.sum(0).clamp(min=1.0)
+            counts = onehot.sum(0)
+            if shards is not None:
+                sums, counts = shards.sum_parts(sums, counts)
+            L = sums / counts.clamp(min=1.0)
             earlier = torch.ones((n_bins, n_bins), dtype=sq.dtype,
                                  device=pts.device).tril(-1)
             cum = (earlier * L).sum(1)
             cum = cum / (cum[-1] + L[-1]).clamp(min=1e-30)
-            w_pt = torch.exp(-eps * cum)[bins]
+            w = torch.exp(-eps * cum)
+            w_pt = w[bins]
+            if shards is not None:
+                return (n_data * torch.sum(w_pt * sq)
+                        / torch.sum(w * counts).clamp(min=1e-30))
             return torch.sum(w_pt * sq) / w_pt.sum().clamp(min=1e-30)
 
         def causal_grid_term(residuals, pts, eps):
@@ -1236,17 +1372,36 @@ class Solver:
 
         lead = () if K == 1 else (K,)
 
-        def block(t):
+        def block(t, ranks=1):
             """A residual or constraint value as one member's flat block
-            scaled by ``1/sqrt(size)``, ``(K, size)`` for an ensemble."""
-            return t.reshape(lead + (-1,)) * (K / t.numel()) ** 0.5
+            scaled by ``1/sqrt(size)``, ``(K, size)`` for an ensemble; on a
+            mesh the equation's is this rank's rows of a block of
+            ``ranks`` times the size."""
+            return t.reshape(lead + (-1,)) * (K / (t.numel() * ranks)) ** 0.5
 
         def blocks(residuals, values):
             out = []
             if residuals is not None:
-                out.append(torch.cat([block(r) for r in residuals], dim=-1))
+                out.append(torch.cat([block(r, n_data) for r in residuals],
+                                     dim=-1))
             out += [block(c) for c in values]
             return tuple(out)
+
+        def block_layout(residuals, values):
+            """Each block's size over every rank of the mesh and the
+            indices of this rank's entries in it (None: every rank holds
+            the whole block): a member's rows of each residual are
+            contiguous, this rank's the ``data_index``-th share."""
+            out = []
+            if residuals is not None:
+                index, at = [], 0
+                for r in residuals:
+                    m = r.numel() // K
+                    index.append(at + shards.data_index * m + torch.arange(
+                        m, device=r.device))
+                    at += m * n_data
+                out.append((at, torch.cat(index)))
+            return out + [(c.numel() // K, None) for c in values]
 
         def term_blocks(theta, pts):
             residuals, values, _ = term_values(theta, pts)
@@ -1257,19 +1412,28 @@ class Solver:
             for the MSE criterion: the term blocks, each scaled by
             ``sqrt(weight)`` (``resvec_fn`` of ``pydens_tpu/solver.py``),
             for Levenberg-Marquardt."""
-            out = [b * w ** 0.5 for b, w in zip(
-                blocks(*term_values(theta, pts)[:2]), weights)]
+            residuals, values, _ = term_values(theta, pts)
+            out = [b * w ** 0.5 for b, w in zip(blocks(residuals, values),
+                                                weights)]
+            if n_data > 1:
+                # Every rank holds the constraints whole: each its share,
+                # so that the sums over the ranks count them once.
+                first = int(residuals is not None)
+                out = out[:first] + [b * n_data ** -0.5
+                                     for b in out[first:]]
             if not out:
                 return theta.new_zeros(lead + (1,))
             return torch.cat(out, dim=-1)
 
         loss_fn.spec = spec
         loss_fn.total = total
+        loss_fn.on_grid = on_grid
         loss_fn.term_order = tuple(zip(term_order, weights))
         loss_fn.evaluate = term_values
         loss_fn.terms = terms
         loss_fn.combine = combine
         loss_fn.blocks = blocks
+        loss_fn.block_layout = block_layout
         loss_fn.point_residual = point_residual
         loss_fn.member_mean = member_mean
         loss_fn.term_blocks = term_blocks
@@ -1411,8 +1575,83 @@ class Solver:
           ``history[-1]['balanced_weights']``.
 
         ``pydens_tpu``'s exclusivity rules hold, with its ``ValueError``
-        messages.
+        messages.  On a mesh ``batch_size`` must divide by the data axes'
+        size and ``n_models`` by the models axis' (``pydens_tpu``'s
+        messages), and every rank stops at the same step.
         """
+        with self._local_members():
+            return self._fit(niters, batch_size, sampler, loss_terms,
+                             optimizer, criterion, lr, losses, progress,
+                             chunk_size, profile_dir, resample, adaptive,
+                             fast_taps, callback, loss_balancing,
+                             checkpoint_path, checkpoint_every, stop_on_nan,
+                             causal, causal_axis, rba, until_loss, **kwargs)
+
+    @contextlib.contextmanager
+    def _local_members(self):
+        """On a mesh whose models axis shards the ensemble, the model runs
+        this rank's members only while a fit runs (the solver's parameters
+        keep every member)."""
+        shards = self._shards
+        if shards is None or shards.model_axis is None:
+            yield
+            return
+        self.model.n_models = shards.k_local
+        try:
+            yield
+        finally:
+            self.model.n_models = self.n_models
+
+    def _local_theta(self):
+        """The flat parameters this rank trains."""
+        theta = self._spec().flatten(self.model.params)
+        return (theta if self._shards is None
+                else self._shards.local_members(theta))
+
+    def _full_params(self, theta):
+        """The parameter tree of a step's ``theta``, every member of it."""
+        if self._shards is not None:
+            theta = self._shards.gather_members(theta)
+        return self._spec().unflatten(theta)
+
+    def _full_state(self, state):
+        """An optimizer state with every member of it."""
+        if state is None or self._shards is None:
+            return state
+        return {k: v if _member_axis(k) is None
+                else self._shards.gather_members(v, _member_axis(k))
+                for k, v in state.items()}
+
+    def _draw(self, step, sampler, n):
+        """``n`` draws of the step's points rows: this rank's slice of each
+        batch on a mesh."""
+        pts = self._sample(sampler, n, step.pool)
+        return self._shards.shard(pts, 1) if step.shard_points else pts
+
+    def _check_mesh(self, batch_size, options):
+        """``pydens_tpu``'s divisibility checks of a mesh fit
+        (``solver.py:1772-1785``)."""
+        shards = self._shards
+        if shards is None:
+            return
+        if shards.data_axes and batch_size % shards.n_data:
+            raise ValueError(
+                f"batch_size={batch_size} must be divisible by the data "
+                f"mesh axes {shards.data_axes} total size {shards.n_data} "
+                "for data-parallel training")
+        if shards.model_axis and self.n_models % shards.n_member_ranks:
+            raise ValueError(
+                f"n_models={self.n_models} must be divisible by the "
+                f"'{shards.model_axis}' mesh axis size "
+                f"{shards.n_member_ranks}")
+        if (options.causal is not None and self.model.total > 1
+                and getattr(self.model, "separable", False)):
+            raise NotImplementedError(
+                "causal training of a separable model on a mesh is not "
+                "ported to pydens_tpu_torch yet (ROADMAP.md, Queue 1 item "
+                "15)")
+
+    def _fit(self, niters, batch_size, sampler, loss_terms, optimizer, criterion, lr, losses, progress, chunk_size, profile_dir, resample, adaptive, fast_taps, callback, loss_balancing, checkpoint_path, checkpoint_every, stop_on_nan, causal, causal_axis, rba, until_loss, **kwargs):
         fit_t0 = time.perf_counter()
         niters = int(niters)
         if niters <= 0:
@@ -1455,6 +1694,7 @@ class Solver:
             loss_terms, criterion_key, sampler, resample, adaptive, rba,
             causal, causal_axis, loss_balancing)
         batch_size = int(batch_size)
+        self._check_mesh(batch_size, options)
         chunk = max(1, min(niters, int(chunk_size)))
         step = self._fit_step(loss_terms, criterion_fn, use_plan, batch_size,
                               chunk, bool(resample), bool(stop_on_nan),
@@ -1466,9 +1706,8 @@ class Solver:
                                             step.loss_fn.term_order]))
         if step.rba_w is not None:  # and from no attention
             step.rba_w.fill_(1.0)
-        spec = step.loss_fn.spec
         with torch.no_grad():
-            step.theta.copy_(spec.flatten(self.model.params))
+            step.theta.copy_(self._local_theta())
         if fresh_optimizer or self._opt_state is None:
             self._opt_state = self._opt.init(step.theta.detach())
         for name, value in self._opt_state.items():
@@ -1481,7 +1720,7 @@ class Solver:
             step.armed.fill_(True)
             step.tol.fill_(float(tol))
         if not step.resample:
-            step.points[0].copy_(self._sample(sampler, 1, batch_size)[0])
+            step.points[0].copy_(self._draw(step, sampler, 1)[0])
 
         bounds = range(0, niters, chunk)
         if progress is True or (progress == "auto" and sys.stderr.isatty()):
@@ -1510,10 +1749,9 @@ class Solver:
             # never reads them inside a step.
             nonlocal ckpt_saved
             ckpt_saved = iters_run
-            from .utils.checkpoint import save_solver
-            save_solver(self, checkpoint_path,
-                        params=spec.unflatten(step.theta.detach()),
-                        opt_state=step.state,
+            self._write(checkpoint_path,
+                        params=self._full_params(step.theta.detach()),
+                        opt_state=self._full_state(step.state),
                         losses=self.losses + fit_losses,
                         step_counter=self._step_counter + iters_run,
                         balanced_weights=balanced_weights())
@@ -1523,8 +1761,7 @@ class Solver:
                 for start in bounds:
                     n = min(chunk, niters - start)
                     if step.resample:
-                        step.points[:n].copy_(self._sample(
-                            sampler, n, step.points.shape[1]))
+                        step.points[:n].copy_(self._draw(step, sampler, n))
                     if step.uniforms is not None:
                         step.uniforms[:n].copy_(torch.rand(
                             step.uniforms[:n].shape,
@@ -1573,7 +1810,7 @@ class Solver:
         finally:
             # Commit whatever completed, also when a callback raised.
             self._step_counter += iters_run
-            self.model.load_params(spec.unflatten(step.theta.detach()))
+            self.model.load_params(self._full_params(step.theta.detach()))
             self._opt_state = {k: v.clone() for k, v in step.state.items()}
             self.losses.extend(fit_losses)
             if profile_dir:
@@ -1837,9 +2074,10 @@ class Solver:
             loss_fn = self._build_loss_fn(loss_terms, criterion_fn, use_plan,
                                           options.causal)
             args = (loss_fn, self._opt, self._flat_mask(loss_fn.spec),
-                    loss_fn.spec.flatten(self.model.params), chunk,
+                    self._local_theta(), chunk,
                     batch_size, resample, guard, capture)
-            kwargs = dict(options=options, generator=self._generator)
+            kwargs = dict(options=options, generator=self._generator,
+                          shards=self._shards)
             self._step_cache[key] = (
                 _LinesearchFitStep(*args, masked=masked, **kwargs)
                 if isinstance(self._opt, LBFGS) else _FitStep(*args, **kwargs))
@@ -1852,6 +2090,11 @@ class Solver:
         pending, self._pending_opt_state = self._pending_opt_state, None
         if pending is None:
             return
+        if self._shards is not None:
+            pending = {k: v if _member_axis(k) is None
+                       else self._shards.local_members(torch.as_tensor(v),
+                                                       _member_axis(k))
+                       for k, v in pending.items()}
         if set(pending) != set(state) or any(
                 tuple(pending[k].shape) != tuple(state[k].shape)
                 for k in state):
@@ -1870,9 +2113,28 @@ class Solver:
         """Write the parameters (V variables included), the optimizer
         state, the losses, the step counter, the sampling generator's
         state, the fit history, the condition modes and the frozen names
-        to ``path`` (:mod:`pydens_tpu_torch.utils.checkpoint`)."""
+        to ``path`` (:mod:`pydens_tpu_torch.utils.checkpoint`).  On a mesh
+        the first rank writes and the others wait for it."""
+        self._write(path, opt_state=self._full_state(self._opt_state))
+
+    def _write(self, path, **overrides):
         from .utils.checkpoint import save_solver
-        save_solver(self, path)
+        if self._shards is None or self._shards.writer:
+            save_solver(self, path, **overrides)
+        if self._shards is not None:
+            self._shards.barrier()
+
+    def export(self, path=None, with_grad=False):
+        """Serialize the trained solution field to a portable ahead-of-time
+        serving artifact (``torch.export``): parameters baked in, batch
+        dimension dynamic, loadable by :func:`pydens_tpu_torch.
+        load_exported` (or by ``torch.export.load`` in a process with torch
+        alone) on the CPU or the card.  ``with_grad=True`` makes the
+        artifact return ``(u, du)`` with the ``predict_grad`` derivative
+        fields.  Returns the artifact bytes (also written to ``path`` if
+        given)."""
+        from .utils.export import export_model
+        return export_model(self, path, with_grad=with_grad)
 
     def load(self, path):
         """Restore a checkpoint written by :meth:`save` into this solver

@@ -469,7 +469,8 @@ class LMConfig:
         return {"damping": damping.expand(tuple(theta.shape[:-1]) + (2,))
                 .clone()}
 
-    def update(self, theta, residual_fn, state, mask=None, gate=None):
+    def update(self, theta, residual_fn, state, mask=None, gate=None,
+               reduce=None):
         """One step in place (``gn_update`` of ``pydens_tpu/solver.py``):
         ``residual_fn(theta)`` is the residual vector ``r`` with
         ``loss == r . r``; ``mask`` (frozen entries 0) restricts the solve
@@ -480,13 +481,20 @@ class LMConfig:
         the iterate once the rule holds.  Returns ``(loss at theta, live
         CG iterations)``, 0-d device tensors; an ensemble's loss is one a
         member, and its live iterations are those where any member's CG
-        runs."""
+        runs.
+
+        ``reduce(*parts)`` (data parallelism: each rank holds its rows of
+        ``r``) sums its arguments over the ranks: ``r . r`` and ``J^T r``
+        once, ``J^T (J v)`` in every CG iteration and the trial's ``r . r``,
+        so every rank solves the same system."""
         r, jtr, jvp, vjp = linearize(residual_fn, theta)
 
         def matvec(v):
             if mask is not None:
                 v = v * mask
             out = vjp(jvp(v))
+            if reduce is not None:
+                out, = reduce(out)
             if mask is not None:
                 out = out * mask
             return out + col(lam) * v
@@ -494,6 +502,8 @@ class LMConfig:
         with torch.no_grad():
             lam, nu = state["damping"][..., 0], state["damping"][..., 1]
             loss = dot(r, r)
+            if reduce is not None:
+                loss, jtr = reduce(loss, jtr)
             b = jtr if mask is None else jtr * mask
             x = torch.zeros_like(b)
             res, p = b, b
@@ -522,6 +532,8 @@ class LMConfig:
             r_t = residual_fn(trial).detach()
         with torch.no_grad():
             loss_t = dot(r_t, r_t)
+            if reduce is not None:
+                loss_t, = reduce(loss_t)
             actual = loss - loss_t
             pred = dot(x, col(lam) * x + b)
             rho = actual / torch.clamp_min(pred, 1e-30)

@@ -366,12 +366,14 @@ def test_lm_rejects_other_criteria_and_unported_modes():
                        formulation="variational", **extra)
         with pytest.raises(ValueError, match="variational"):
             v.fit(niters=2, batch_size=32, optimizer="LM", progress=False)
-    # The mesh case of tests/test_gauss_newton needs a Solver option of a
-    # later item.  Its separable case runs on the grid (test_lm_separable_
-    # grid_training at a narrow width, 5 of its 15 steps: the losses never
-    # rise), and its ensemble case (test_lm_ensemble_per_member_damping,
-    # here 6 of its 20 steps): one (lambda, nu) pair a member.
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    # The mesh case of tests/test_gauss_newton runs on four gloo ranks in
+    # tests/test_torch_parallel.py (the "lm" case); a mesh that is not a
+    # DeviceMesh raises.  Its separable case runs on the grid
+    # (test_lm_separable_grid_training at a narrow width, 5 of its 15
+    # steps: the losses never rise), and its ensemble case
+    # (test_lm_ensemble_per_member_damping, here 6 of its 20 steps): one
+    # (lambda, nu) pair a member.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tpdt.Solver(eq, ndims=1, initial_condition=.5, device="cpu",
                     mesh=object())
     sep = tpdt.Solver(lambda f, x, y: tpdt.D(tpdt.D(f, x), x)

@@ -6,8 +6,9 @@ imported and trained in a subprocess where ``import jax`` and ``import
 optax`` fail (the README fit, a w5-like fit with a sampler product, a
 constraint and a freeze, then a fit with a schedule and SGD, a save and a
 load, then L-BFGS and Levenberg-Marquardt fits, the collocation options,
-Deep Ritz and ``Solver.residual``),
-and every file of the package is scanned for a jax import."""
+Deep Ritz and ``Solver.residual``, the symbolic layer and the separable
+model, an export round trip and a module model's fit on a world-of-one
+gloo mesh), and every file of the package is scanned for a jax import."""
 
 import ast
 import os
@@ -125,6 +126,26 @@ assert s7.predict_grid(np.linspace(0, 1, 5), np.linspace(0, 1, 3)).shape \
     == (5, 3, 1)
 assert pdt.uniform_grid([(0, 1), (0, 1)], 3).shape == (9, 2)
 assert all(np.isfinite(s.losses).all() for s in (s5, s6, s7))
+
+# Serving export, the module adapter and a world-of-one gloo mesh fit.
+from pydens_tpu_torch import parallel, module_model
+from pydens_tpu_torch.models import module_adapter
+from pydens_tpu_torch.parallel.mesh import destroy_local_world
+from pydens_tpu_torch.utils import export
+fn = pdt.load_exported(s6.export(with_grad=True), device="cpu")
+u, du = fn(np.zeros((4, 2), np.float32))
+assert du.shape == (4, 2, 1)
+np.testing.assert_allclose(u.numpy(), s6.predict(np.zeros((4, 2))),
+                           rtol=1e-6, atol=1e-6)
+net = torch.nn.Sequential(torch.nn.Linear(1, 8), torch.nn.Tanh(),
+                          torch.nn.Linear(8, 1))
+s8 = Solver(lambda f, x: D(f, x) - 1.0, ndims=1, device="cpu",
+            model=module_model(net), mesh=pdt.make_mesh(device="cpu"))
+s8.fit(batch_size=32, niters=3, progress=False)
+assert parallel.distributed.is_multi_process(s8.mesh) is False
+destroy_local_world()
+assert np.isfinite(s8.losses).all() and isinstance(
+    s8.model, module_adapter.ModuleModel)
 loaded = sorted(n for n in sys.modules
                 if n.split(".")[0] in ("jax", "optax")
                 and sys.modules[n] is not None)

@@ -241,12 +241,13 @@ def test_unported_options_raise():
         with pytest.raises(ValueError, match="no effect"):
             pkg.Solver(_poisson(pkg)[0], periodic=True, **extra, **kw)
     assert tpdt.Solver(pde, device="cpu", periodic=(0,), **kw)._plan_ok
-    # pydens_tpu.Solver's mesh: its default is taken, another value names
-    # its item.  n_models is ported: an ensemble builds with its members on
-    # every leaf, and a count that is not an int >= 1 raises.  Both
-    # formulations are ported, and any other raises pydens_tpu's
+    # pydens_tpu.Solver's mesh is ported: a value that is not a
+    # torch.distributed DeviceMesh raises (tests/test_torch_parallel.py
+    # trains on meshes).  n_models is ported: an ensemble builds with its
+    # members on every leaf, and a count that is not an int >= 1 raises.
+    # Both formulations are ported, and any other raises pydens_tpu's
     # ValueError.
-    with pytest.raises(NotImplementedError, match="mesh.*Queue 1 item 15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tpdt.Solver(pde, device="cpu", mesh=object(), **kw)
     ens = tpdt.Solver(pde, device="cpu", n_models=2, **kw)
     assert ens._plan_ok and ens.params["net"]["fc1"]["w"].shape[0] == 2
