@@ -10,6 +10,7 @@
     python3 chip_smoke.py --ensembles  # phases 1, 2 and 12 only
     python3 chip_smoke.py --symbolic   # phases 1, 2 and 13 only
     python3 chip_smoke.py --scale-out  # phases 1, 2 and 14 only
+    python3 chip_smoke.py --examples   # phases 1, 2 and 15 only
     python3 chip_smoke.py --w3-repeat  # w3's eager fit, repeated
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -140,7 +141,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``Shards.collectives``: NCCL launches no kernel for one rank);
    examples/08 (K = 8) on a ``(1, 1)`` ``models x data`` mesh with its
    bounds; the README ladder on the mesh (phase 9's bounds, 50 tangents a
-   LM step).
+   LM step); examples/28's first stage (causal training of a separable
+   model) on the mesh in turns with the fit without one, its losses
+   bitwise equal and two all-reduces a captured step, one more than
+   without the causal term (the slice means');
+15. the port's examples (``phase_examples``): each file of
+   ``examples_torch/`` through its own ``main()`` on the card, in the
+   order 01-05, 10, 29, 11, 13, 06, 25, 20, 19, 18 (``EXAMPLE_ROUTES``),
+   at its JAX example's budget, held to its own asserts (nothing catches
+   them); each fit held to its route (one Taylor forward and backward a
+   step on 01-05, 10, 18, 19 and 29, 50 tangents a LM step on 29, no
+   Taylor launch on 06, 11, 13, 20 and 25), each predict one MLP launch
+   where the chain is in the kernel's scope, each solver's chain the one
+   phase 3 checks; one JSON line an example with its numbers, the rate
+   of each fit (it/s over the whole fit, capture included), its seconds,
+   its launches and, from ``torch.profiler`` over 5 replays, the device
+   ops and busy ms of its Adam step (and of 29's LM step).  18's ranks
+   run in their own processes (one a card, NCCL), which report their
+   launches and steps.
 
 Every fit of phases 4-8 runs the package's path: on the card a fit step
 is captured as a CUDA graph once per configuration and replayed.  A
@@ -169,7 +187,10 @@ for K = 1, 3 and 8, the 64-wide chain at 65,537 points for K = 4), each
 member's slice against a single launch on its weights, and phase 13's
 chains (``SYMBOLIC_CHAINS``: examples/17's 3D Laplacian at 2,048 points
 and its first-order ``predict_grad`` plan at 10,000, examples/22's chain
-at 256, examples/24's at 1,024; the MLP at their predicts).
+at 256, examples/24's at 1,024; the MLP at their predicts), and phase
+15's (``EXAMPLE_CHAINS``: the chains of examples_torch/10, /18 and /29 at
+their batches, the tangent kernel at 29's 512 LM points, the MLP at each
+example's predict points).
 
 Prints one JSON line of per-kernel results, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -732,6 +753,7 @@ def phase_kernels():
     # closure, the ODE finisher's chain, and the 128-wide chain of phase
     # 9's LM arm; "readme_n1024" heads the JSON line.
     jvp = {tag: check_taylor_jvp(**case) for tag, case in JVP_SHAPES.items()}
+    jvp["p15_ex29_n512"] = check_taylor_jvp(**EX29_JVP)
     sync()
     # The MLP shapes, keyed by tag; "readme_n10000" is the README predict.
     mlp = {"readme_n10000": check_mlp("fa fa fa f", [10, 12, 15, 1], 2,
@@ -752,6 +774,15 @@ def phase_kernels():
         chain["layout"], chain["features"], chain["in_dim"], n, reps=200,
         act=chain["act"])
         for c, (chain, _, predicts) in SYMBOLIC_CHAINS.items()
+        for n in predicts})
+    # Phase 15's chains and predicts (the examples').
+    tut_taylor.update({f"p15_{c}_n{n}": check_taylor(n=n, reps=50, **chain)
+                       for c, (chain, counts, _)
+                       in EXAMPLE_CHAINS.items() for n in counts})
+    tut_mlp.update({f"p15_{c}_n{n}": check_mlp(
+        chain["layout"], chain["features"], chain["in_dim"], n, reps=50,
+        act=chain["act"])
+        for c, (chain, _, predicts) in EXAMPLE_CHAINS.items()
         for n in predicts})
     # Phase 11's predicts, the embedded ones at their embedded widths.
     tut_mlp.update({f"p11_{c}_n{n}": check_mlp(
@@ -3113,6 +3144,35 @@ SYMBOLIC_CHAINS = {
                   in_dim=2, closure=POISSON_CLOSURE), (1024,), (2000,)),
 }
 EX17_GRAD_POINTS = 10000
+# Phase 15's shapes that the earlier tables lack: the chains of
+# examples_torch/10, /18 and /29 at their batches (18: one rank's 64 rows
+# of a card's group of one), and the MLP kernel at each example's predict
+# points (its embedded width for /20), by example: (chain, batches of the
+# Taylor kernels, predict points).  01's shapes are w2's, 02's and 19's
+# the README's, 03's w4's, 04's w3's, 05's w5's, 25's ex25's above.
+README_CHAIN = dict(layout="fa fa fa f", features=[10, 12, 15, 1],
+                    act="Tanh", in_dim=2, closure=POISSON_CLOSURE)
+EXAMPLE_CHAINS = {
+    "ex02": (README_CHAIN, (), (10,)),
+    "ex03": (TUTORIAL_CHAINS["w4"][0], (), (100,)),
+    "ex04": (TUTORIAL_CHAINS["w3"][0], (), (50, 1600)),
+    "ex05": (TUTORIAL_CHAINS["w5"][0], (), (100,)),
+    "ex10": (dict(layout="fa fa f", features=[24, 24, 1], act="Tanh",
+                  in_dim=2, closure=[(0,), (1,), (0, 0)]), (512,), (50,)),
+    "ex18": (TUTORIAL_CHAINS["w2"][0], (64,), ()),
+    "ex29": (dict(layout="fa fa f", features=[24, 24, 1], act="Tanh",
+                  in_dim=1, closure=[(0,), (0, 0)]), (256, 512), (501,)),
+    "ex11": (dict(layout="fafaf", features=[24, 24, 1], act="Tanh",
+                  in_dim=2), (), (101,)),
+    "ex13": (dict(layout="fa fa f", features=[32, 32, 1], act="Tanh",
+                  in_dim=2), (), (1681,)),
+    "ex20": (dict(layout="fa fa fa f", features=[64, 64, 64, 1], act="Tanh",
+                  in_dim=3), (), (25929,)),
+    "ex19": (README_CHAIN, (), (7, 33)),
+}
+# The tangent kernel at examples_torch/29's 512 LM points.
+EX29_JVP = dict(features=[24, 24, 1], n=512, reps=100,
+                closure=[(0,), (0, 0)], in_dim=1, layout="fa fa f")
 EX26_GRID = 65                 # predict_grid's axis: 65 ** 3 = 274,625
 EX26_DENSE = 256               # and a dense one: 256 ** 3 = 16,777,216
 
@@ -3423,20 +3483,25 @@ def _allen_cahn_truth(nx=512, nt=2001, t_evals=(0.25, 0.5, 1.0)):
     return x, out
 
 
-def _arm_ex28():
-    """examples/28: separable Allen-Cahn, 10 harmonics, three causal stages
-    (eps 1, 5, 20) of 4,000 steps on a 64^2 grid, one graph for all (eps is
-    a buffer); rel-L2 at t = 0.25 < 0.05 and at t = 1 < 0.15."""
+def _ex28(mesh=None):
+    """examples/28's separable Allen-Cahn solver (10 harmonics)."""
     from pydens_tpu_torch import D, SeparableModel, Solver, cos
 
     def allen_cahn(f, x, t):
         return D(f, t) - 1e-4 * D(D(f, x), x) - 5.0 * (f - f ** 3)
 
-    s = Solver(allen_cahn, ndims=2, seed=0, domain=[(-1, 1), (0, 1)],
-               initial_condition=lambda x: x ** 2 * cos(np.pi * x),
-               periodic={0: 10}, periodic_ic_decay=False,
-               model=SeparableModel, activation="Tanh",
-               layout="fa fa fa f", features=[64, 64, 64, 64])
+    return Solver(allen_cahn, ndims=2, seed=0, domain=[(-1, 1), (0, 1)],
+                  initial_condition=lambda x: x ** 2 * cos(np.pi * x),
+                  periodic={0: 10}, periodic_ic_decay=False,
+                  model=SeparableModel, activation="Tanh",
+                  layout="fa fa fa f", features=[64, 64, 64, 64], mesh=mesh)
+
+
+def _arm_ex28():
+    """examples/28: separable Allen-Cahn, 10 harmonics, three causal stages
+    (eps 1, 5, 20) of 4,000 steps on a 64^2 grid, one graph for all (eps is
+    a buffer); rel-L2 at t = 0.25 < 0.05 and at t = 1 < 0.15."""
+    s = _ex28()
     rows = [_symbolic_fit(s, f"ex28 eps {eps:g}", False, grid_dims=2,
                           niters=4000, batch_size=64, lr=1e-3, causal=eps,
                           chunk_size=4000)
@@ -3773,6 +3838,73 @@ def _scale_mesh(mesh):
     return rows
 
 
+EX28_STAGE = dict(niters=4000, batch_size=64, lr=1e-3, causal=1.0,
+                  chunk_size=4000)      # examples/28's first stage
+
+
+def _scale_causal_separable(mesh):
+    """examples/28's first stage (EX28_STAGE: 4,000 steps on a 64^2 grid,
+    eps 1) with ``mesh=make_mesh()`` (one rank, NCCL) in turns with the
+    same fit without a mesh (plain, mesh, mesh, plain): the losses bitwise
+    equal (asserted), every step of each, and two all-reduces issued a
+    captured mesh step (``Shards.collectives``), one more than the same
+    mesh fit without the causal term (50 steps, one; asserted): the slice
+    means' sum before the sort.  From ``torch.profiler`` over replays,
+    device ops and busy ms with and without the mesh."""
+    from pydens_tpu_torch.parallel.shards import Shards
+    arms = {"plain": [], "mesh": []}
+    for arm in ("plain", "mesh", "mesh", "plain"):
+        s = _ex28(mesh if arm == "mesh" else None)
+        Shards.collectives = 0
+        sync()
+        t0 = time.perf_counter()
+        s.fit(progress=False, **EX28_STAGE)
+        sync()
+        wall = time.perf_counter() - t0
+        eager, replays, graphs = fit_tally(s)
+        assert eager + replays == EX28_STAGE["niters"], (eager, replays)
+        issued = Shards.collectives
+        assert issued == (2 * (eager + graphs) if arm == "mesh" else 0), (
+            arm, issued, eager, graphs)
+        arms[arm].append(dict(it_s=EX28_STAGE["niters"] / wall,
+                              losses=np.asarray(s.losses),
+                              collectives=issued))
+        if len(arms[arm]) == 1:
+            arms[arm][0]["profile"] = graph_launches(
+                list(s._step_cache.values())[-1], kernels=False)
+        del s
+        free_card()
+    s = _ex28(mesh)
+    Shards.collectives = 0
+    s.fit(progress=False, **dict(EX28_STAGE, niters=50, chunk_size=50,
+                                 causal=None))
+    eager, replays, graphs = fit_tally(s)
+    plain_issued = Shards.collectives
+    assert plain_issued == eager + graphs, (plain_issued, eager, graphs)
+    del s
+    free_card()
+    a, b = arms["plain"][0]["losses"], arms["mesh"][0]["losses"]
+    assert np.array_equal(a, b), float(np.max(np.abs(a - b) / np.abs(a)))
+    row = {arm: dict(it_s=[r["it_s"] for r in runs],
+                     collectives=runs[0]["collectives"],
+                     final_loss=float(runs[0]["losses"][-1]),
+                     **runs[0]["profile"])
+           for arm, runs in arms.items()}
+    row.update(bitwise_equal=True, collectives_without_causal=plain_issued,
+               busy_ratio=(row["mesh"]["device_busy_ms"]
+                           / row["plain"]["device_busy_ms"]))
+    log(f"scale-out causal separable (examples/28 stage 1): plain "
+        f"{np.mean(row['plain']['it_s']):.1f} it/s, "
+        f"{row['plain']['device_ops']:.1f} ops, "
+        f"{row['plain']['device_busy_ms']:.4f} ms busy a step; mesh "
+        f"{np.mean(row['mesh']['it_s']):.1f} it/s, "
+        f"{row['mesh']['device_ops']:.1f} ops, "
+        f"{row['mesh']['device_busy_ms']:.4f} ms busy; all-reduces issued "
+        f"{row['mesh']['collectives']} (eager step + capture) against "
+        f"{plain_issued} without the causal term; losses bitwise equal")
+    return row
+
+
 def _scale_ensemble():
     """examples/08 at K = 8 (500 Adam steps at batch 400) on a (1, 1)
     ``models x data`` mesh, with its bounds (mean max error < 0.05, std
@@ -3842,6 +3974,7 @@ def phase_scale_out():
         rows["export"] = _scale_export()
         with _plain_refused():
             rows["mesh"] = _scale_mesh(mesh)
+            rows["causal_separable"] = _scale_causal_separable(mesh)
             rows["ex08_models_axis"] = _scale_ensemble()
             rows["ladder"] = _scale_lm(mesh)
     finally:
@@ -3851,15 +3984,232 @@ def phase_scale_out():
     return path, rows
 
 
+# Phase 15: the port's examples (examples_torch/), each file's main() on the
+# card in the order below, its own asserts the check.  Route: "kernels",
+# one Taylor forward and backward a replayed Adam step (50 tangents a LM
+# step on 29); "plain", no Taylor launch (an order above two, a periodic
+# embedding or a custom body: the plain traversal or nested D).
+EXAMPLES_DIR = "examples_torch"
+EXAMPLE_ROUTES = {
+    "01_simple_ode": ("kernels", TUTORIAL_CHAINS["w2"][0]),
+    "02_poisson_2d": ("kernels", README_CHAIN),
+    "03_parametric_family": ("kernels", TUTORIAL_CHAINS["w4"][0]),
+    "04_heat_parametric": ("kernels", TUTORIAL_CHAINS["w3"][0]),
+    "05_inverse_problem": ("kernels", TUTORIAL_CHAINS["w5"][0]),
+    "10_data_assimilation": ("kernels", EXAMPLE_CHAINS["ex10"][0]),
+    "29_eigenvalue_problem": ("kernels", EXAMPLE_CHAINS["ex29"][0]),
+    "11_kdv_soliton": ("plain", EXAMPLE_CHAINS["ex11"][0]),
+    "13_plate_bending": ("plain", EXAMPLE_CHAINS["ex13"][0]),
+    "06_custom_model": ("plain", None),
+    "25_allen_cahn": ("plain", FEATURE_CHAINS["ex25"][0]),
+    "20_causal_convection": ("plain", EXAMPLE_CHAINS["ex20"][0]),
+    "19_serving_http": ("kernels", README_CHAIN),
+    "18_distributed_data_parallel": ("kernels", None),
+}
+EX29_LM = dict(batch=512, steps=3)    # finisher_profile of 29's LM step
+
+
+def _example_module(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _step_kind(step):
+    return ("LM" if hasattr(step.opt, "cg_iters")
+            else "LBFGS" if hasattr(step.opt, "linesearch") else "Adam")
+
+
+@contextlib.contextmanager
+def _watched_solvers(fits, predicts):
+    """``Solver.fit`` and ``Solver.predict`` of every solver while entered:
+    each fit appended to ``fits`` (the solver, steps run, wall by the host
+    clock between two synchronizes, the step tally and the Taylor
+    wrapper launches over the fit, the step's kind), each predict's MLP
+    launches to ``predicts`` with whether the chain is in the kernel's
+    scope."""
+    from pydens_tpu_torch import Solver
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    counters = _finisher_counters()
+    fit, predict = Solver.fit, Solver.predict
+
+    def watched_fit(self, *args, **kwargs):
+        before, n0 = _kind_tally(self), len(self.losses)
+        launches = [c.launches for c in counters]
+        sync()
+        t0 = time.perf_counter()
+        out = fit(self, *args, **kwargs)
+        sync()
+        wall = time.perf_counter() - t0
+        after = _kind_tally(self)
+        fits.append(dict(
+            solver=self, steps=len(self.losses) - n0, wall=wall,
+            tally={k: after[k] - before[k] for k in after},
+            launches=[c.launches - n for c, n in zip(counters, launches)],
+            step=_finisher_step(self)))
+        return out
+
+    def watched_predict(self, *args, **kwargs):
+        before = fm.fused_mlp_forward.launches
+        out = predict(self, *args, **kwargs)
+        predicts.append((fm.fused_mlp_forward.launches - before,
+                         getattr(self.model, "_mlp_plan", None) is not None))
+        return out
+
+    Solver.fit, Solver.predict = watched_fit, watched_predict
+    try:
+        yield
+    finally:
+        Solver.fit, Solver.predict = fit, predict
+
+
+def _example_fit_route(f, route, tag):
+    """One fit of an example held to its route: every step ran once
+    (eagerly or replayed), and each eager step and each capture launched
+    the Taylor kernels as the step's design says (an Adam step one forward
+    and one backward, a LM step ``_evals``: 2, cg + 1 and cg tangents), or
+    never on the plain route.  Returns the Taylor launches on the device
+    (eager steps and replays), per kernel."""
+    d, step = f["tally"], f["step"]
+    assert d["eager"] + d["replays"] == f["steps"], (tag, d, f["steps"])
+    assert d["replays"] > 0 or d["graph"] > 0, (tag, d)
+    kind = _step_kind(step)
+    if route == "plain":
+        assert f["launches"] == [0, 0, 0], (tag, f["launches"])
+        return [0, 0, 0]
+    per = _evals(step) if kind == "LM" else (1, 1, 0)
+    assert kind != "LBFGS", tag         # no example polishes on the kernels
+    assert f["launches"] == [(d["eager"] + d["graph"]) * k for k in per], (
+        tag, kind, f["launches"], d)
+    return [(d["eager"] + d["replays"]) * k for k in per]
+
+
+def _run_example(name, route, chain):
+    """One example's main() on the card (counters from 0 just before, read
+    just after), its fits held to the route, its solvers' chains to the
+    ones phase 3 checks, each predict one MLP launch where the chain is in
+    the kernel's scope; then ``torch.profiler`` over replays of its last
+    Adam step (and, on 29, of its LM step)."""
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    counters = _finisher_counters() + (fm.fused_mlp_forward,)
+    mod = _example_module(name)
+    fits, predicts = [], []
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    with _watched_solvers(fits, predicts):
+        solver, numbers = mod.main()
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    row = dict(numbers=numbers, seconds=seconds, launches=launches)
+    device = [0, 0, 0]
+    for i, f in enumerate(fits):
+        dev = _example_fit_route(f, route, f"{name} fit {i}")
+        device = [a + b for a, b in zip(device, dev)]
+    row["fits"] = [dict(steps=f["steps"], kind=_step_kind(f["step"]),
+                        it_s=f["steps"] / f["wall"], tally=f["tally"])
+                   for f in fits]
+    row["device_launches"] = device
+    assert all(n == int(in_scope) for n, in_scope in predicts), predicts
+    assert all(in_scope for _, in_scope in predicts) or chain is None, (
+        name, predicts)
+    row["predicts"] = [n for n, _ in predicts]
+    if solver is None:              # 18: the fit ran in the ranks' processes
+        return row
+    if chain is not None and "closure" in chain and route == "kernels":
+        _assert_chain(solver, chain)
+    elif chain is not None:
+        _assert_mlp_chain(solver, chain)
+    adam = [s for s in solver._step_cache.values() if _step_kind(s) == "Adam"]
+    prof = graph_launches(adam[-1], kernels=route == "kernels")
+    per_step = [prof[f"{k}_per_step"] for k in TAYLOR_KERNELS]
+    assert per_step == ([1.0, 1.0] if route == "kernels" else [0.0, 0.0]), (
+        name, prof)
+    row["adam_step"] = prof
+    if any(_step_kind(s) == "LM" for s in solver._step_cache.values()):
+        lm = finisher_profile(solver, EX29_LM["batch"], EX29_LM["steps"],
+                              f"{name} LM")
+        assert lm["taylor_jvp_kernel_per_step"] == 50.0, lm
+        row["lm_step"] = lm
+    return row
+
+
+def _run_example_18():
+    """examples_torch/18: its ranks run in their own processes (one a card,
+    NCCL), so the launches and the step tally are the first rank's, as it
+    reports them: every step ran once, and each eager step and capture
+    launched the Taylor forward and backward once."""
+    mod = _example_module("18_distributed_data_parallel")
+    t0 = time.perf_counter()
+    _, result = mod.main()
+    seconds = time.perf_counter() - t0
+    st, tl = result["steps"], result["taylor_launches"]
+    assert st["eager"] + st["replays"] == mod.NITERS, st
+    assert tl["forward"] == tl["backward"] == st["eager"] + st["graphs"], (
+        st, tl)
+    assert result["world"] == torch.cuda.device_count(), result
+    assert result["backend"] == "nccl", result
+    n = st["eager"] + st["replays"]
+    return dict(numbers=result, seconds=seconds,
+                fits=[dict(steps=mod.NITERS, kind="Adam",
+                           it_s=result["it_s"], tally=st)],
+                launches={"fused_taylor_forward": tl["forward"],
+                          "fused_taylor_backward": tl["backward"],
+                          "fused_taylor_jvp": 0, "fused_mlp_forward": 0},
+                device_launches=[n, n, 0])
+
+
+def phase_examples():
+    """Phase 15: each file of examples_torch/ through its own main() on the
+    card, in EXAMPLE_ROUTES' order, held to its own asserts and its route;
+    one JSON line an example.  Every kernel's plain version raises (19's
+    artifact, which holds the plain forward by design, aside).  Returns
+    the path's launches (wrapper counts, summed over the examples) and
+    the Taylor kernels' launches on the device."""
+    t0 = time.perf_counter()
+    rows, path, device = {}, {}, [0, 0, 0]
+    for name, (route, chain) in EXAMPLE_ROUTES.items():
+        if name.startswith("18"):
+            row = _run_example_18()
+        elif name.startswith("19"):
+            row = _run_example(name, route, chain)
+        else:
+            with _plain_refused():
+                row = _run_example(name, route, chain)
+        free_card()
+        rows[name] = row
+        device = [a + b for a, b in zip(device, row["device_launches"])]
+        for k, v in row["launches"].items():
+            path[k] = path.get(k, 0) + v
+        print(json.dumps({"example": name, **row}, default=_json_default),
+              flush=True)
+        log(f"example {name}: {row['seconds']:.2f} s, "
+            + ", ".join(f"{f['kind']} {f['steps']} steps {f['it_s']:.1f} "
+                        "it/s" for f in row["fits"])
+            + f"; launches {row['launches']}")
+    seconds = time.perf_counter() - t0
+    log(f"examples path launches (counted from 0 before each example): "
+        f"{path}; Taylor kernels on the device {device}; {seconds:.1f} s")
+    assert all(path.values()), path
+    return path, dict(zip(("fused_taylor_forward", "fused_taylor_backward",
+                           "fused_taylor_jvp"), device)), rows, seconds
+
+
 def carry_probe(steps, out_dir=os.path.join("build", "carry")):
     """Runs ``steps`` in this one process, in order: earlier phases by name,
-    phase 11's arms (``FEATURE_ARMS``), and ``deterministic``, which turns
+    phase 11's arms (``FEATURE_ARMS``), the files of examples_torch/ by
+    name (``EXAMPLE_ROUTES``), and ``deterministic``, which turns
     on ``torch.use_deterministic_algorithms(True, warn_only=True)`` for
     the steps after it and logs the ops that warn (those without a
     deterministic implementation).  Saves the loss history and initial
     parameters of each arm it ran to ``out_dir/<steps>.npz`` (keys
     ``<position>_<arm>``), so that two probes show the first step at
-    which earlier work in a process changed an arm's fit."""
+    which earlier work in a process changed an arm's fit; an arm run twice
+    in one probe logs the first step at which its two histories differ."""
     import warnings
     phases = {"kernels": phase_kernels, "poisson": phase_poisson,
               "wide": phase_wide_fit, "tutorials": phase_tutorials,
@@ -3875,6 +4225,16 @@ def carry_probe(steps, out_dir=os.path.join("build", "carry")):
             _carry(steps, phases, saved)
         finally:
             np.savez(dest, **saved)
+            by_arm = {}
+            for key in sorted(saved, key=lambda k: int(k.split("_")[0])):
+                by_arm.setdefault(key.split("_", 1)[1], []).append(
+                    saved[key])
+            for arm, runs in by_arm.items():
+                if len(runs) > 1 and runs[0].shape == runs[1].shape:
+                    diff = np.flatnonzero(runs[0] != runs[1])
+                    log(f"carry probe {arm}: two runs, first differing "
+                        f"step {diff[0] if diff.size else None} of "
+                        f"{runs[0].size}")
             ops = sorted({str(w.message)[:200] for w in caught
                           if "determinis" in str(w.message)})
             torch.use_deterministic_algorithms(False)
@@ -4071,6 +4431,14 @@ def _carry(steps, phases, saved):
             continue
         if step in ("first_order", "second_order"):
             backward_work(second=step == "second_order")
+            continue
+        if step in EXAMPLE_ROUTES:
+            with _plain_refused():
+                solver, numbers = _example_module(step).main()
+            saved[f"{i}_{step}"] = np.asarray(solver.losses, np.float64)
+            log(f"carry {step}: {json.dumps(numbers)}")
+            del solver
+            free_card()
             continue
         if step in phases:
             if step == "collocation":   # as main() runs it
@@ -4479,6 +4847,10 @@ def main():
                          default=_json_default), flush=True)
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--examples"]:
+        phase_examples()
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:2] == ["--carry"]:
         carry_probe(sys.argv[2].split(","), *sys.argv[3:4])
         print(smi, flush=True)
@@ -4518,6 +4890,7 @@ def main():
     scale_launches, scale_out = phase_scale_out()
     print(json.dumps({"scale_out": scale_out}, default=_json_default),
           flush=True)
+    example_launches, example_device, _, example_s = phase_examples()
     path_launches = {k: {"w1": launches[k],
                          **{w: t[0][k] for w, t in tutorials.items()},
                          **{f"p10_{arm}": n[k] for arm, n
@@ -4526,7 +4899,8 @@ def main():
                             in feature_launches.items()},
                          "p12_ensembles": ensemble_launches[k],
                          "p13_symbolic": symbolic_launches.get(k, 0),
-                         "p14_scale_out": scale_launches[k]}
+                         "p14_scale_out": scale_launches[k],
+                         "p15_examples": example_launches[k]}
                      for k in launches}
     # Launches on the card: the Taylor kernels once per fit step (eager or
     # replayed), the MLP kernel once per predict (never captured).
@@ -4557,7 +4931,9 @@ def main():
         # the wrapper's count on the main path (eager steps and captures);
         # a captured kernel's launches on the card, and per replayed step,
         # follow.
-        graph = ({"path_device_launches": device_launches,
+        graph = ({"path_device_launches": {
+                      **device_launches,
+                      "p15_examples": example_device[name]},
                   "graph_launches_per_step": w1_prof[f"{kernel}_per_step"]}
                  if kernel else {"path_device_launches": path_launches[name]})
         return {"name": name, "route": "cuda",
@@ -4594,6 +4970,8 @@ def main():
                  for tag, (_, times) in jvp.items()},
         "path_launches": finisher_launches,
         "p14_scale_out_launches": scale_launches["fused_taylor_jvp"],
+        "p15_examples_launches": example_launches["fused_taylor_jvp"],
+        "p15_examples_device_launches": example_device["fused_taylor_jvp"],
         "lm_launches_per_step":
             finishers["ode_lm"]["taylor_jvp_kernel_per_step"]}
     # The member axis (the grid's second axis, K ensemble members in one
@@ -4644,6 +5022,8 @@ def main():
         jvp_entry,
     ] + member_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
+    log(f"phase 15 (examples): {example_s:.1f} s; the whole run "
+        f"{time.perf_counter() - _T0:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -665,9 +665,16 @@ class Model(nn.Module):
     def supports_taylor(self):
         return self.network_apply_taylor is not None
 
-    def full_taps(self, params, xs, derivs):
+    def network_taylor_plain(self, net_params, xs, closure):
+        """The network's Taylor state off the kernels: a model's own
+        traversal (:class:`ConvBlockModel` skips the fused Taylor
+        kernels)."""
+        return self.network_apply_taylor(net_params, xs, closure)
+
+    def full_taps(self, params, xs, derivs, plain=False):
         """All requested pure field taps of the FULL model (network body +
-        ansatz) in one Taylor-mode network traversal.
+        ansatz) in one Taylor-mode network traversal (with ``plain``, the
+        network's plain traversal, off the kernels).
 
         The network propagates batched tangents (``network_apply_taylor``);
         the ansatz composes exactly through a polarized scalar substitution:
@@ -692,7 +699,9 @@ class Model(nn.Module):
         (:meth:`member_rows`).
         """
         closure = self.plan_closure(derivs)
-        V, taps = self.network_apply_taylor(params["net"], xs, closure)
+        traversal = (self.network_taylor_plain if plain
+                     else self.network_apply_taylor)
+        V, taps = traversal(params["net"], xs, closure)
         V = self.member_rows(V)
         taps = {mi: self.member_rows(t) for mi, t in taps.items()}
         if self.n_models > 1:
@@ -982,6 +991,11 @@ class ConvBlockModel(Model):
             return fused_taylor.fused_taylor_taps(
                 fused_taylor.pack_weights(net_params, self.net.dense_names),
                 xs, plan)
+        return self.network_taylor_plain(net_params, xs, closure)
+
+    def network_taylor_plain(self, net_params, xs, closure):
+        """The network's Taylor state by the plain traversal, from the
+        embedding's state where the model embeds."""
         if self._embedded:
             V, taps = self._embed_state(xs, closure)
             return self.net.taylor_taps(net_params, V, closure,

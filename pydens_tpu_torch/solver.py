@@ -44,9 +44,9 @@ from torch.distributed.device_mesh import DeviceMesh
 from .models import ConvBlockModel
 from .models.base import resolve_device
 from .parallel.shards import Shards, mesh_axes
-from .ops.tokens import (Expr, EvalContext, _batch_diagonal_grad,
-                         as_array, as_device, member_scope, staging, to_host,
-                         variable_scope)
+from .ops.tokens import (PLAN_MAX_ORDER, Expr, EvalContext,
+                         _batch_diagonal_grad, as_array, as_device,
+                         member_scope, staging, to_host, variable_scope)
 from .utils.criteria import member_losses, resolve_criterion
 from .utils.optimizers import LBFGS, LMConfig, resolve_optimizer
 
@@ -1125,10 +1125,22 @@ class Solver:
                 self._concat_points(list(pts)), pts)), pts)
 
         def fwd_grad(*pts, wrt=0):
-            xs_c = members(self._concat_points(
-                [p.value if isinstance(p, Expr) else p for p in pts]), pts)
+            vals = [p.value if isinstance(p, Expr) else p for p in pts]
             multi = ((wrt,) if isinstance(wrt, (int, np.integer))
                      else tuple(wrt))
+            shared = K == 1 or not any(isinstance(p, Expr) for p in pts)
+            if (model.supports_taylor and len(multi) <= PLAN_MAX_ORDER
+                    and shared):
+                # Forward mode written out (the plain traversal and the
+                # ansatz on jets), as pydens_tpu's nested jvp: a
+                # create_graph backward would add nodes that the device
+                # thread numbers after the process's earlier autograd
+                # work, and the fit would depend on that work.
+                mi = tuple(sorted(multi))
+                return per_member(model.full_taps(
+                    params, self._concat_points(vals), [mi],
+                    plain=True)[mi], pts)
+            xs_c = members(self._concat_points(vals), pts)
             cols = [xs_c[:, k:k + 1].detach().requires_grad_(True)
                     for k in range(xs_c.shape[1])]
             with torch.enable_grad():
@@ -1290,7 +1302,19 @@ class Solver:
             residual L; the weights ``exp(-eps * cumulative earlier L /
             total L)`` over the samples sorted by time, without gradient,
             self-normalized, so eps = 0 is the plain MSE.  An ensemble's
-            per member."""
+            per member.
+
+            On a mesh grid axis 0 is split over the data ranks (``pts`` is
+            the whole batch on every rank).  The slice means are made
+            global in one all-reduce before the sort, so every rank sorts
+            and weights alike: with time on axis 0 each rank writes its
+            slices' means at their offsets in a zero buffer of all N_t
+            (disjoint supports: the sum is exact); with time on another
+            axis each rank holds every slice over its share of the
+            cross-section, and the mean of the ranks' means is the
+            slice's.  The term is then this rank's share of the global
+            weighted sum over the global denominator, times the ranks
+            (the step's all-reduce takes each rank's share)."""
             t_idx = causal[0]
             lead = 0 if K == 1 else 1
             sq = 0.0
@@ -1300,18 +1324,35 @@ class Solver:
                 sq = sq + torch.mean(res * res, dim=-1)
             other = tuple(lead + a for a in range(total) if a != t_idx)
             L = torch.mean(sq.detach(), dim=other)      # lead + (N_t,)
+            n_t = pts.shape[0]
+            mine = slice(0, n_t)
+            if shards is not None:
+                if t_idx == 0:
+                    mine = slice(shards.data_index * L.shape[-1],
+                                 (shards.data_index + 1) * L.shape[-1])
+                    full = L.new_zeros(L.shape[:-1] + (n_t,))
+                    full[..., mine] = L
+                    L = full
+                elif n_data > 1:
+                    L = L * (1.0 / n_data)
+                L = shards.sum(L)
             order = torch.argsort(pts[:, t_idx].detach())
             L = L.index_select(-1, order)
             cum = torch.cat([torch.zeros_like(L[..., :1]),
                              torch.cumsum(L, -1)[..., :-1]], dim=-1)
             cum = cum / (cum[..., -1:] + L[..., -1:]).clamp(min=1e-30)
             w = torch.exp(-eps * cum).index_select(-1, torch.argsort(order))
-            w_b = w.reshape(w.shape[:lead] + (1,) * t_idx + (-1,)
-                            + (1,) * (total - 1 - t_idx))
+            w_mine = w[..., mine]
+            w_b = w_mine.reshape(w.shape[:lead] + (1,) * t_idx + (-1,)
+                                 + (1,) * (total - 1 - t_idx))
             n_other = sq[0].numel() if lead else sq.numel()
-            n_other //= w.shape[-1]     # the grid's cross-section
-            return (torch.sum((w_b * sq).flatten(lead), -1)
-                    / (w.sum(-1) * n_other).clamp(min=1e-30))
+            n_other //= w_mine.shape[-1]    # this rank's cross-section
+            num = torch.sum((w_b * sq).flatten(lead), -1)
+            if t_idx == 0 and n_data > 1:
+                # This rank's slices of the global sum: n_other is every
+                # rank's cross-section, the denominator global.
+                num = n_data * num
+            return num / (w.sum(-1) * n_other).clamp(min=1e-30)
 
         def terms(residuals, values, leaf, pts, point_weight=None,
                   causal_eps=None):
@@ -1628,7 +1669,7 @@ class Solver:
         pts = self._sample(sampler, n, step.pool)
         return self._shards.shard(pts, 1) if step.shard_points else pts
 
-    def _check_mesh(self, batch_size, options):
+    def _check_mesh(self, batch_size):
         """``pydens_tpu``'s divisibility checks of a mesh fit
         (``solver.py:1772-1785``)."""
         shards = self._shards
@@ -1644,12 +1685,6 @@ class Solver:
                 f"n_models={self.n_models} must be divisible by the "
                 f"'{shards.model_axis}' mesh axis size "
                 f"{shards.n_member_ranks}")
-        if (options.causal is not None and self.model.total > 1
-                and getattr(self.model, "separable", False)):
-            raise NotImplementedError(
-                "causal training of a separable model on a mesh is not "
-                "ported to pydens_tpu_torch yet (ROADMAP.md, Queue 1 item "
-                "15)")
 
     def _fit(self, niters, batch_size, sampler, loss_terms, optimizer, criterion, lr, losses, progress, chunk_size, profile_dir, resample, adaptive, fast_taps, callback, loss_balancing, checkpoint_path, checkpoint_every, stop_on_nan, causal, causal_axis, rba, until_loss, **kwargs):
         fit_t0 = time.perf_counter()
@@ -1694,7 +1729,7 @@ class Solver:
             loss_terms, criterion_key, sampler, resample, adaptive, rba,
             causal, causal_axis, loss_balancing)
         batch_size = int(batch_size)
-        self._check_mesh(batch_size, options)
+        self._check_mesh(batch_size)
         chunk = max(1, min(niters, int(chunk_size)))
         step = self._fit_step(loss_terms, criterion_fn, use_plan, batch_size,
                               chunk, bool(resample), bool(stop_on_nan),

@@ -143,6 +143,44 @@ def _separable(mesh):
     return dict(losses=_losses(s))
 
 
+def _allen_cahn(f, x, t):
+    # examples/28's equation: time on grid axis 1, the initial condition.
+    return D(f, t) - 1e-4 * D(D(f, x), x) - 5.0 * (f - f ** 3)
+
+
+def _reaction(f, t, x):
+    # Time first: on a mesh grid axis 0, the split one, is time.
+    return D(f, t) - 0.05 * D(D(f, x), x) - f * (1.0 - f ** 2)
+
+
+# The causal separable cases: (equation, Solver keywords, causal_axis);
+# examples/28 at a narrow width, and time on the split grid axis.
+SEPARABLE_CAUSAL = {
+    "separable_causal": (_allen_cahn, dict(
+        ndims=2, domain=[(-1, 1), (0, 1)],
+        initial_condition=lambda x: x ** 2 * torch.cos(np.pi * x),
+        periodic={0: 3}, periodic_ic_decay=False), None),
+    "separable_causal_t0": (_reaction, dict(
+        ndims=2, boundary_condition=0.0), 0),
+}
+SEPARABLE_NET = dict(layout="fa fa f", features=[12, 12, 8],
+                     activation="Tanh")
+CAUSAL_EPS = 5.0            # the parity case's temperature
+
+
+def _separable_causal(name):
+    equation, kw, t_axis = SEPARABLE_CAUSAL[name]
+
+    def run(mesh):
+        s = Solver(equation, model=SeparableModel, seed=0, mesh=mesh, **kw,
+                   **SEPARABLE_NET, **CPU)
+        for eps in (1.0, 5.0):   # annealed, as examples/28
+            s.fit(niters=20, batch_size=16, causal=eps, causal_axis=t_axis,
+                  progress=False)
+        return dict(losses=_losses(s))
+    return run
+
+
 SCENARIOS = {
     "data1d": ("data", _data1d),
     "samplers": ("data", _samplers),
@@ -166,6 +204,8 @@ SCENARIOS = {
     "lm": ("data", _lm),
     "lbfgs": ("data", _lbfgs),
     "separable": ("data", _separable),
+    "separable_causal": ("data", _separable_causal("separable_causal")),
+    "separable_causal_t0": ("data", _separable_causal("separable_causal_t0")),
 }
 
 
@@ -197,17 +237,11 @@ def _errors():
                                                  device="cpu")),
             ("shape_devices", lambda: pdt.make_mesh(
                 shape=(4, 4), axis_names=("models", "data"), device="cpu")),
-            ("n_devices", lambda: pdt.make_mesh(100, device="cpu")),
-            ("separable_causal", lambda: Solver(
-                lambda f, x, t: D(f, t) - D(D(f, x), x), ndims=2,
-                initial_condition=lambda x: torch.sin(np.pi * x),
-                model=SeparableModel, layout="fa f", features=[8, 4],
-                mesh=mesh, seed=0, **CPU).fit(niters=1, batch_size=8,
-                                              causal=1.0, progress=False))):
+            ("n_devices", lambda: pdt.make_mesh(100, device="cpu"))):
         try:
             call()
             out[key] = None
-        except (ValueError, NotImplementedError) as err:
+        except ValueError as err:
             out[key] = f"{type(err).__name__}: {err}"
     out["subset_size"] = pdt.make_mesh(2, device="cpu").size()
     return out
@@ -235,15 +269,9 @@ def _checkpoint(mesh, out_dir, rank):
                 resumed=_losses(r)[20:], saving=_losses(s)[20:])
 
 
-def _jax_parity(out_dir):
-    """Loss and flat gradient at a fixed theta (pydens_tpu's, from
-    ``jax_theta.npz``) on a fixed batch of 64 points, on the mesh: each rank
-    its 16 rows, summed over the ranks."""
-    from pydens_tpu_torch import params_from_jax
-    from pydens_tpu_torch.utils.criteria import mse_loss
-    data = np.load(os.path.join(out_dir, "jax_theta.npz"))
-    s = Solver(_ode, ndims=1, initial_condition=.5, seed=0,
-               mesh=pdt.make_mesh(device="cpu"), **NET, **CPU)
+def _load_tree(data):
+    """A parameter tree from ``name/leaf`` keys of an npz (``pts``
+    aside)."""
     tree = {}
     for name in data.files:
         if name == "pts":
@@ -254,7 +282,19 @@ def _jax_parity(out_dir):
             node = node.setdefault(key, {})
         node[leaf] = data[name]
     tree.setdefault("variables", {})
-    s.model.load_params(params_from_jax(tree))
+    return tree
+
+
+def _jax_parity(out_dir):
+    """Loss and flat gradient at a fixed theta (pydens_tpu's, from
+    ``jax_theta.npz``) on a fixed batch of 64 points, on the mesh: each rank
+    its 16 rows, summed over the ranks."""
+    from pydens_tpu_torch import params_from_jax
+    from pydens_tpu_torch.utils.criteria import mse_loss
+    data = np.load(os.path.join(out_dir, "jax_theta.npz"))
+    s = Solver(_ode, ndims=1, initial_condition=.5, seed=0,
+               mesh=pdt.make_mesh(device="cpu"), **NET, **CPU)
+    s.model.load_params(params_from_jax(_load_tree(data)))
     loss_fn = s._build_loss_fn((("equation", 1.0),), mse_loss,
                                use_plan=True)
     theta = loss_fn.spec.flatten(s.model.params).detach().requires_grad_()
@@ -263,6 +303,34 @@ def _jax_parity(out_dir):
     grad, = torch.autograd.grad(loss, theta)
     loss, grad = s._shards.share_sum(loss.detach(), grad)
     return dict(loss=float(loss), grad=grad.tolist(), rows=pts.shape[0])
+
+
+def _jax_parity_causal(out_dir, name):
+    """The causal separable loss and flat gradient at pydens_tpu's theta
+    (``jax_<name>.npz``) on its fixed grid batch, on the mesh: each rank
+    its rows of grid axis 0, the slice means made global by one
+    all-reduce, loss and gradient summed over the ranks."""
+    from pydens_tpu_torch import params_from_jax
+    from pydens_tpu_torch.parallel.shards import Shards
+    from pydens_tpu_torch.utils.criteria import mse_loss
+    equation, kw, t_axis = SEPARABLE_CAUSAL[name]
+    data = np.load(os.path.join(out_dir, f"jax_{name}.npz"))
+    s = Solver(equation, model=SeparableModel, seed=0,
+               mesh=pdt.make_mesh(device="cpu"), **kw, **SEPARABLE_NET,
+               **CPU)
+    s.model.load_params(params_from_jax(_load_tree(data)))
+    t_idx = s.model.ndims - 1 if t_axis is None else t_axis
+    lo, hi = s.model.domain[t_idx]
+    loss_fn = s._build_loss_fn((("equation", 1.0),), mse_loss,
+                               causal=(t_idx, float(lo), float(hi)))
+    theta = loss_fn.spec.flatten(s.model.params).detach().requires_grad_()
+    before = Shards.collectives
+    loss = loss_fn(theta, torch.from_numpy(data["pts"]),
+                   causal_eps=torch.tensor(CAUSAL_EPS))
+    grad, = torch.autograd.grad(loss, theta)
+    issued = Shards.collectives - before
+    loss, grad = s._shards.share_sum(loss.detach(), grad)
+    return dict(loss=float(loss), grad=grad.tolist(), collectives=issued)
 
 
 def run_group(rank, out_dir):
@@ -276,6 +344,8 @@ def run_group(rank, out_dir):
     out["errors"] = _errors()
     out["checkpoint"] = _checkpoint(_mesh("data"), out_dir, rank)
     out["jax_parity"] = _jax_parity(out_dir)
+    out["jax_parity_causal"] = {name: _jax_parity_causal(out_dir, name)
+                                for name in SEPARABLE_CAUSAL}
     return out
 
 

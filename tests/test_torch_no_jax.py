@@ -8,7 +8,9 @@ constraint and a freeze, then a fit with a schedule and SGD, a save and a
 load, then L-BFGS and Levenberg-Marquardt fits, the collocation options,
 Deep Ritz and ``Solver.residual``, the symbolic layer and the separable
 model, an export round trip and a module model's fit on a world-of-one
-gloo mesh), and every file of the package is scanned for a jax import."""
+gloo mesh), and every file of the package and of ``examples_torch/`` is
+scanned for a jax import (the server that examples_torch/19 writes, for
+any import beyond the standard library and torch)."""
 
 import ast
 import os
@@ -176,11 +178,33 @@ def _imported_roots(path):
             yield (node.module or "").split(".")[0]
 
 
-@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")),
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py"))
+                         + sorted((REPO / "examples_torch").glob("*.py")),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_file_imports_jax(path):
     roots = set(_imported_roots(path))
     assert not roots & {"jax", "jaxlib", "optax", "flax", "pydens_tpu"}, roots
+
+
+def test_served_artifact_script_imports_torch_alone():
+    # examples_torch/19 writes its server from the string _SERVER: the
+    # deployment unit is the artifact, so the server imports the standard
+    # library, torch and nothing of either package.
+    path = REPO / "examples_torch" / "19_serving_http.py"
+    source = next(
+        ast.literal_eval(node.value)
+        for node in ast.parse(path.read_text()).body
+        if isinstance(node, ast.Assign)
+        and [t.id for t in node.targets] == ["_SERVER"])
+    tree = ast.parse(source)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            roots.add((node.module or "").split(".")[0])
+    assert "torch" in roots
+    assert not roots - set(sys.stdlib_module_names) - {"torch"}, roots
 
 
 def test_chip_smoke_imports_no_jax():

@@ -58,10 +58,45 @@ def _write_jax_theta(path):
     return js, arrays["pts"]
 
 
+def _jax_separable(name):
+    """pydens_tpu's solver of a causal separable case, and the causal
+    triple of its time axis."""
+    _, kw, t_axis = cases.SEPARABLE_CAUSAL[name]
+    jeq = {"separable_causal": lambda f, x, t: jpdt.D(f, t) - 1e-4 * jpdt.D(
+               jpdt.D(f, x), x) - 5.0 * (f - f ** 3),
+           "separable_causal_t0": lambda f, t, x: jpdt.D(f, t) - 0.05
+           * jpdt.D(jpdt.D(f, x), x) - f * (1.0 - f ** 2)}[name]
+    if "initial_condition" in kw:
+        kw = dict(kw, initial_condition=lambda x: x ** 2 * jpdt.cos(
+            np.pi * x))
+    js = jpdt.Solver(jeq, model=jpdt.SeparableModel, seed=0, **kw,
+                     **cases.SEPARABLE_NET)
+    t_idx = js.model.ndims - 1 if t_axis is None else t_axis
+    lo, hi = js.model.domain[t_idx]
+    return js, (t_idx, float(lo), float(hi))
+
+
+def _write_jax_separable(path, name):
+    """pydens_tpu's theta of a causal separable case and a fixed grid batch
+    of 16 samples an axis inside its domain."""
+    js, _ = _jax_separable(name)
+    leaves = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(np.asarray, js.model.params))
+    arrays = {"/".join(k.key for k in keys): np.asarray(v)
+              for keys, v in leaves}
+    dom = np.asarray(js.model.domain, np.float32)
+    arrays["pts"] = (dom[:, 0] + (dom[:, 1] - dom[:, 0])
+                     * np.random.default_rng(3).uniform(
+                         size=(16, len(dom)))).astype(np.float32)
+    np.savez(path, **arrays)
+
+
 @pytest.fixture(scope="module")
 def group(tmp_path_factory):
     out = tmp_path_factory.mktemp("ranks")
     js, pts = _write_jax_theta(out / "jax_theta.npz")
+    for name in cases.SEPARABLE_CAUSAL:
+        _write_jax_separable(out / f"jax_{name}.npz", name)
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
@@ -103,7 +138,7 @@ BOUNDS = {
     "data1d": 1e-4, "samplers": 1e-4, "models_data": 1e-4, "dcn_data": 1e-4,
     "until_loss": 2e-4, "adaptive": 2e-4, "rba": 2e-4, "causal": 2e-4,
     "ntk": 2e-4, "grad_balancing": 2e-4, "lm": 1e-3, "lbfgs": 1e-3,
-    "separable": 2e-4,
+    "separable": 2e-4, "separable_causal": 2e-4, "separable_causal_t0": 2e-4,
 }
 
 
@@ -165,7 +200,6 @@ ERRORS = {
                       "available"),
     "n_devices": ("ValueError", "requested 100 devices but only 4 are "
                   "available"),
-    "separable_causal": ("NotImplementedError", "Queue 1 item 15"),
 }
 
 
@@ -200,6 +234,37 @@ def test_group_loss_and_grad_equal_pydens_tpu_mesh(group):
     for rank in group["ranks"]:
         got = rank["jax_parity"]
         assert got["rows"] == 16
+        np.testing.assert_allclose(got["loss"], float(loss), rtol=2e-5)
+        np.testing.assert_allclose(got["grad"], flat, rtol=2e-3, atol=2e-5)
+
+
+@pytest.mark.parametrize("name", sorted(cases.SEPARABLE_CAUSAL))
+def test_group_causal_separable_loss_and_grad_equal_pydens_tpu_mesh(
+        group, name):
+    # Causal training of a separable model on a mesh, time on grid axis 1
+    # and on the split axis 0: at pydens_tpu's theta and a fixed grid
+    # batch, the four ranks' summed loss and gradient (each rank its rows
+    # of grid axis 0, the slice means made global by one more all-reduce)
+    # equal pydens_tpu's with grid axis 0 sharded over its 8-device mesh.
+    js, causal = _jax_separable(name)
+    pts = np.load(group["out"] / f"jax_{name}.npz")["pts"]
+    mesh = jpdt.make_mesh()
+    crit = lambda a, b: jnp.mean((a - b) ** 2)  # noqa: E731
+    loss_fn, *_ = js._build_loss_fn((("equation", 1.0),), crit,
+                                    use_plan=False, causal=causal)
+    total = pts.shape[1]
+    leaves = [jnp.asarray(pts[:, c]).reshape(
+        (1,) * c + (-1,) + (1,) * (total - c)) for c in range(total)]
+    leaves[0] = jax.device_put(leaves[0], NamedSharding(
+        mesh, P("data", *(None,) * total)))
+    loss, grad = jax.jit(jax.value_and_grad(
+        lambda p: loss_fn(p, leaves, None, None,
+                          jnp.float32(cases.CAUSAL_EPS))))(js.model.params)
+    flat = np.concatenate([np.ravel(np.asarray(g))
+                           for g in jax.tree.leaves(grad)])
+    for rank in group["ranks"]:
+        got = rank["jax_parity_causal"][name]
+        assert got["collectives"] == 1      # the slice means' all-reduce
         np.testing.assert_allclose(got["loss"], float(loss), rtol=2e-5)
         np.testing.assert_allclose(got["grad"], flat, rtol=2e-3, atol=2e-5)
 
