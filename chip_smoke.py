@@ -3227,12 +3227,13 @@ def _timed_host(fn, reps=3):
     return out, float(np.mean(walls))
 
 
-def _one_launch(counter, fn):
-    """``fn()``, asserted to launch ``counter``'s kernel exactly once."""
+def _one_launch(counter, fn, n=1):
+    """``fn()``, asserted to launch ``counter``'s kernel exactly ``n``
+    times (once by default)."""
     before = counter.launches
     out = fn()
-    assert counter.launches == before + 1, (counter.__name__,
-                                            counter.launches - before)
+    assert counter.launches == before + n, (counter.__name__,
+                                            counter.launches - before, n)
     return out
 
 
@@ -3373,12 +3374,11 @@ def _arm_ex24():
     return _symbolic_profile(s, row, True, "ex24")
 
 
-def _arm_ex26():
-    """examples/26: separable Poisson 3D, [32, 32, 32], 500 steps on a 32^3
-    grid; rel-L2 < 0.02 from predict_grid on the 65^3 grid, timed against
-    predict at the same 274,625 points and held equal to it; the device
-    time of each one's forward (CUDA events, on device inputs), and both
-    calls again on a 256^3 grid."""
+EX26_FIT = dict(niters=500, batch_size=32, lr=2e-3)
+
+
+def _ex26_solver():
+    """examples/26's separable Poisson 3D solver, [32, 32, 32]."""
     from pydens_tpu_torch import D, SeparableModel, Solver, sin
 
     def poisson(f, x, y, z):
@@ -3389,9 +3389,20 @@ def _arm_ex26():
     s = Solver(poisson, ndims=3, boundary_condition=0.0,
                model=SeparableModel, layout="fa fa f", features=[32, 32, 32],
                activation="Tanh", seed=0)
+    # No Taylor plan; the grid taps by forward mode on jets.
     assert not s._plan_ok and not s.model.supports_taylor
-    row = _symbolic_fit(s, "ex26", False, grid_dims=3, niters=500,
-                        batch_size=32, lr=2e-3)
+    assert s._grid_plan_ok
+    return s
+
+
+def _arm_ex26():
+    """examples/26: separable Poisson 3D, [32, 32, 32], 500 steps on a 32^3
+    grid; rel-L2 < 0.02 from predict_grid on the 65^3 grid, timed against
+    predict at the same 274,625 points and held equal to it; the device
+    time of each one's forward (CUDA events, on device inputs), and both
+    calls again on a 256^3 grid."""
+    s = _ex26_solver()
+    row = _symbolic_fit(s, "ex26", False, grid_dims=3, **EX26_FIT)
     g = np.linspace(0, 1, EX26_GRID)
     grid, grid_ms = _timed_host(lambda: s.predict_grid(g, g, g))
     pts = np.stack([c.ravel() for c in np.meshgrid(g, g, g, indexing="ij")],
@@ -3575,11 +3586,13 @@ def phase_symbolic():
 # data parallelism on a mesh of one rank over NCCL.
 SERVE_BATCHES = (1, 1000, 1 << 20)
 SERVE_DIR = os.path.join("build", "scale_out")
-# The serving side of the export arm: torch alone (the package and jax are
-# made unimportable), each artifact loaded onto the card and run at every
-# batch; prints one JSON line of its timings.
+# The serving side of the export arms: torch alone (the package and jax are
+# made unimportable), each artifact ``<tag>.pdtx`` loaded onto the card
+# ``loads`` times and run at every batch of ``xs_<tag>.npz`` (else of
+# ``xs.npz``); prints one JSON line of its timings.  Arguments: ``loads``
+# and the tags (default: 2, u and du).
 SERVE_CHILD = r"""
-import io, json, sys, time
+import io, json, os, sys, time
 for name in ("pydens_tpu_torch", "pydens_tpu", "jax"):
     sys.modules[name] = None
 import numpy as np
@@ -3587,23 +3600,27 @@ import torch
 from torch.export.passes import move_to_device_pass
 
 MAGIC = b"PDTTORCHEXP1"
+loads = int(sys.argv[1]) if len(sys.argv) > 1 else 2
+tags = sys.argv[2:] or ["u", "du"]
 torch.zeros(1, device="cuda")          # the CUDA context, outside the timing
 out, load_ms, serve_ms = {}, {}, {}
-for tag in ("u", "du"):
-    # Loaded twice: the first load in a process also imports the export
-    # machinery (its serializer, sympy).
+for tag in tags:
+    own = "xs_" + tag + ".npz"
+    data = np.load(own if os.path.exists(own) else "xs.npz")
+    warm = torch.from_numpy(data[data.files[0]][:2]).cuda()
+    # Loaded twice by default: the first load in a process also imports
+    # the export machinery (its serializer, sympy).
     load_ms[tag] = []
-    for _ in range(2):
+    for _ in range(loads):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         blob = open(tag + ".pdtx", "rb").read()
         assert blob.startswith(MAGIC)
         program = torch.export.load(io.BytesIO(blob[len(MAGIC):]))
         fn = move_to_device_pass(program, "cuda").module()
-        fn(torch.zeros((2, 2), device="cuda"))
+        fn(warm)
         torch.cuda.synchronize()
         load_ms[tag].append((time.perf_counter() - t0) * 1e3)
-    data = np.load("xs.npz")
     for name in data.files:
         xs = torch.from_numpy(data[name]).cuda()
         with torch.no_grad():
@@ -3737,6 +3754,113 @@ def _scale_export():
     del s
     free_card()
     return row
+
+
+EXPORT_BIG = ("periodic", "module")   # served at 1,048,576 points too
+
+
+def _export_families():
+    """``name: (equation, Solver options)``: every family whose
+    ``export(with_grad=True)`` runs the model on jets
+    (tests/export_families.py's, 64 wide, three hidden layers on a chain,
+    a K = 4 ensemble), and examples_torch/06's custom ``Model``."""
+    import importlib.util
+    import pydens_tpu_torch as tpdt
+    spec = importlib.util.spec_from_file_location(
+        "export_families", os.path.join("tests", "export_families.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = {name: (eq(tpdt), opts(tpdt)) for name, (eq, opts)
+           in mod.families(width=64, depth=3, members=4).items()}
+    ex06 = _example_module("06_custom_model")
+    out["custom"] = (ex06.ode, dict(ndims=1, initial_condition=.5,
+                                    model=ex06.ResidualMLP))
+    return out
+
+
+def _scale_export_families():
+    """Every family of ``_export_families`` at its seeded theta (the gate
+    moved off 0), exported with ``with_grad`` on the card and served by
+    the torch-alone child at 1,000 points (``EXPORT_BIG`` at 1,048,576
+    too): ``u`` against ``predict`` (one MLP launch where the chain is in
+    the kernel's scope, else none) and ``du`` against ``predict_grad``
+    (one Taylor forward launch on a chain in the Taylor kernels' scope,
+    else none), within rtol / atol 2e-5 (a bfloat16 model within two
+    bfloat16 ulps of the largest value, ``2 ** -7`` of it).  Each
+    family's export ms and bytes; at 1,048,576 points the served ms
+    (device tensors) against ``predict_grad``'s (host arrays)."""
+    from pydens_tpu_torch import Solver
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    from pydens_tpu_torch.ops import fused_taylor as ft
+    folder = os.path.join(SERVE_DIR, "families")
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(15)
+    solvers, points, rows = {}, {}, {}
+    for name, (eq, opts) in _export_families().items():
+        s = Solver(eq, seed=0, **opts)
+        with torch.no_grad():
+            s.model.log_scale.add_(0.3)
+        sync()
+        t0 = time.perf_counter()
+        blob = s.export(os.path.join(folder, f"{name}.pdtx"),
+                        with_grad=True)
+        rows[name] = dict(export_ms=(time.perf_counter() - t0) * 1e3,
+                          bytes=len(blob))
+        lo = np.array([d[0] for d in s.model.domain], np.float32)
+        hi = np.array([d[1] for d in s.model.domain], np.float32)
+        points[name] = {
+            f"n{n}": (lo + (hi - lo) * rng.uniform(size=(n, len(lo))))
+            .astype(np.float32)
+            for n in ((1000, 1 << 20) if name in EXPORT_BIG else (1000,))}
+        np.savez(os.path.join(folder, f"xs_{name}.npz"), **points[name])
+        solvers[name] = s
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", SERVE_CHILD, "1",
+                           *solvers], cwd=folder, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert child["modules"] == [], child
+    served = np.load(os.path.join(folder, "served.npz"))
+    for name, s in solvers.items():
+        model, x = s.model, points[name]["n1000"]
+        mlp = getattr(model, "_mlp_plan", None) is not None
+        plan = getattr(model, "_fused_taylor_plan", None)
+        taylor = plan is not None and plan(model.plan_closure(
+            {(a,) for a in range(model.total)})) is not None
+        u = _one_launch(fm.fused_mlp_forward, lambda: s.predict(x),
+                        int(mlp))
+        du = _one_launch(ft.fused_taylor_forward,
+                         lambda: s.predict_grad(x), int(taylor))
+        errs = {}
+        for tag, got, want in (
+                ("u", served[f"{name}_n1000_0"], u),
+                ("du", served[f"{name}_n1000_1"].reshape(du.shape), du)):
+            tol = (dict(rtol=0.0, atol=2.0 ** -7 * float(np.abs(want).max()))
+                   if model.dtype == torch.bfloat16
+                   else dict(rtol=2e-5, atol=2e-5))
+            np.testing.assert_allclose(got, want, err_msg=f"{name} {tag}",
+                                       **tol)
+            errs[tag] = float(np.abs(got - want).max())
+        rows[name].update(max_abs_err=errs, mlp_launches=int(mlp),
+                          taylor_launches=int(taylor),
+                          load_ms=child["load_ms"][name][0])
+        if name in EXPORT_BIG:
+            big = points[name][f"n{1 << 20}"]
+            _, grad_ms = _timed_host(lambda: s.predict_grad(big))
+            rows[name].update(served_ms=child["serve_ms"][name],
+                              predict_grad_ms=grad_ms)
+        log(f"scale-out export {name}: {rows[name]['bytes']} bytes in "
+            f"{rows[name]['export_ms']:.1f} ms, loaded in "
+            f"{rows[name]['load_ms']:.1f} ms; max |served - package| u "
+            f"{errs['u']:.3e} du {errs['du']:.3e}; launches MLP {int(mlp)} "
+            f"Taylor {int(taylor)}"
+            + (f"; at {1 << 20} points served {rows[name]['served_ms']:.3f}"
+               f" ms, predict_grad {rows[name]['predict_grad_ms']:.3f} ms"
+               if name in EXPORT_BIG else ""))
+    del solvers, s
+    free_card()
+    return rows
 
 
 def _collectives_every_step(solver, steps):
@@ -3957,8 +4081,8 @@ def phase_scale_out():
     ``Solver(mesh=)``): the module adapter, the serving artifact, the mesh
     fits, examples/08 on a models axis and the README ladder on the mesh.
     The launch counters are set to 0 just before and read just after.
-    Every kernel's plain version raises but in the export arm, whose
-    artifact holds the Taylor kernels' plain twin by design."""
+    Every kernel's plain version raises: the artifacts' derivatives are
+    written out on jets, not by a kernel's plain twin."""
     from pydens_tpu_torch import make_mesh
     from pydens_tpu_torch.parallel.mesh import destroy_local_world
     counters = _ensemble_counters()
@@ -3970,9 +4094,8 @@ def phase_scale_out():
         assert torch.distributed.get_backend() == "nccl"
         with _plain_refused():
             rows["adapter"] = _scale_adapter()
-        # The artifact holds the Taylor kernels' plain twin by design.
-        rows["export"] = _scale_export()
-        with _plain_refused():
+            rows["export"] = _scale_export()
+            rows["export_families"] = _scale_export_families()
             rows["mesh"] = _scale_mesh(mesh)
             rows["causal_separable"] = _scale_causal_separable(mesh)
             rows["ex08_models_axis"] = _scale_ensemble()
@@ -4202,14 +4325,19 @@ def phase_examples():
 def carry_probe(steps, out_dir=os.path.join("build", "carry")):
     """Runs ``steps`` in this one process, in order: earlier phases by name,
     phase 11's arms (``FEATURE_ARMS``), the files of examples_torch/ by
-    name (``EXAMPLE_ROUTES``), and ``deterministic``, which turns
+    name (``EXAMPLE_ROUTES``), ``ex26`` (examples/26's separable fit,
+    ``D`` on grid leaves, phase 13's budget), ``first_order`` /
+    ``second_order`` (5,000 small backward passes), and
+    ``deterministic``, which turns
     on ``torch.use_deterministic_algorithms(True, warn_only=True)`` for
     the steps after it and logs the ops that warn (those without a
     deterministic implementation).  Saves the loss history and initial
     parameters of each arm it ran to ``out_dir/<steps>.npz`` (keys
     ``<position>_<arm>``), so that two probes show the first step at
-    which earlier work in a process changed an arm's fit; an arm run twice
-    in one probe logs the first step at which its two histories differ."""
+    which earlier work in a process changed an arm's fit; an arm run more
+    than once in one probe logs, for each later run, the first step at
+    which its history differs from the first run's, and whether all its
+    runs agree bit for bit."""
     import warnings
     phases = {"kernels": phase_kernels, "poisson": phase_poisson,
               "wide": phase_wide_fit, "tutorials": phase_tutorials,
@@ -4230,11 +4358,17 @@ def carry_probe(steps, out_dir=os.path.join("build", "carry")):
                 by_arm.setdefault(key.split("_", 1)[1], []).append(
                     saved[key])
             for arm, runs in by_arm.items():
-                if len(runs) > 1 and runs[0].shape == runs[1].shape:
-                    diff = np.flatnonzero(runs[0] != runs[1])
-                    log(f"carry probe {arm}: two runs, first differing "
-                        f"step {diff[0] if diff.size else None} of "
-                        f"{runs[0].size}")
+                if len(runs) < 2:
+                    continue
+                firsts = []
+                for run in runs[1:]:
+                    diff = (np.flatnonzero(runs[0] != run)
+                            if run.shape == runs[0].shape else [0])
+                    firsts.append(int(diff[0]) if len(diff) else None)
+                log(f"carry probe {arm}: {len(runs)} runs, first step "
+                    f"differing from the first run's {firsts} of "
+                    f"{runs[0].size}; bit for bit "
+                    f"{all(f is None for f in firsts)}")
             ops = sorted({str(w.message)[:200] for w in caught
                           if "determinis" in str(w.message)})
             torch.use_deterministic_algorithms(False)
@@ -4431,6 +4565,16 @@ def _carry(steps, phases, saved):
             continue
         if step in ("first_order", "second_order"):
             backward_work(second=step == "second_order")
+            continue
+        if step == "ex26":
+            s = _ex26_solver()
+            with _plain_refused():
+                collocation_fit(s, "ex26", False, **EX26_FIT)
+            saved[f"{i}_{step}"] = np.asarray(s.losses, np.float64)
+            log(f"carry ex26: loss {s.losses[0]:.6e} -> "
+                f"{s.losses[-1]:.6e}")
+            del s
+            free_card()
             continue
         if step in EXAMPLE_ROUTES:
             with _plain_refused():

@@ -34,8 +34,9 @@ seeded with it, on a CPU copy of the module (so the process's global RNG
 is untouched, and the card and the CPU start alike).
 
 The module model has no Taylor plan: derivatives take nested ``D``, as for
-``FlaxModel`` (``Model.supports_taylor``).  Buffers (BatchNorm statistics
-and the like) are not supported.
+``FlaxModel`` (``Model.supports_taylor``); ``Solver.export(with_grad=True)``
+runs the module on jets (``models/jets.py``).  Buffers (BatchNorm
+statistics and the like) are not supported.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ import copy
 import torch
 
 from .base import Model
+from .jets import Jet
 
 __all__ = ["ModuleModel", "module_model"]
 
@@ -118,6 +120,12 @@ class ModuleModel(Model):
 
         if self.n_models == 1:
             return call(flat, xs)
+        if isinstance(xs, Jet):
+            # vmap takes no jet (an exported derivative): member by member.
+            return torch.stack([
+                call({name: t[k] for name, t in flat.items()},
+                     xs if xs.dim() == 2 else xs[k])
+                for k in range(self.n_models)])
         return torch.func.vmap(call, in_dims=(0, 0 if xs.dim() == 3
                                               else None))(flat, xs)
 

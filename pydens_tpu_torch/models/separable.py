@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .base import Model
+from .jets import Jet
 from .layout import make_layout_network
 from ..ops.tokens import as_device, member_scope, member_value
 
@@ -199,6 +200,41 @@ class SeparableModel(Model):
         sub = (",".join(f"{lead}{c}zy" for c in letters)
                + f"->{lead}" + "".join(letters) + "y")
         return torch.einsum(sub, *hs)
+
+    def grid_taps(self, params, leaves, derivs):
+        """The solution and each requested pure tap on the grid of the
+        broadcast-shaped axis ``leaves``, ``{multi-index: (N_1, .., N_d,
+        n_out)}`` (an ensemble's ``(K, ...)``), ``()`` included: forward
+        mode written out, the grid forward and its ansatz run on
+        :class:`~pydens_tpu_torch.models.jets.Jet` s, each leaf shifted by
+        the scalars of the multi-index that name its axis.  Every node of
+        the parameter gradient's graph is built in this forward pass, in
+        program order, where a grid ``D`` by ``create_graph`` pullbacks
+        (``ops/tokens.py`` ``_grid_tangent``) made nodes that the device
+        thread numbers after the process's earlier autograd work."""
+        table = {}
+        # Longest first: a pass of ``mi`` gives every sub-multi-index of it
+        # too (the coefficient of each subset of its scalars).
+        for mi in sorted({tuple(sorted(d)) for d in derivs},
+                         key=lambda m: (-len(m), m)):
+            if mi in table:
+                continue
+            jets = [Jet.coordinate(leaf, k, mi)
+                    for k, leaf in enumerate(leaves)]
+            out = self.anzatc_grid(
+                self.network_apply_grid(params["net"], jets), jets, params)
+            value = out.c[0]
+            for mask, coef in enumerate(out.c):
+                sub = tuple(sorted(mi[i] for i in range(len(mi))
+                                   if mask >> i & 1))
+                if sub not in table:
+                    table[sub] = (torch.zeros_like(value) if coef is None
+                                  else coef.expand_as(value))
+        if () not in table:
+            table[()] = self.anzatc_grid(
+                self.network_apply_grid(params["net"], leaves), leaves,
+                params)
+        return table
 
     # -- grid-path full forward ----------------------------------------------
     def apply_leaves(self, params, leaves):

@@ -69,8 +69,13 @@ def as_device(value, device, dtype=None):
     under :func:`staging` a host value (numpy, number, CPU tensor) bound for
     the card is copied once per distinct value and kept.  A value first met
     while a CUDA graph is being captured raises: the capture would bake a
-    copy from a host address into the graph."""
+    copy from a host address into the graph.  A
+    :class:`~pydens_tpu_torch.models.jets.Jet` (a condition run on jets)
+    moves coefficient by coefficient."""
+    from ..models.jets import Jet    # models import this module
     device = torch.device(device)
+    if isinstance(value, Jet):
+        return value.to(device=device, dtype=dtype)
     if (not _STAGING or device.type == "cpu"
             or (torch.is_tensor(value) and (value.device.type != "cpu"
                                             or value.requires_grad))):

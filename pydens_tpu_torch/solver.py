@@ -919,6 +919,12 @@ class Solver:
         self._plan_derivs = frozenset(ctx.derivs)
         self._plan_ok = (ctx.plan_ok and bool(ctx.derivs)
                          and self.model.supports_taylor)
+        # A separable model's grid taps by forward mode on jets
+        # (``SeparableModel.grid_taps``): its grid D without create_graph
+        # backward passes, whose results moved with the process's earlier
+        # autograd work.
+        self._grid_plan_ok = (ctx.plan_ok and bool(ctx.derivs) and total > 1
+                              and getattr(self.model, "separable", False))
         self.model.set_variables(registry)
         if getattr(self.model, "separable", False):
             self._probe_grid()
@@ -1221,18 +1227,23 @@ class Solver:
             params = spec.unflatten(theta)
             with_constraints = with_constraints and bool(nums)
             n = pts.shape[0]
+            # The planned taps: the Taylor traversal's, or a separable
+            # model's grid taps on jets; nested D otherwise.
+            taps = (plan_derivs if grid or model.supports_taylor
+                    else None)
             if grid:
                 # On a mesh grid axis 0 is sharded: this rank's rows of it.
                 cols = [pts[:, k] if k or shards is None
                         else shards.shard(pts[:, 0]) for k in range(total)]
                 leaves = [c.reshape((1,) * k + (c.shape[0],)
                                     + (1,) * (total - k))
-                          .detach().requires_grad_(True)
+                          .detach().requires_grad_(
+                              taps is None or with_constraints)
                           for k, c in enumerate(cols)]
                 scope = member_scope(K, tuple(c.shape[0] for c in cols))
             else:
                 rows = pts if K == 1 else pts.repeat(K, 1)
-                if plan_derivs is None or with_constraints:
+                if taps is None or with_constraints:
                     leaves = [rows[:, k:k + 1].detach().requires_grad_(True)
                               for k in range(total)]
                 else:
@@ -1240,8 +1251,9 @@ class Solver:
                 scope = member_scope(K, n)
             residuals, values = None, []
             with variable_scope("read", params["variables"]), scope:
-                table = (model.full_taps(params, pts, plan_derivs)
-                         if plan_derivs is not None else None)
+                table = (None if taps is None
+                         else model.grid_taps(params, leaves, taps) if grid
+                         else model.full_taps(params, pts, taps))
                 ctx = EvalContext(leaves, table=table)
                 f = Expr(lambda: model.apply_leaves(params, ctx.leaves), ctx,
                          deriv=())
@@ -1721,7 +1733,8 @@ class Solver:
                 f"fast_taps={fast_taps!r} is not a recognized value; use "
                 "'auto' or True/'always' (Taylor plan when valid), or "
                 "False/'never' (nested gradients)")
-        use_plan = bool(self._plan_ok) and fast_taps not in (False, "never")
+        use_plan = (bool(self._plan_ok or self._grid_plan_ok)
+                    and fast_taps not in (False, "never"))
         if isinstance(self._opt, LMConfig):
             self._check_lm(criterion_key, adaptive, causal, rba,
                            loss_balancing)

@@ -18,84 +18,31 @@ and V variables; an ensemble exports the member mean).  No CUDA kernel of
 the package goes into the artifact, just as ``pydens_tpu`` keeps its
 Pallas kernels out: the artifact holds only ATen operators, and loads
 where the package's kernels were never built.  ``with_grad=True`` adds the
-first derivatives, from the forward mode written out in plain operators
-(``Model.full_taps`` on the Taylor kernels' plain twin, closed-form
-activation derivatives): ``torch.func.jvp`` does not export, so a model
-without that route (no Taylor traversal, a network outside the kernels'
-scope, or a callable condition of the spatial columns, whose partials take
-nested ``jvp``) refuses it.
+first derivatives, forward mode written out in plain operators for every
+model (chains, embedded, modified, adaptive and branched networks,
+LayerNorm layouts, module and custom models, separable models, callable
+conditions, ensembles): the same ``model.apply`` runs on a
+:class:`~pydens_tpu_torch.models.jets.Jet` for each input column, whose
+tangent is that column's unit vector, the columns' rows stacked into one
+batch.  An operator of the model outside the jets' table raises an error
+that names it.
 """
 
 from __future__ import annotations
 
-import contextlib
 import io
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..ops import fused_taylor
+from ..models.jets import Jet
 from ..ops.tokens import variable_scope
 from ..solver import _skeleton, _tree_leaves
 
 __all__ = ["export_model", "load_exported"]
 
 _MAGIC = b"PDTTORCHEXP1"
-
-
-def _first_order_plan(model):
-    """The Taylor kernels' plan of the model's first-order streams, whose
-    plain twin (``fused_taylor_forward_plain``) writes the traversal out
-    with closed-form activation derivatives; None outside their scope."""
-    plan_of = getattr(model, "_fused_taylor_plan", None)
-    if plan_of is None or not model.supports_taylor:
-        return None
-    return plan_of(model.plan_closure({(a,) for a in range(model.total)}))
-
-
-@contextlib.contextmanager
-def _plain_traversal(model):
-    """The model's Taylor traversal routed to the kernels' plain twin (no
-    kernel, and no ``torch.func.jvp``, is traced into the artifact)."""
-    plan = _first_order_plan(model)
-    if plan is None:
-        yield
-        return
-
-    def traversal(net_params, xs, closure):
-        packed = fused_taylor.pack_weights(net_params, model.net.dense_names)
-        return fused_taylor.split_streams(
-            fused_taylor.fused_taylor_forward_plain(packed, xs, plan), plan)
-
-    model.network_apply_taylor = traversal
-    try:
-        yield
-    finally:
-        del model.network_apply_taylor
-
-
-def _grad_refusal(model):
-    """Why ``with_grad=True`` has no written-out route for ``model``, or
-    None."""
-    if not model.supports_taylor:
-        return (f"{type(model).__name__} has no Taylor traversal (its "
-                "derivatives take nested autograd)")
-    if _first_order_plan(model) is None:
-        return ("its network is outside the Taylor kernels' scope, whose "
-                "plain twin writes the traversal out (an embedded, "
-                "modified, adaptive or branched network takes "
-                "torch.func.jvp for its activations)")
-    conds = [model.initial_condition, getattr(model, "initial_condition_t",
-                                              None)]
-    if callable(model.boundary_condition):
-        conds.append(model.boundary_condition)
-    if model.ndims_spatial and any(
-            c is not None and not getattr(c, "constant", False)
-            for c in conds):
-        return ("a callable condition of the spatial columns, whose "
-                "partials take nested torch.func.jvp")
-    return None
 
 
 class _Served(nn.Module):
@@ -124,20 +71,31 @@ class _Served(nn.Module):
             node[path[-1]] = getattr(self, f"p{i}")
         K, n = self.n_models, xs.shape[0]
         xs = xs.to(model.dtype)
-        rows = xs if K == 1 else xs.repeat(K, 1)
         with variable_scope("read", params["variables"]):
             if not self.with_grad:
-                u = model.apply(params, rows)
-                u = u if K == 1 else u.reshape(K, n, -1).mean(0)
-                return u.float()
-            total = xs.shape[1]
-            table = model.full_taps(params, xs, {(a,) for a in range(total)})
-        u = table[()]
-        du = torch.stack([table[(a,)] for a in range(total)], dim=1)
-        if K > 1:
-            u = u.reshape(K, n, -1).mean(0)
-            du = du.reshape((K, n) + tuple(du.shape[1:])).mean(0)
-        return u.float(), du.float()
+                rows = xs if K == 1 else xs.repeat(K, 1)
+                return _member_mean(model.apply(params, rows), K).float()
+            # One jet per input column a, xs + s e_a, their rows stacked
+            # into one batch: block a carries column a's unit tangent.
+            total = model.total
+            eye = torch.eye(total, dtype=xs.dtype, device=xs.device)
+            tangent = (xs.new_zeros((total, n, total))
+                       + eye.unsqueeze(1)).reshape(-1, total)
+            rows = xs.repeat(total, 1)
+            if K > 1:
+                rows, tangent = rows.repeat(K, 1), tangent.repeat(K, 1)
+            out = model.apply(params, Jet([rows, tangent]))
+        u = _member_mean(out.c[0], K)
+        du = (torch.zeros_like(u) if out.c[1] is None
+              else _member_mean(out.c[1].expand_as(out.c[0]), K))
+        du = du.reshape(total, n, -1).transpose(0, 1)
+        return u[:n].float(), du.float()
+
+
+def _member_mean(t, K):
+    """An ensemble's member-major rows ``(K * N, c)`` as their member mean
+    ``(N, c)``; a single model's as they are."""
+    return t if K == 1 else t.reshape(K, -1, t.shape[-1]).mean(0)
 
 
 def export_model(solver, path=None, with_grad=False):
@@ -153,8 +111,9 @@ def export_model(solver, path=None, with_grad=False):
     with_grad : bool
         If true, the artifact returns ``(u, du)`` with ``du`` of shape
         ``(N, total, n_out)``, the first derivatives
-        (``Solver.predict_grad``'s fields).  A model without a written-out
-        forward mode raises ``NotImplementedError``.
+        (``Solver.predict_grad``'s fields), forward mode written out on
+        jets.  A model that calls an operator outside the jets' table
+        raises an error that names it.
 
     Returns
     -------
@@ -168,19 +127,12 @@ def export_model(solver, path=None, with_grad=False):
     params = model.params
     if params is None or params.get("net") is None:
         raise ValueError("solver has no parameters to export")
-    if with_grad:
-        why = _grad_refusal(model)
-        if why is not None:
-            raise NotImplementedError(
-                f"export(with_grad=True) of this model: {why}; "
-                "torch.func.jvp does not export.  Export without with_grad "
-                "and take derivatives with Solver.predict_grad")
     served = _Served(model, params, solver.n_models, with_grad)
     # Traced on the model's device (constants of the model live there),
     # then every tensor of the program moved to the CPU.
     served.to(solver.device)
     example = torch.rand((8, model.total), device=solver.device)
-    with torch.no_grad(), _plain_traversal(model):
+    with torch.no_grad():
         program = export(served, (example,),
                          dynamic_shapes={"xs": {0: Dim("batch")}},
                          strict=False)

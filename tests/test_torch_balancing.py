@@ -21,6 +21,9 @@ from pydens_tpu_torch.solver import _Collocation, _FitStep
 from pydens_tpu_torch.utils.criteria import mse_loss
 from pydens_tpu_torch.utils.optimizers import resolve_optimizer
 
+from one_thread import one_thread  # noqa: F401
+
+
 LEFT = np.array([0.0], np.float32)
 RIGHT = np.array([1.0], np.float32)
 TERMS = (("equation", 1.0), ("constraint_0", 2.0), ("constraint_1", 0.5))

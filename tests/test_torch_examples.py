@@ -29,6 +29,8 @@ import pydens_tpu_torch as tpdt
 from pydens_tpu_torch import params_from_jax
 from pydens_tpu_torch.utils.criteria import mse_loss
 
+from one_thread import one_thread  # noqa: F401
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 EXAMPLES = sorted((REPO / "examples_torch").glob("*.py"))
 NAMES = ["01_simple_ode", "02_poisson_2d", "03_parametric_family",
@@ -59,16 +61,6 @@ out["_loaded"] = sorted(n for n in sys.modules
                         and sys.modules[n] is not None)
 print(json.dumps(out))
 """
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    # Small shapes: one intra-op thread is as fast here, and leaves the
-    # other cores to the suite's other workers.
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_the_fourteen_examples_are_there():

@@ -17,6 +17,9 @@ import pydens_tpu as jpdt
 import pydens_tpu_torch as tpdt
 from pydens_tpu_torch import D, Solver, params_from_jax
 
+from export_grad_cases import FAMILIES, foreign_operators, port_solver
+from one_thread import one_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 NET = dict(layout="fafaf", features=[12, 10, 1], activation="Tanh")
 
@@ -110,13 +113,18 @@ def test_export_mesh_trained_solver_is_topology_free():
 def test_export_holds_plain_operators_only(trained):
     # The counterpart of "lowered for every platform": no kernel of the
     # package in the program, only ATen operators, so it runs on the CPU
-    # and the card alike.
+    # and the card alike.  So for every family's with_grad program (its
+    # derivative written out on jets); an ensemble's also holds arithmetic
+    # on the symbolic batch size (K times the batch).
     import io
     program = torch.export.load(io.BytesIO(
         trained.export(with_grad=True)[len(b"PDTTORCHEXP1"):]))
     targets = {str(n.target) for n in program.graph.nodes
                if n.op == "call_function"}
     assert targets and all(t.startswith("aten.") for t in targets), targets
+    for name in FAMILIES:
+        blob = port_solver(name).export(with_grad=True)
+        assert foreign_operators(blob) == [], name
 
 
 def test_export_untrained_solver_requires_params(monkeypatch):
@@ -226,26 +234,3 @@ def test_each_package_refuses_the_other_artifact():
         tpdt.load_exported(js.export(), device="cpu")
     with pytest.raises(ValueError, match="not a pydens_tpu export artifact"):
         jpdt.load_exported(ts.export())
-
-
-def test_with_grad_refused_where_no_written_out_route():
-    # A module model has no Taylor traversal; a callable condition of the
-    # spatial columns takes nested torch.func.jvp, which does not export.
-    # Both export without with_grad.
-    from torch import nn
-    net = nn.Sequential(nn.Linear(2, 8), nn.Tanh(), nn.Linear(8, 1))
-
-    def heat(f, x, t):
-        return D(f, t) - D(D(f, x), x)
-
-    for kw in (dict(model=tpdt.module_model(net), initial_condition=0.0),
-               dict(initial_condition=lambda x: torch.sin(np.pi * x),
-                    layout="fa f", features=[8, 1])):
-        s = Solver(heat, ndims=2, seed=0, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="does not export"):
-            s.export(with_grad=True)
-        fn = tpdt.load_exported(s.export(), device="cpu")
-        pts = np.random.default_rng(0).uniform(size=(6, 2)).astype(
-            np.float32)
-        np.testing.assert_allclose(fn(pts).numpy(), s.predict(pts),
-                                   rtol=1e-6, atol=1e-6)

@@ -652,6 +652,68 @@ print(np.asarray(s.losses, np.float32).tobytes().hex())
 """
 
 
+# examples/26's separable Poisson fit (32 per axis, [32, 32, 32]), 100
+# steps on the 32^3 grid, after ``sys.argv[1]`` first-order backward
+# passes of an unrelated graph; prints theta and the losses as hex.
+_ORDER_SEPARABLE_SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+from pydens_tpu_torch import D, SeparableModel, Solver, sin
+
+x = torch.linspace(-1, 1, 64, device="cuda", requires_grad=True)
+for _ in range(int(sys.argv[1])):
+    torch.autograd.grad(torch.tanh(x).pow(3).sum(), x)
+torch.cuda.synchronize()
+
+
+def poisson(f, x, y, z):
+    return (D(D(f, x), x) + D(D(f, y), y) + D(D(f, z), z)
+            + 3 * np.pi ** 2 * sin(np.pi * x) * sin(np.pi * y)
+            * sin(np.pi * z))
+
+
+s = Solver(poisson, ndims=3, boundary_condition=0.0, model=SeparableModel,
+           layout="fa fa f", features=[32, 32, 32], activation="Tanh",
+           seed=0)
+s.fit(niters=100, batch_size=32, lr=2e-3, progress=False)
+theta = s._spec().flatten(s.model.params).detach().cpu().numpy()
+print(theta.tobytes().hex())
+print(np.asarray(s.losses, np.float32).tobytes().hex())
+"""
+
+
+def _order_runs(tmp_path, source):
+    """``source`` run in a fresh process and after 5,000 first-order
+    backward passes in its process: the printed lines of each."""
+    import os
+    import subprocess
+    import sys
+    script = tmp_path / "order.py"
+    script.write_text(source)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    return [subprocess.run([sys.executable, str(script), str(reps)],
+                           capture_output=True, text=True, env=env,
+                           check=True, timeout=600).stdout.split()
+            for reps in (0, 5000)]
+
+
+@pytest.mark.gpu
+def test_separable_grid_fit_after_backward_work_is_bitwise_a_fresh_fit(
+        tmp_path):
+    # The planned grid route takes its taps in forward mode
+    # (SeparableModel.grid_taps on jets), so examples/26's fit after 5,000
+    # first-order backward passes in its process equals the fit in a
+    # fresh process, theta and the loss history bit for bit (with grid D
+    # by create_graph pullbacks, the fit parted from the fresh one after
+    # such work).
+    _require_cuda()
+    runs = _order_runs(tmp_path, _ORDER_SEPARABLE_SCRIPT)
+    assert len(runs[0]) == 2 and runs[0] == runs[1]
+
+
 @pytest.mark.gpu
 def test_fit_after_first_order_backward_work_is_bitwise_a_fresh_fit(
         tmp_path):
@@ -663,16 +725,5 @@ def test_fit_after_first_order_backward_work_is_bitwise_a_fresh_fit(
     # full_taps's nested autograd.grad, its candidate pool's residuals and
     # so the fit moved with the earlier work).
     _require_cuda()
-    import os
-    import subprocess
-    import sys
-    script = tmp_path / "order.py"
-    script.write_text(_ORDER_SCRIPT)
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=root + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    runs = [subprocess.run([sys.executable, str(script), str(reps)],
-                           capture_output=True, text=True, env=env,
-                           check=True, timeout=600).stdout.split()
-            for reps in (0, 5000)]
+    runs = _order_runs(tmp_path, _ORDER_SCRIPT)
     assert len(runs[0]) == 2 and runs[0] == runs[1]

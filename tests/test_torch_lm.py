@@ -20,6 +20,8 @@ from pydens_tpu_torch import params_from_jax
 from pydens_tpu_torch.utils.criteria import mse_loss
 from pydens_tpu_torch.utils.optimizers import LMConfig, linearize
 
+from one_thread import one_thread  # noqa: F401
+
 
 def _ode(pdt):
     def ode(f, x):

@@ -4,7 +4,9 @@ JAX's ``apply_leaves``; grid ``D`` of orders 1 and 2 and mixed equals the
 pointwise ``D`` at the same points and JAX's grid taps (forward mode: the
 reverse-mode gradient of the sum would sum over the other grid axes); one
 step's loss and gradient on a fixed grid batch (Poisson, the periodic heat
-IC, causal weighting, a parametric axis, an ensemble) equal JAX's; the
+IC, causal weighting, a parametric axis, an ensemble) equal JAX's, by
+nested ``D`` and by the fit's planned route (the grid taps on jets,
+forward mode: no ``autograd.grad`` while the loss is built); the
 grid-shape probe; the validation and refusal messages; ``predict_grid`` on
 a separable ensemble and its pointwise fallback; a checkpoint round trip;
 short fits through every optimizer kind."""
@@ -94,7 +96,16 @@ def _v_token(pdt):
                  features=[12, 6]))
 
 
-CASES = {"poisson": _poisson, "bc_callable": _bc_callable,
+def _poisson_neumann(pdt):
+    # Poisson with a constraint that takes D of the forward closure on a
+    # coordinate expression (a Neumann line at y = 0.5, on grid leaves).
+    eq, kw = _poisson(pdt)
+    return eq, dict(kw, constraints=(
+        lambda fwd, x, y: pdt.D(fwd(x, 0.0 * y + 0.5), x) - 1.0,))
+
+
+CASES = {"poisson": _poisson, "poisson_neumann": _poisson_neumann,
+         "bc_callable": _bc_callable,
          "heat_periodic": _heat_periodic, "wave": _wave,
          "allen_cahn": _allen_cahn, "system": _system,
          "parametric": _parametric, "v_token": _v_token}
@@ -293,6 +304,65 @@ def test_one_step_loss_and_grads_match_jax(case):
     np.testing.assert_allclose(loss.detach().numpy(), np.asarray(jl),
                                rtol=LOSS_RTOL)
     np.testing.assert_allclose(grad.numpy(), _flat(jg, k), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_planned_grid_step_composes_in_forward_mode(case, monkeypatch):
+    # The fit's route on the grid (use_plan: SeparableModel.grid_taps, the
+    # grid forward and ansatz on jets) calls no torch.autograd.grad or
+    # backward while it builds the loss (a spy on both), so no tap depends
+    # on the order in which the engine runs nodes; its loss and gradient
+    # equal JAX's at the tolerances of the nested route's test above.
+    name, causal, eps, k = STEP_CASES[case]
+    js, ts = _pair(name, n_models=k)
+    assert ts._grid_plan_ok and not ts._plan_ok
+    pts = np.random.default_rng(11).uniform(
+        size=(12, ts.model.total)).astype(np.float32)
+    dom = list(ts.model.domain) + [(0.0, 1.0)] * ts.model.nparams
+    lo = np.asarray([d[0] for d in dom], np.float32)
+    pts = lo + np.asarray([d[1] - d[0] for d in dom], np.float32) * pts
+    terms = (("equation", 1.0),)
+    jl, jg = _jax_grid_loss(js, terms, pts, causal, eps)
+    loss_fn = ts._build_loss_fn(terms, mse_loss, use_plan=True,
+                                causal=causal)
+    theta = loss_fn.spec.flatten(ts.model.params).detach().requires_grad_()
+    calls = []
+    for fn in ("grad", "backward"):
+        real = getattr(torch.autograd, fn)
+        monkeypatch.setattr(torch.autograd, fn, lambda *a, real=real,
+                            fn=fn, **kw: calls.append(fn) or real(*a, **kw))
+    loss = loss_fn(theta, torch.from_numpy(pts),
+                   causal_eps=None if eps is None else torch.tensor(eps))
+    assert calls == []
+    monkeypatch.undo()
+    grad, = torch.autograd.grad(loss.sum(), theta)
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(jl),
+                               rtol=LOSS_RTOL)
+    np.testing.assert_allclose(grad.numpy(), _flat(jg, k), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("use_plan", [False, True])
+def test_grid_step_with_a_constraint_d_matches_jax(use_plan):
+    # A constraint's D on a coordinate expression differentiates the grid
+    # leaves (a planned fit's equation reads its taps from the jets, its
+    # constraints do not): the leaves require grad on both routes.  The
+    # loss and gradient against JAX's at the tolerances above, and a short
+    # fit on the route fit() picks.
+    js, ts = _pair("poisson_neumann")
+    assert ts._grid_plan_ok
+    pts = np.random.default_rng(11).uniform(size=(12, 2)).astype(np.float32)
+    terms = (("equation", 1.0), ("constraint_0", 3.0))
+    jl, jg = _jax_grid_loss(js, terms, pts)
+    loss_fn = ts._build_loss_fn(terms, mse_loss, use_plan=use_plan)
+    theta = loss_fn.spec.flatten(ts.model.params).detach().requires_grad_()
+    loss = loss_fn(theta, torch.from_numpy(pts))
+    grad, = torch.autograd.grad(loss.sum(), theta)
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(jl),
+                               rtol=LOSS_RTOL)
+    np.testing.assert_allclose(grad.numpy(), _flat(jg), **GRAD_TOL)
+    ts.fit(niters=3, batch_size=8, loss_terms=dict(terms),
+           fast_taps="auto" if use_plan else False, progress=False)
+    assert np.isfinite(ts.losses).all() and len(ts.losses) == 3
 
 
 @pytest.mark.parametrize("name", ["heat_periodic", "allen_cahn"])
