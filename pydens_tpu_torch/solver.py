@@ -192,6 +192,26 @@ def _anchored_ema(stat, wts, anchor):
     return 0.7 * wts + 0.3 * lam
 
 
+def _sampling_seed(seed, device):
+    """The sampling generator's seed for the Solver's ``seed``.  The init
+    generator is a CPU generator seeded with ``seed``; a sampling generator
+    on the CPU seeded alike gave the same numbers, so the first batches
+    were the very draws of the initial weights (``pydens_tpu`` splits one
+    key into independent init and sampling keys).  On the CPU it takes a
+    child of ``numpy.random.SeedSequence(seed)`` instead.  On the card the
+    sampling generator (Philox) and the init generator (Mersenne Twister)
+    already give unrelated streams from one seed, so there is nothing to
+    repair: it keeps ``seed``, and a card's draws stay those of earlier
+    versions.  Over seeds 0-5 the examples whose asserts depend on the
+    draw (09, 12, 16, 23) hold them as often with the child seed as with
+    ``seed`` (``tests/example_seed_study.py``)."""
+    if device.type != "cpu":
+        return seed
+    state = np.random.SeedSequence(seed, spawn_key=(1,)).generate_state(
+        2, np.uint32)
+    return (int(state[0]) << 31) | (int(state[1]) >> 1)
+
+
 def _capture_error(err):
     """The first error of a failed capture (a failing op makes the end of
     the capture fail too) and the innermost frame outside torch that led to
@@ -785,7 +805,8 @@ class Solver:
         loss terms as ``criterion(c, 0)``.
     seed : int
         Seed of the parameter-init generator (CPU) and of the sampling
-        generator (on ``device``).
+        generator (on ``device``; on the CPU a seed derived from it, so that
+        the two streams are independent).
     n_models : int
         Train an ensemble of ``n_models`` independently initialized
         networks at once, on one shared batch a step: every parameter leaf
@@ -871,7 +892,7 @@ class Solver:
         self._init_generator = torch.Generator().manual_seed(seed)
         self.model.reset_parameters(self._init_generator)
         self._generator = torch.Generator(device=self.device).manual_seed(
-            seed)
+            _sampling_seed(seed, self.device))
         self._opt = None
         self._opt_state = None
         self._pending_opt_state = None   # set by a checkpoint load
@@ -990,7 +1011,8 @@ class Solver:
         streams, so the parameters are new."""
         if seed is not None:
             self._init_generator.manual_seed(int(seed))
-            self._generator.manual_seed(int(seed))
+            self._generator.manual_seed(_sampling_seed(int(seed),
+                                                     self.device))
         self.model.reset_parameters(self._init_generator)
         with torch.no_grad():
             for name, value in self._initial_variables.items():

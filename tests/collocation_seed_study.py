@@ -9,6 +9,11 @@ read from chip_smoke.py.
     python tests/collocation_seed_study.py torch_cuda 0 24 rba  # on the card
     python tests/collocation_seed_study.py torch_cuda 0 6 rba,fixed 0-8
         # and with theta of each seed moved by one ulp, patterns 1-8
+    python tests/collocation_seed_study.py jax_host 0 24 uniform,fixed,rba
+    python tests/collocation_seed_study.py paired 0 24 uniform,fixed,rba
+        # the same draws in both packages (below)
+    python tests/collocation_seed_study.py jax 0 6 uniform,adaptive 0 600
+        # 600 steps in place of the arm's own budget
 
 Three studies, seeds 0-5 each unless given:
 
@@ -33,7 +38,21 @@ initial network parameters by one ulp, up, down or not at all, in a
 pattern drawn from ``numpy.random.default_rng(k)`` over the leaves in
 sorted key order (``chip_smoke.one_ulp``; pattern 0 is the seed's own
 draw): the same fit seen through another rounding, to tell a fit's
-spread under rounding from a change of method.
+spread under rounding from a change of method.  A sixth, an int, fits
+that many steps in place of the arm's own.
+
+Paired runs (the stiff-ODE arms ``uniform``, ``fixed`` and ``rba``):
+``jax_host`` runs ``pydens_tpu`` with its collocation batches drawn on the
+host by :class:`HostUniform` (``numpy.random.default_rng(1000 + seed)``,
+a numpy draw that is the same in both packages); ``paired`` runs the port
+from ``pydens_tpu``'s initial parameters of each seed
+(``interop.params_from_jax``) on the same host batches; ``torch_host``
+runs the port from its own initial parameters on those batches.  So
+``paired`` against ``jax_host`` differs by f32 rounding alone, and
+``torch_host`` against ``paired`` by the initial draw alone.  The
+``adaptive`` arm cannot be paired: both packages draw its candidate pool
+on the device (a sampler without a device path is refused there); each
+line names what a package still draws itself (``own_draws``).
 
 Prints one JSON line per fit, then one with the medians and maxima.
 """
@@ -59,14 +78,42 @@ ARMS = {
 }
 
 
-def study(pkg_name, arm, seeds, pattern=0):
+PAIRED = ("jax_host", "paired", "torch_host")
+HOST_SEED = 1000
+
+
+def _jax():
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import pydens_tpu
+    return pydens_tpu
+
+
+def host_uniform(pkg, seed):
+    """U(0, 1) points of one column drawn on the host from
+    ``default_rng(HOST_SEED + seed)``: a sampler of ``pkg`` without a device
+    path, so both packages feed a fit the same batches."""
+    class HostUniform(pkg.Sampler):
+        supports_device = False
+
+        def __init__(self):
+            self.ndims = 1
+            self.rng = np.random.default_rng(HOST_SEED + seed)
+
+        def sample(self, size):
+            return self.rng.uniform(0.0, 1.0, (size, 1))
+    return HostUniform()
+
+
+def study(pkg_name, arm, seeds, pattern=0, niters=None):
     """``arm``'s metric for each seed of ``seeds`` (a list), printing one
     JSON line per fit; ``pattern`` > 0 moves each initial network by one
-    ulp (``chip_smoke.one_ulp``)."""
-    if pkg_name == "jax":
-        import jax
-        jax.config.update("jax_platforms", "cpu")
-        import pydens_tpu as pkg
+    ulp (``chip_smoke.one_ulp``); ``niters`` replaces the arm's steps."""
+    fit = dict(ARMS[arm], **({} if niters is None else dict(niters=niters)))
+    if pkg_name in PAIRED and arm not in ("uniform", "fixed", "rba"):
+        raise ValueError(f"arm {arm!r} cannot be paired")
+    if pkg_name in ("jax", "jax_host"):
+        pkg = _jax()
         extra = {}
     else:
         import pydens_tpu_torch as pkg
@@ -97,7 +144,7 @@ def study(pkg_name, arm, seeds, pattern=0):
 
     def plain_mse(s):
         """The plain MSE over fresh batches of w3's batch size."""
-        if pkg_name == "jax":
+        if pkg_name.startswith("jax"):
             import jax.numpy as jnp
             loss_fn, *_ = s._build_loss_fn(
                 (("equation", 1.0),), lambda a, b: jnp.mean((a - b) ** 2),
@@ -126,9 +173,15 @@ def study(pkg_name, arm, seeds, pattern=0):
     values = []
     for seed in seeds:
         s = solver(seed)
+        if pkg_name == "paired":
+            import jax
+            from pydens_tpu_torch import params_from_jax
+            ref = _jax().Solver(lambda f, x: f, seed=seed, **cs.STIFF)
+            s.model.load_params(params_from_jax(
+                jax.tree.map(np.asarray, ref.model.params)))
         if pattern:
             net = cs.one_ulp(s.model.params["net"], pattern)
-            if pkg_name == "jax":
+            if pkg_name.startswith("jax"):
                 import jax.numpy as jnp
                 s.model.params = dict(s.model.params, net=jax.tree.map(
                     jnp.asarray, net))
@@ -136,9 +189,11 @@ def study(pkg_name, arm, seeds, pattern=0):
                 s.model.load_params(dict(s.model.params, net=net))
         t0 = time.perf_counter()
         if arm.startswith("w3"):
-            s.fit(sampler=w3_sampler(), progress=False, **ARMS[arm])
+            s.fit(sampler=w3_sampler(), progress=False, **fit)
+        elif pkg_name in PAIRED:
+            s.fit(sampler=host_uniform(pkg, seed), progress=False, **fit)
         else:
-            s.fit(progress=False, **ARMS[arm])
+            s.fit(progress=False, **fit)
         wall = time.perf_counter() - t0
         if arm in ("uniform", "adaptive"):
             value = float(np.mean(s.residual(XS)))
@@ -150,17 +205,22 @@ def study(pkg_name, arm, seeds, pattern=0):
             value = float(np.max(np.abs(s.predict(XS).ravel() - truth)))
             metric = "max_error"
         values.append(value)
+        own = ("none" if pkg_name in ("jax_host", "paired")
+               else "theta0" if pkg_name == "torch_host"
+               else "theta0, batches")
         print(json.dumps({"package": pkg_name, "arm": arm, "seed": seed,
-                          "ulp_pattern": pattern, metric: value,
-                          "wall_s": wall}), flush=True)
+                          "ulp_pattern": pattern, "niters": fit["niters"],
+                          metric: value,
+                          "own_draws": own, "wall_s": wall}), flush=True)
     return values
 
 
-def main(pkg_name, seeds=cs.COLLOCATION_SEEDS, only=None, pattern=0):
-    results = {arm: study(pkg_name, arm, list(seeds), pattern)
+def main(pkg_name, seeds=cs.COLLOCATION_SEEDS, only=None, pattern=0,
+         niters=None):
+    results = {arm: study(pkg_name, arm, list(seeds), pattern, niters)
                for arm in ARMS if only is None or arm in only}
     print(json.dumps({"package": pkg_name, "ulp_pattern": pattern,
-                      "summary": {
+                      "niters": niters, "summary": {
         arm: {"median": float(np.median(v)), "max": float(np.max(v)),
               "values": v} for arm, v in results.items()},
         "adaptive_over_uniform": [a / u for a, u in
@@ -177,4 +237,4 @@ if __name__ == "__main__":
              range(int(args[1]), int(args[2])) if len(args) > 2
              else cs.COLLOCATION_SEEDS,
              args[3].split(",") if len(args) > 3 and args[3] != "all"
-             else None, k)
+             else None, k, int(args[5]) if len(args) > 5 else None)

@@ -200,29 +200,58 @@ def _stiff(pdt):
     return ode
 
 
-def test_adaptive_and_rba_fits_move_the_residual():
-    # examples/09's stiff source and solver at 600 of its 1500 steps (CPU):
-    # the adaptive fit's mean residual on 2000 points ends below 0.8x the
-    # uniform fit's (the example asserts 0.6x at its full length; at 600
-    # steps on the CPU: 0.570 vs 0.907), the RBA fit's (BENCHMARKS.md:
-    # 726-738's arm, batch 256) below half its start; its weights stay
+def test_adaptive_and_rba_fits_move_the_residual(monkeypatch):
+    # examples/09's stiff source and solver at 600 of its 1500 steps (CPU).
+    # The adaptive fit trains on the batches its design gives: over its 600
+    # steps the half picked by |residual| lies in the source's bump (|x -
+    # 0.8| < 0.05, a tenth of the domain) at least twice as often as the
+    # uniform half (0.313 against 0.098), and its importance weights undo
+    # the pick, so that the weighted share is the domain's (0.103) and the
+    # mean weight 1 (1.005).  Its mean residual on 2000 points ends below a
+    # quarter of its start (0.596 of 3.975); whether it beats a uniform
+    # fit at this budget is a draw of the seed in both packages
+    # (tests/test_torch_adaptive_seeds.py holds the port's adaptive fits
+    # to pydens_tpu's over seeds).  The RBA fit's (BENCHMARKS.md:726-738's
+    # arm, batch 256) ends below half its start; its weights stay
     # positive.
     xs = np.linspace(0, 1, 2000, dtype=np.float32)
-    res = {}
-    for name, kw in (("uniform", dict(batch_size=128)),
-                     ("adaptive", dict(batch_size=128, adaptive=8)),
+    res, seen = {}, []
+    batch = _FitStep._batch
+
+    def recorded(self):
+        pts, weight = batch(self)
+        seen.append((pts[:, 0].clone(), weight))
+        return pts, weight
+
+    for name, kw in (("adaptive", dict(batch_size=128, adaptive=8)),
                      ("rba", dict(batch_size=256, rba=(0.01, 0.99),
                                   resample=False))):
         s = tpdt.Solver(_stiff(tpdt), ndims=1, initial_condition=0.0,
                         activation="Tanh", layout="fafaf",
                         features=[32, 32, 1], device="cpu")
         res["start"] = float(s.residual(xs).mean())
-        s.fit(niters=600, lr=0.01, progress=False, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(_FitStep, "_batch", recorded)
+            s.fit(niters=600, lr=0.01, progress=False, **kw)
         assert np.isfinite(s.losses).all() and len(s.losses) == 600
         res[name] = float(s.residual(xs).mean())
+        if name == "adaptive":
+            assert len(seen) == 600
+            x = torch.stack([p for p, _ in seen]).numpy()
+            w = torch.stack([w for _, w in seen]).numpy()
+            bump = np.abs(x - 0.8) < 0.05
+            share = dict(uniform=bump[:, :64].mean(),
+                         picked=bump[:, 64:].mean(),
+                         weighted=(w[:, 64:] * bump[:, 64:]).mean(),
+                         weight=w[:, 64:].mean())
+            assert np.all(w[:, :64] == 1), share
+            assert abs(share["uniform"] - 0.1) < 0.01, share
+            assert share["picked"] > 2 * share["uniform"], share
+            assert abs(share["weighted"] - 0.1) < 0.01, share
+            assert abs(share["weight"] - 1) < 0.1, share
     (step,) = s._step_cache.values()
     assert float(step.rba_w.min()) > 0
-    assert res["adaptive"] < 0.8 * res["uniform"], res
+    assert res["adaptive"] < 0.25 * res["start"], res
     assert res["rba"] < 0.5 * res["start"], res
 
 

@@ -1,13 +1,16 @@
-"""The port's examples (``examples_torch/``): every file imports with no JAX
-module loaded and exposes ``main``; 01, 05 and 06 run end to end on the
-CPU with their own asserts; and the equations new to the port (examples
-10, 11, 13, 20, 25 and 29) are held to pydens_tpu at a fixed theta: each
-example's equation, constraints and ansatz options at width 8 in its own
-layout, the JAX parameters copied in, the loss and the theta-gradient on
-fixed points (causal eps included for 20 and 25) at the solver tests'
-tolerances, and the Taylor plan (``_plan_ok``, ``_plan_derivs``) equal to
-JAX's.  The examples' budgets and bounds are held on the card
-(``chip_smoke.py --examples``)."""
+"""The port's examples (``examples_torch/``): one file for each of
+``examples/``; every file imports with no JAX module loaded and exposes
+``main``; 01, 05, 06 and 08 run end to end on the CPU with their own
+asserts; and the equations of examples 10, 11, 13, 20, 25 and 29 are held
+to pydens_tpu at a fixed theta (the other examples' are in
+tests/test_torch_examples_parity.py): each example's equation,
+constraints and ansatz options at width 8 in its own layout, the JAX
+parameters copied in, the loss and the theta-gradient on fixed points
+(causal eps included for 20 and 25) at the solver tests' tolerances, and
+the Taylor plan (``_plan_ok``, ``_plan_derivs``) equal to JAX's.  The
+examples' budgets and bounds are held on the card (``chip_smoke.py``:
+phases 10-13 run the main() of the examples their arms cover, phase 15
+the others)."""
 
 import functools
 import importlib.util
@@ -17,8 +20,6 @@ import pathlib
 import subprocess
 import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -26,20 +27,14 @@ import torch
 import pydens_tpu as jpdt
 import pydens_tpu.numpy as jnp_sym
 import pydens_tpu_torch as tpdt
-from pydens_tpu_torch import params_from_jax
 from pydens_tpu_torch.utils.criteria import mse_loss
 
+from example_cases import assert_loss_matches, copy_params, points
 from one_thread import one_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-EXAMPLES = sorted((REPO / "examples_torch").glob("*.py"))
-NAMES = ["01_simple_ode", "02_poisson_2d", "03_parametric_family",
-         "04_heat_parametric", "05_inverse_problem", "06_custom_model",
-         "10_data_assimilation", "11_kdv_soliton", "13_plate_bending",
-         "18_distributed_data_parallel", "19_serving_http",
-         "20_causal_convection", "25_allen_cahn", "29_eigenvalue_problem"]
-LOSS_RTOL = 2e-5
-GRAD_TOL = dict(rtol=2e-3, atol=2e-5)
+NAMES = sorted(p.stem for p in (REPO / "examples").glob("*.py"))
+EXAMPLES = [REPO / "examples_torch" / f"{name}.py" for name in NAMES]
 
 # Imports every example in a process where jax and pydens_tpu cannot be
 # imported; prints, per file, whether main is callable and the JAX-side
@@ -63,8 +58,10 @@ print(json.dumps(out))
 """
 
 
-def test_the_fourteen_examples_are_there():
-    assert [p.stem for p in EXAMPLES] == NAMES
+def test_every_example_has_its_port():
+    # One file of examples_torch/ for each of examples/, by stem.
+    assert sorted(p.stem for p in (REPO / "examples_torch").glob(
+        "*.py")) == NAMES
 
 
 @pytest.fixture(scope="module")
@@ -93,10 +90,11 @@ def _load(name):
 
 
 @pytest.mark.parametrize("name", ["01_simple_ode", "05_inverse_problem",
-                                  "06_custom_model"])
+                                  "06_custom_model",
+                                  "08_ensemble_uncertainty"])
 def test_example_runs_on_the_cpu_with_its_own_asserts(name):
-    # examples/ FAST set but 08 (phase 12 holds it on the card): main on
-    # the CPU, its own asserts, its numbers returned.
+    # examples/ FAST set: main on the CPU, its own asserts, its numbers
+    # returned.
     solver, numbers = _load(name).main(device="cpu")
     assert solver.device.type == "cpu"
     assert numbers and all(np.isfinite(v) for v in numbers.values())
@@ -228,44 +226,15 @@ def _jax_solver(name):
     return jpdt.Solver(eq, seed=0, **kw)
 
 
-def _points(ts, n=64, seed=7):
-    """``n`` points inside the domain, from a numpy seed."""
-    dom = np.asarray(ts.model.domain, np.float32)
-    u = np.random.default_rng(seed).uniform(size=(n, len(dom)))
-    return (dom[:, 0] + (dom[:, 1] - dom[:, 0]) * u).astype(np.float32)
-
-
 @pytest.mark.parametrize("name", list(PARITY))
 def test_example_equation_matches_pydens_tpu_at_a_fixed_theta(name):
+    # The same plan (11's order-3 taps, 13's mixed order-4 (0, 0, 1, 1)),
+    # loss and gradient (example_cases.assert_loss_matches).
     build, terms, causal, eps = PARITY[name]
     js = _jax_solver(name)
     eq, kw = build(tpdt, torch)
-    ts = tpdt.Solver(eq, seed=0, device="cpu", **kw)
-    ts.model.load_params(params_from_jax(jax.tree.map(np.asarray,
-                                                      js.model.params)))
-    # The same plan: 11's order-3 taps, 13's mixed order-4 (0, 0, 1, 1).
-    assert ts._plan_ok == js._plan_ok
-    assert set(map(tuple, ts._plan_derivs)) == set(map(tuple,
-                                                       js._plan_derivs))
-    pts = _points(ts)
-    jloss_fn, *_ = js._build_loss_fn(
-        terms, lambda a, b: jnp.mean((a - b) ** 2), use_plan=True,
-        causal=causal)
-    leaves = [jnp.asarray(pts[:, i:i + 1]) for i in range(pts.shape[1])]
-    jeps = None if eps is None else jnp.float32(eps)
-    jl, jg = jax.jit(jax.value_and_grad(
-        lambda p: jloss_fn(p, leaves, None, None, jeps)))(js.model.params)
-    loss_fn = ts._build_loss_fn(terms, mse_loss, use_plan=True,
-                                causal=causal)
-    theta = loss_fn.spec.flatten(ts.model.params).detach().requires_grad_()
-    loss = loss_fn(theta, torch.from_numpy(pts), causal_eps=None
-                   if eps is None else torch.tensor(eps))
-    grad, = torch.autograd.grad(loss, theta)
-    np.testing.assert_allclose(float(loss.detach()), float(jl),
-                               rtol=LOSS_RTOL)
-    flat = np.concatenate([np.ravel(np.asarray(g))
-                           for g in jax.tree.leaves(jg)])
-    np.testing.assert_allclose(grad.numpy(), flat, **GRAD_TOL)
+    ts = copy_params(js, tpdt.Solver(eq, seed=0, device="cpu", **kw))
+    assert_loss_matches(js, ts, terms, points(ts), causal, eps)
 
 
 def test_plate_constraints_compose_in_forward_mode(monkeypatch):
@@ -287,7 +256,7 @@ def test_plate_constraints_compose_in_forward_mode(monkeypatch):
         monkeypatch.setattr(torch.autograd, name, lambda *a, real=real,
                             name=name, **k: calls.append(name)
                             or real(*a, **k))
-    loss = loss_fn(theta, torch.from_numpy(_points(ts)))
+    loss = loss_fn(theta, torch.from_numpy(points(ts)))
     assert calls == []
     monkeypatch.undo()
     assert torch.isfinite(loss) and loss.requires_grad

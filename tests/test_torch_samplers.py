@@ -222,3 +222,55 @@ def test_solver_draws_device_samplers_on_the_device():
     np.testing.assert_array_equal(
         pts.numpy().reshape(10, 2),
         np.float32(js.NS("u", seed=0, dim=2).truncate(0, .5).sample(10)))
+
+
+def _init_uniforms(params):
+    """The U(0, 1) draws behind a chain's initial weights and biases, in
+    draw order: each leaf is U(-b, b) with b = 1 / sqrt(fan_in)."""
+    out = []
+    for name in sorted(params, key=lambda k: int(k[2:])):
+        bound = 1.0 / np.sqrt(params[name]["w"].shape[0])
+        for leaf in ("w", "b"):
+            v = params[name][leaf].detach().numpy().ravel()
+            out.append((v + bound) / (2 * bound))
+    return np.concatenate(out)
+
+
+def test_solver_batches_are_independent_of_the_initial_parameters():
+    # pydens_tpu splits one key into independent init and sampling keys.
+    # The port seeded its init generator and its sampling generator with
+    # the same seed, so on the CPU the default sampler's first batches
+    # were the very numbers the initial weights were drawn from (a
+    # fixed-batch fit trained on them throughout).  Over 16 seeds no
+    # draw may repeat, and the first batch's draws are uncorrelated with
+    # the initial parameters' (|r| below 7 standard errors).
+    import pydens_tpu_torch as tpdt
+
+    us, xs = [], []
+    for seed in range(16):
+        s = tpdt.Solver(lambda f, x: tpdt.D(f, x), ndims=1, seed=seed,
+                        device="cpu", layout="fafaf", features=[32, 32, 1],
+                        activation="Tanh")
+        u = _init_uniforms(s.model.params["net"])
+        x = s._sample(None, 1, u.size).numpy().ravel()
+        assert np.mean(np.abs(u - x) < 1e-6) < 0.01, seed
+        us.append(u - u.mean())
+        xs.append(x - x.mean())
+    u, x = np.concatenate(us), np.concatenate(xs)
+    r = float(u @ x / np.sqrt((u @ u) * (x @ x)))
+    assert abs(r) < 7 / np.sqrt(u.size), r
+
+
+def test_reset_restarts_the_sampling_stream_of_a_new_solver():
+    # reset(seed) draws the parameters and restarts the sampling stream as
+    # a new Solver(seed=seed) does.
+    import pydens_tpu_torch as tpdt
+
+    def make(seed):
+        return tpdt.Solver(lambda f, x: tpdt.D(f, x), ndims=1, seed=seed,
+                           device="cpu")
+    s = make(3)
+    s._sample(None, 2, 50)
+    s.reset(seed=5)
+    fresh = make(5)
+    assert torch.equal(s._sample(None, 2, 50), fresh._sample(None, 2, 50))
