@@ -11,6 +11,7 @@
     python3 chip_smoke.py --symbolic   # phases 1, 2 and 13 only
     python3 chip_smoke.py --scale-out  # phases 1, 2 and 14 only
     python3 chip_smoke.py --examples   # phases 1, 2 and 15 only
+    python3 chip_smoke.py --notebooks  # phases 1, 2 and 16 only
     python3 chip_smoke.py --w3-repeat  # w3's eager fit, repeated
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -166,7 +167,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    its launches and, from ``torch.profiler`` over 5 replays, the device
    ops and busy ms of its Adam step (and of 29's LM step).  18's ranks
    run in their own processes (one a card, NCCL), which report their
-   launches and steps.
+   launches and steps;
+16. the port's tutorial notebooks (``phase_notebooks``): every code cell
+   of tutorials_torch/1_solving_pdes.ipynb and 2_torch_examples.ipynb
+   verbatim on the card (``DEVICE = None``), at their own budgets, with
+   every inline assert, every kernel's plain version refused; each fit
+   held to its route (one Taylor forward and backward a step, two
+   forwards on the adaptive step, where the solver's chain takes the
+   kernels; none on the plain traversal and the separable grid), each
+   model call and ``predict`` one MLP launch where the chain is in the
+   kernel's scope, and ``solver.ctx.run(solver.model, xs)`` against
+   ``solver.predict(xs)`` (1e-6, bitwise equality reported); one JSON
+   line a notebook with its seconds, each fit's it/s, its launches and
+   the numbers it printed.
 
 Every fit of phases 4-8 runs the package's path: on the card a fit step
 is captured as a CUDA graph once per configuration and replayed.  A
@@ -238,6 +251,7 @@ tangent kernel three times that.
 
 import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -853,6 +867,7 @@ def dense_predict(solver, grid, tag, reps=5):
     VALUE_TOL of its plain version."""
     from pydens_tpu_torch.ops import fused_mlp as fm
     from pydens_tpu_torch.ops.fused_taylor import pack_weights
+    from pydens_tpu_torch.utils.inputs import normalize_inputs
     model = solver.model
     before = fm.fused_mlp_forward.launches
     u = solver.predict(grid)
@@ -867,7 +882,7 @@ def dense_predict(solver, grid, tag, reps=5):
         walls.append((time.perf_counter() - t0) * 1e3)
     split = {}
     t0 = time.perf_counter()
-    xn = solver._normalize_inputs((grid,))
+    xn = normalize_inputs((grid,), model.total)
     split["normalize"] = (time.perf_counter() - t0) * 1e3
     sync()
     t0 = time.perf_counter()
@@ -3779,17 +3794,17 @@ def _step_kind(step):
 
 @contextlib.contextmanager
 def _watched_solvers(fits, predicts):
-    """``Solver.fit`` and ``Solver.predict`` of every solver while entered:
+    """``Solver.fit`` of every solver and every model call while entered:
     each fit appended to ``fits`` (the solver, its parameters before its
     first watched fit, steps run, wall by the host clock between two
     synchronizes, the step tally and the finisher tally of the fit's step
     over the fit, the Taylor wrapper launches over the fit, the step),
-    each predict's MLP launches to ``predicts`` with whether the chain is
-    in the kernel's scope."""
-    from pydens_tpu_torch import Solver
+    each model call's MLP launches (``Solver.predict`` is one) to
+    ``predicts`` with whether the chain is in the kernel's scope."""
+    from pydens_tpu_torch import Model, Solver
     from pydens_tpu_torch.ops import fused_mlp as fm
     counters = _finisher_counters()
-    fit, predict = Solver.fit, Solver.predict
+    fit, forward = Solver.fit, Model.forward
 
     def watched_fit(self, *args, **kwargs):
         theta0 = (None if any(f["solver"] is self for f in fits)
@@ -3815,18 +3830,18 @@ def _watched_solvers(fits, predicts):
             final_loss=float(self.losses[-1])))
         return out
 
-    def watched_predict(self, *args, **kwargs):
+    def watched_forward(self, *args, **kwargs):
         before = fm.fused_mlp_forward.launches
-        out = predict(self, *args, **kwargs)
+        out = forward(self, *args, **kwargs)
         predicts.append((fm.fused_mlp_forward.launches - before,
-                         getattr(self.model, "_mlp_plan", None) is not None))
+                         getattr(self, "_mlp_plan", None) is not None))
         return out
 
-    Solver.fit, Solver.predict = watched_fit, watched_predict
+    Solver.fit, Model.forward = watched_fit, watched_forward
     try:
         yield
     finally:
-        Solver.fit, Solver.predict = fit, predict
+        Solver.fit, Model.forward = fit, forward
 
 
 def _example_fit_route(f, route, tag):
@@ -3858,6 +3873,18 @@ def _example_fit_route(f, route, tag):
     assert f["launches"] == wrapper, (tag, _step_kind(step), f["launches"],
                                       wrapper, d)
     return device
+
+
+def _fit_rows(fits):
+    """Each watched fit's kind, steps, it/s over the whole fit (capture
+    included), step tally and first and last losses (L-BFGS: its trials a
+    step)."""
+    return [dict(steps=f["steps"], kind=_step_kind(f["step"]),
+                 it_s=f["steps"] / f["wall"], tally=f["tally"],
+                 first_loss=f["first_loss"], final_loss=f["final_loss"],
+                 **({"trials_per_step": f["finisher"]["live"] / f["steps"]}
+                    if _step_kind(f["step"]) == "LBFGS" else {}))
+            for f in fits]
 
 
 def _example_main(name, route, chain, claim=None):
@@ -3894,14 +3921,7 @@ def _example_main(name, route, chain, claim=None):
     for i, f in enumerate(fits):
         dev = _example_fit_route(f, route, f"{name} fit {i}")
         device = [a + b for a, b in zip(device, dev)]
-    row["fits"] = [dict(steps=f["steps"], kind=_step_kind(f["step"]),
-                        it_s=f["steps"] / f["wall"], tally=f["tally"],
-                        first_loss=f["first_loss"],
-                        final_loss=f["final_loss"],
-                        **({"trials_per_step": f["finisher"]["live"]
-                            / f["steps"]}
-                           if _step_kind(f["step"]) == "LBFGS" else {}))
-                   for f in fits]
+    row["fits"] = _fit_rows(fits)
     row["device_launches"] = device
     assert all(n == int(in_scope) for n, in_scope in predicts), predicts
     assert all(in_scope for _, in_scope in predicts) or chain is None, (
@@ -4039,6 +4059,114 @@ def phase_examples():
     log(f"examples path launches (counted from 0 before each example): "
         f"{path}; Taylor kernels on the device {device}; {seconds:.1f} s")
     assert all(path.values()), path
+    return path, dict(zip(("fused_taylor_forward", "fused_taylor_backward",
+                           "fused_taylor_jvp"), device)), rows, seconds
+
+
+# Phase 16: tutorials_torch/'s notebooks, each code cell verbatim on the
+# card (DEVICE = None) at the notebooks' own budgets and asserts.
+NOTEBOOKS_DIR = "tutorials_torch"
+NOTEBOOKS = ("1_solving_pdes.ipynb", "2_torch_examples.ipynb")
+
+
+def _notebook_code(name):
+    """A notebook's code cells, read as JSON (no nbformat needed)."""
+    with open(os.path.join(NOTEBOOKS_DIR, name), encoding="utf-8") as f:
+        cells = json.load(f)["cells"]
+    return ["".join(c["source"]) for c in cells if c["cell_type"] == "code"]
+
+
+def _fit_route(solver):
+    """"kernels" where the solver's plan runs through the Taylor kernels
+    (a planned chain in their scope, as the model decided at its first
+    step), else "plain"."""
+    plans = getattr(solver.model, "_taylor_plans", {})
+    return ("kernels" if solver._plan_ok
+            and any(p is not None for p in plans.values()) else "plain")
+
+
+def _run_notebook(name):
+    """One notebook's code cells in one namespace, watched
+    (``_watched_solvers``) and with their prints captured: every fit held
+    to its route (``_example_fit_route``: on the kernels' route each step
+    launched the Taylor forward and backward as its kind's design says),
+    every model call and ``predict`` one MLP launch where the chain is in
+    the kernel's scope, none elsewhere; then the notebook's last
+    ``solver.ctx.run(solver.model, xs)`` against ``solver.predict(xs)``
+    (1e-6; bitwise equality reported), one MLP launch each in scope.
+    Returns the row and the Taylor launches on the device."""
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    counters = _finisher_counters() + (fm.fused_mlp_forward,)
+    fits, predicts, printed, namespace = [], [], [], {}
+    before = [c.launches for c in counters]
+    t0 = time.perf_counter()
+    with _watched_solvers(fits, predicts):
+        for i, src in enumerate(_notebook_code(name)):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                exec(compile(src, f"{name} code cell {i}", "exec"),
+                     namespace)
+            printed += out.getvalue().splitlines()
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = {c.__name__: c.launches - b for c, b in zip(counters, before)}
+    assert namespace["DEVICE"] is None and "solver" in namespace
+    device, routes = [0, 0, 0], []
+    for i, f in enumerate(fits):
+        routes.append(_fit_route(f["solver"]))
+        dev = _example_fit_route(f, routes[-1], f"{name} fit {i}")
+        device = [a + b for a, b in zip(device, dev)]
+    assert "kernels" in routes, routes
+    assert all(n == int(in_scope) for n, in_scope in predicts), predicts
+    solver, xs = namespace["solver"], namespace["xs"]
+    mlp0 = fm.fused_mlp_forward.launches
+    via_ctx = np.asarray(solver.ctx.run(solver.model, xs))
+    pred = solver.predict(xs)
+    in_scope = solver.model._mlp_plan is not None
+    assert fm.fused_mlp_forward.launches - mlp0 == 2 * int(in_scope)
+    np.testing.assert_allclose(via_ctx, pred, rtol=0, atol=1e-6)
+    row = dict(seconds=seconds, launches=launches, device_launches=device,
+               fits=[dict(r, route=route)
+                     for r, route in zip(_fit_rows(fits), routes)],
+               predicts=[n for n, _ in predicts], printed=printed,
+               ctx_vs_predict=dict(
+                   max_abs_diff=float(np.max(np.abs(via_ctx - pred))),
+                   bitwise=bool(np.array_equal(via_ctx, pred)),
+                   mlp_in_scope=in_scope))
+    return row, device
+
+
+def phase_notebooks():
+    """Phase 16: each notebook of tutorials_torch/ verbatim on the card
+    (``_run_notebook``), every kernel's plain version refused; one JSON
+    line a notebook.  Returns the path's launches (wrapper counts, summed
+    over the notebooks, each counted from 0), the Taylor kernels' launches
+    on the device, the rows and the phase's seconds."""
+    from pydens_tpu_torch.ops import fused_mlp as fm
+    t0 = time.perf_counter()
+    rows, path, device = {}, {}, [0, 0, 0]
+    for name in NOTEBOOKS:
+        for c in _finisher_counters() + (fm.fused_mlp_forward,):
+            c.launches = 0
+        with _plain_refused():
+            row, dev = _run_notebook(name)
+        free_card()
+        rows[name] = row
+        device = [a + b for a, b in zip(device, dev)]
+        for k, v in row["launches"].items():
+            path[k] = path.get(k, 0) + v
+        print(json.dumps({"notebook": name, **row}, default=_json_default),
+              flush=True)
+        log(f"notebook {name}: {row['seconds']:.2f} s, "
+            + ", ".join(f"{f['kind']} {f['steps']} steps {f['it_s']:.1f} "
+                        f"it/s ({f['route']})" for f in row["fits"])
+            + f"; launches {row['launches']}; ctx.run vs predict "
+            f"{row['ctx_vs_predict']}")
+    seconds = time.perf_counter() - t0
+    log(f"notebooks path launches (counted from 0 before each notebook): "
+        f"{path}; Taylor kernels on the device {device}; {seconds:.1f} s")
+    assert path["fused_taylor_forward"] and path["fused_taylor_backward"]
+    assert path["fused_mlp_forward"], path
     return path, dict(zip(("fused_taylor_forward", "fused_taylor_backward",
                            "fused_taylor_jvp"), device)), rows, seconds
 
@@ -4716,6 +4844,10 @@ def main():
         phase_examples()
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--notebooks"]:
+        phase_notebooks()
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:2] == ["--carry"]:
         carry_probe(sys.argv[2].split(","), *sys.argv[3:4])
         print(smi, flush=True)
@@ -4756,6 +4888,7 @@ def main():
     print(json.dumps({"scale_out": scale_out}, default=_json_default),
           flush=True)
     example_launches, example_device, _, example_s = phase_examples()
+    notebook_launches, notebook_device, _, notebook_s = phase_notebooks()
     path_launches = {k: {"w1": launches[k],
                          **{w: t[0][k] for w, t in tutorials.items()},
                          **{f"p10_{arm}": n[k] for arm, n
@@ -4765,7 +4898,8 @@ def main():
                          "p12_ensembles": ensemble_launches[k],
                          "p13_symbolic": symbolic_launches.get(k, 0),
                          "p14_scale_out": scale_launches[k],
-                         "p15_examples": example_launches[k]}
+                         "p15_examples": example_launches[k],
+                         "p16_notebooks": notebook_launches[k]}
                      for k in launches}
     # Launches on the card: the Taylor kernels once per fit step (eager or
     # replayed), the MLP kernel once per predict (never captured).
@@ -4798,7 +4932,8 @@ def main():
         # follow.
         graph = ({"path_device_launches": {
                       **device_launches,
-                      "p15_examples": example_device[name]},
+                      "p15_examples": example_device[name],
+                      "p16_notebooks": notebook_device[name]},
                   "graph_launches_per_step": w1_prof[f"{kernel}_per_step"]}
                  if kernel else {"path_device_launches": path_launches[name]})
         return {"name": name, "route": "cuda",
@@ -4837,6 +4972,8 @@ def main():
         "p14_scale_out_launches": scale_launches["fused_taylor_jvp"],
         "p15_examples_launches": example_launches["fused_taylor_jvp"],
         "p15_examples_device_launches": example_device["fused_taylor_jvp"],
+        "p16_notebooks_launches": notebook_launches["fused_taylor_jvp"],
+        "p16_notebooks_device_launches": notebook_device["fused_taylor_jvp"],
         "lm_launches_per_step":
             finishers["ode_lm"]["taylor_jvp_kernel_per_step"]}
     # The member axis (the grid's second axis, K ensemble members in one
@@ -4887,8 +5024,9 @@ def main():
         jvp_entry,
     ] + member_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
-    log(f"phase 15 (examples): {example_s:.1f} s; the whole run "
-        f"{time.perf_counter() - _T0:.1f} s")
+    log(f"phase 15 (examples): {example_s:.1f} s; phase 16 (notebooks): "
+        f"{notebook_s:.1f} s; the whole run {time.perf_counter() - _T0:.1f} "
+        "s")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -25,9 +25,10 @@ from torch import nn
 from . import jets
 from .jets import Jet
 from .layout import make_layout_network, make_modified_mlp_network
-from ..ops.tokens import (as_device, member_scope, member_value,
+from ..ops.tokens import (as_device, member_scope, member_value, to_host,
                           variable_scope)
 from ..ops import fused_mlp, fused_taylor
+from ..utils.inputs import normalize_inputs
 
 __all__ = ["Model", "ConvBlockModel", "TorchModel", "resolve_device"]
 
@@ -115,6 +116,17 @@ def _host_values(out):
     if torch.is_tensor(out):
         out = out.detach().cpu().numpy()
     return np.asarray(out, np.float64)
+
+
+class Variable(nn.Parameter):
+    """The parameter of a ``V`` variable or a ``Field`` leaf.  Besides
+    being a parameter, it reads back on the host through ``np.asarray``,
+    detached and copied, from any device, as ``pydens_tpu``'s arrays do:
+    ``float(np.asarray(solver.params['variables']['c'])[0])`` (a bfloat16
+    value as float32)."""
+
+    def __array__(self, dtype=None, copy=None):
+        return np.array(to_host(self), dtype=dtype)
 
 
 def _mixed_partial(fn, m, zero, one):
@@ -252,7 +264,7 @@ class Model(nn.Module):
                 value = value.expand((self.n_models,) + value.shape).clone()
             key = self._variable_keys.setdefault(
                 name, f"v{len(self._variable_keys)}")
-            self.variables[key] = nn.Parameter(value)
+            self.variables[key] = Variable(value)
         self._params_ready = True
 
     def make_ensemble(self, n_models):
@@ -265,7 +277,7 @@ class Model(nn.Module):
         for module in self.modules():
             for name, p in list(module._parameters.items()):
                 if p is not None:
-                    module._parameters[name] = nn.Parameter(
+                    module._parameters[name] = type(p)(
                         p.detach().expand((self.n_models,) + p.shape)
                         .clone())
 
@@ -730,6 +742,31 @@ class Model(nn.Module):
                 return self.anzatc(u, xs, params)
             out = self.anzatc(u, xs.repeat(self.n_models, 1), params)
             return out.reshape(self.n_models, xs.shape[0], -1)
+
+    def device_inputs(self, xs):
+        """The points of :meth:`forward` (and ``Solver.predict``) as one
+        ``(N, total)`` tensor in the model's dtype on its device."""
+        return torch.as_tensor(normalize_inputs(xs, self.total),
+                               dtype=self.dtype, device=self.device)
+
+    def forward(self, *xs):
+        """Evaluate the model at host-supplied points (the reference's
+        ``solver.model(xs)`` / ``solver.ctx.run(solver.model, xs)`` usage
+        from the examples notebook).  Accepts the inputs of
+        ``Solver.predict``: columns, numbers and lists, or one stacked
+        ``(N, ndims + nparams)`` array or tensor on any device.
+        ``nn.Module.__call__`` dispatches here, so ``model(xs)``,
+        ``model(*cols)`` and ``model.forward(xs)`` are one call.  Runs
+        :meth:`predict_apply` (one MLP launch where the chain is in the
+        kernel's scope) and returns the ensemble mean as an ``(N, n_out)``
+        numpy array, a bfloat16 model's as float32."""
+        if not self._params_ready:
+            raise RuntimeError("model has no parameters yet — build it "
+                               "through a Solver")
+        out = self.predict_apply(self.params, self.device_inputs(xs))
+        if self.n_models > 1:
+            out = out.mean(0)
+        return to_host(out)
 
 
 class ConvBlockModel(Model):

@@ -48,6 +48,7 @@ from .ops.tokens import (PLAN_MAX_ORDER, Expr, EvalContext,
                          _batch_diagonal_grad, as_array, as_device,
                          member_scope, staging, to_host, variable_scope)
 from .utils.criteria import member_losses, resolve_criterion
+from .utils.inputs import is_number, reshape_and_concat
 from .utils.optimizers import LBFGS, LMConfig, resolve_optimizer
 
 __all__ = ["Solver"]
@@ -719,10 +720,6 @@ def _abs_residual(residuals, leaf):
     return acc
 
 
-def _is_number(x):
-    return isinstance(x, (int, float, np.integer, np.floating))
-
-
 def _numel(x):
     return x.numel() if torch.is_tensor(x) else int(np.prod(np.shape(x)))
 
@@ -764,6 +761,14 @@ def _constraint_terms(loss_terms, n_constraints):
                 f"loss term 'constraint_{num}' requested but only "
                 f"{n_constraints} constraints were supplied to Solver")
     return nums
+
+
+class _CtxShim:
+    """``Solver.ctx`` compatibility object (see the property docstring)."""
+
+    @staticmethod
+    def run(fn, *args, **kwargs):
+        return fn(*args, **kwargs)
 
 
 class Solver:
@@ -1029,6 +1034,17 @@ class Solver:
     def optimizer(self):
         return self._opt
 
+    @property
+    def ctx(self):
+        """Migration shim for the reference's ``solver.ctx.run(fn, *args)``
+        idiom (examples notebook; the reference snapshots a contextvars
+        context so ``V`` resolves inside user calls,
+        ``model_torch.py:316-317,486``).  The port needs no ambient
+        context — V variables live in the model's parameters and the model
+        reads them itself — so ``run`` simply invokes the callable:
+        ``solver.ctx.run(solver.model, xs)`` is ``solver.model(xs)``."""
+        return _CtxShim()
+
     def _spec(self):
         """The flat spec of the model's parameters (``(K, P)`` for an
         ensemble)."""
@@ -1040,58 +1056,9 @@ class Solver:
     @classmethod
     def reshape_and_concat(cls, tensors):
         """Cast, reshape and concatenate mixed inputs to an ``(N, D)``
-        float32 array, with the reference's quirks (``model_torch.py:
-        327-362``): batch size is the max element count; scalars are tiled;
-        numpy arrays whose size mismatches the batch are tiled from their
-        first element; torch tensors must match; lists become columns."""
-        xs, torch_origin = [], []
-        for x in tensors:
-            was_torch = hasattr(x, "detach")
-            if was_torch:
-                x = x.detach().cpu().numpy()
-            xs.append(x)
-            torch_origin.append(was_torch)
-        sizes = ([int(np.prod(x.shape)) for x in xs
-                  if isinstance(x, np.ndarray)]
-                 + [int(np.prod(np.asarray(x).shape)) for x in xs
-                    if isinstance(x, (tuple, list))])
-        batch_size = int(np.max(sizes)) if sizes else 1
-        cols = []
-        for x, was_torch in zip(xs, torch_origin):
-            if _is_number(x):
-                col = np.tile(np.float32(x), (batch_size, 1))
-            elif isinstance(x, np.ndarray):
-                if x.size != batch_size:
-                    if was_torch:
-                        raise ValueError(
-                            f"torch tensor with {x.size} elements cannot be "
-                            f"concatenated with batch size {batch_size} "
-                            "(sizes must match)")
-                    x = np.tile(np.ravel(x)[0], (batch_size, 1))
-                col = np.asarray(x, np.float32).reshape(batch_size, 1)
-            elif isinstance(x, (list, tuple)):
-                col = np.asarray(x, np.float32).reshape(-1, 1)
-            else:
-                raise TypeError(f"cannot interpret input of type {type(x)!r}")
-            cols.append(col)
-        return np.concatenate(cols, axis=1).astype(np.float32)
-
-    def _normalize_inputs(self, xs):
-        """Mixed per-column inputs (reference semantics) or one stacked
-        ``(N, total)`` grid, as a float32 numpy array."""
-        if (len(xs) == 1 and hasattr(xs[0], "ndim") and xs[0].ndim == 2
-                and xs[0].shape[1] == self.model.total > 1):
-            x = xs[0]
-            if hasattr(x, "detach"):
-                x = x.detach().cpu().numpy()
-            xs_concat = np.asarray(x, np.float32)
-        else:
-            xs_concat = self.reshape_and_concat(xs)
-        if xs_concat.shape[1] != self.model.total:
-            raise ValueError(
-                f"received {xs_concat.shape[1]} coordinate columns but the "
-                f"problem has ndims+nparams={self.model.total}")
-        return xs_concat
+        float32 array, with the reference's quirks
+        (:func:`~pydens_tpu_torch.utils.inputs.reshape_and_concat`)."""
+        return reshape_and_concat(tensors)
 
     # ------------------------------------------------------------------
     # constraints
@@ -1103,11 +1070,11 @@ class Solver:
         largest element count), arrays whose size mismatches it are tiled
         from their first element, and tensors keep their autograd graph."""
         dtype, device = self.model.dtype, self.device
-        batch = max((_numel(x) for x in vals if not _is_number(x)),
+        batch = max((_numel(x) for x in vals if not is_number(x)),
                     default=1)
         cols = []
         for x in vals:
-            if _is_number(x):
+            if is_number(x):
                 col = torch.full((batch, 1), float(x), dtype=dtype,
                                  device=device)
             else:
@@ -2227,19 +2194,15 @@ class Solver:
             self._residual_fn = self._build_loss_fn(
                 (("equation", 1.0),), lambda a, b: 0.0,
                 use_plan=bool(self._plan_ok)).point_residual
-        x = self._device_inputs(xs)
+        x = self.model.device_inputs(xs)
         theta = self._spec().flatten(self.model.params)
         with torch.enable_grad():
             out = self._residual_fn(theta.detach(), x)
         return to_host(out)
 
-    def _device_inputs(self, xs):
-        return torch.as_tensor(self._normalize_inputs(xs),
-                               dtype=self.model.dtype, device=self.device)
-
     def _predict_raw(self, xs):
         return self.model.predict_apply(self.model.params,
-                                        self._device_inputs(xs))
+                                        self.model.device_inputs(xs))
 
     def predict(self, *xs):
         """Evaluate the trained solution at the supplied points: arrays,
@@ -2247,11 +2210,8 @@ class Solver:
         array of stacked coordinates.  Returns an ``(N, n_out)`` numpy
         array; the ensemble mean when ``n_models > 1``.  Results come back
         in the model's dtype, a bfloat16 model's as float32 (every results
-        method does so)."""
-        out = self._predict_raw(xs)
-        if self.n_models > 1:
-            out = out.mean(0)
-        return to_host(out)
+        method does so).  It is the model call, ``solver.model(*xs)``."""
+        return self.model(*xs)
 
     def predict_all(self, *xs):
         """Every member's prediction, ``(n_models, N, n_out)`` (``(1, N,
@@ -2283,7 +2243,7 @@ class Solver:
         ``D``."""
         model, K = self.model, self.n_models
         total = model.total
-        x = self._device_inputs(xs)
+        x = self.model.device_inputs(xs)
         params = model.params
         with variable_scope("read", params["variables"]):
             if model.supports_taylor:

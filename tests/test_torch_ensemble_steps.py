@@ -23,6 +23,8 @@ from pydens_tpu_torch.solver import _Collocation, _FitStep
 from pydens_tpu_torch.utils.criteria import mse_loss
 from pydens_tpu_torch.utils.optimizers import resolve_optimizer
 
+from one_thread import one_thread  # noqa: F401
+
 
 def test_adam_chunk_matches_jax():
     # 25 Adam steps on one fixed batch of 96 points from the same theta:

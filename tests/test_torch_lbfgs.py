@@ -20,6 +20,8 @@ from pydens_tpu_torch import params_from_jax
 from pydens_tpu_torch.utils.criteria import mse_loss
 from pydens_tpu_torch.utils.optimizers import LBFGS, resolve_optimizer
 
+from one_thread import one_thread  # noqa: F401
+
 RTOL = 1e-4
 
 

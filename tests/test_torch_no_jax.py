@@ -10,9 +10,11 @@ Deep Ritz and ``Solver.residual``, the symbolic layer and the separable
 model, an export round trip and a module model's fit on a world-of-one
 gloo mesh), and every file of the package and of ``examples_torch/`` is
 scanned for a jax import (the server that examples_torch/19 writes, for
-any import beyond the standard library and torch)."""
+any import beyond the standard library and torch), as is every file of
+``tutorials_torch/`` and every code cell of its notebooks."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -179,10 +181,28 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py"))
-                         + sorted((REPO / "examples_torch").glob("*.py")),
+                         + sorted((REPO / "examples_torch").glob("*.py"))
+                         + sorted((REPO / "tutorials_torch").glob("*.py")),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_file_imports_jax(path):
     roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "optax", "flax", "pydens_tpu"}, roots
+
+
+@pytest.mark.parametrize("path", sorted(
+    (REPO / "tutorials_torch").glob("*.ipynb")), ids=lambda p: p.name)
+def test_no_notebook_cell_imports_jax(path):
+    cells = json.loads(path.read_text())["cells"]
+    roots = set()
+    for cell in cells:
+        if cell["cell_type"] != "code":
+            continue
+        for node in ast.walk(ast.parse("".join(cell["source"]))):
+            if isinstance(node, ast.Import):
+                roots |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                roots.add((node.module or "").split(".")[0])
+    assert "pydens_tpu_torch" in roots
     assert not roots & {"jax", "jaxlib", "optax", "flax", "pydens_tpu"}, roots
 
 
