@@ -24,6 +24,7 @@ from torch import nn
 
 from . import jets
 from .jets import Jet
+from .. import tracing
 from .layout import make_layout_network, make_modified_mlp_network
 from ..ops.tokens import (as_device, member_scope, member_value, to_host,
                           variable_scope)
@@ -746,8 +747,10 @@ class Model(nn.Module):
     def device_inputs(self, xs):
         """The points of :meth:`forward` (and ``Solver.predict``) as one
         ``(N, total)`` tensor in the model's dtype on its device."""
-        return torch.as_tensor(normalize_inputs(xs, self.total),
-                               dtype=self.dtype, device=self.device)
+        with tracing.span("pydens.predict.inputs"):
+            xs = normalize_inputs(xs, self.total)
+        with tracing.span("pydens.predict.to_device"):
+            return torch.as_tensor(xs, dtype=self.dtype, device=self.device)
 
     def forward(self, *xs):
         """Evaluate the model at host-supplied points (the reference's
@@ -763,10 +766,16 @@ class Model(nn.Module):
         if not self._params_ready:
             raise RuntimeError("model has no parameters yet — build it "
                                "through a Solver")
-        out = self.predict_apply(self.params, self.device_inputs(xs))
-        if self.n_models > 1:
-            out = out.mean(0)
-        return to_host(out)
+        with tracing.span("pydens.predict") as sp:
+            x = self.device_inputs(xs)
+            if sp is not None:
+                sp.attrs["points"] = x.shape[0]
+            with tracing.span("pydens.predict.apply"):
+                out = self.predict_apply(self.params, x)
+                if self.n_models > 1:
+                    out = out.mean(0)
+            with tracing.span("pydens.predict.to_host"):
+                return to_host(out)
 
 
 class ConvBlockModel(Model):

@@ -19,6 +19,8 @@ from pathlib import Path
 
 import torch
 
+from .. import tracing
+
 __all__ = ["load_library", "launch_checked", "check_operand",
            "MAX_SHARED_BYTES"]
 
@@ -62,41 +64,43 @@ def load_library():
     """The kernel library, built on first call (cached per process).
 
     The compiler's output (``-Xptxas -v``: registers, shared memory and
-    spills per kernel) is kept as ``lib.build_log``; ``lib.build_seconds``
-    is the build time (0.0 when the library was already built)."""
+    spills per kernel) is kept as ``lib.build_log``; the build or the load
+    is the span ``pydens.kernels.build`` (:mod:`pydens_tpu_torch.tracing`),
+    its ``built`` attribute True where ``nvcc`` ran."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    target = _BUILD_DIR / f"libpydens_kernels_{digest.hexdigest()[:16]}.so"
-    log, seconds = "", 0.0
-    if not target.exists():
-        import time
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *map(str, sources)],
-            capture_output=True, text=True, check=False)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
-        os.replace(tmp, target)
-    lib = ctypes.CDLL(str(target))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.build_log = log
-    lib.build_seconds = seconds
-    lib.path = str(target)
+    with tracing.span("pydens.kernels.build") as sp:
+        sources = sorted(_CSRC.glob("*.cu"))
+        digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+        for src in sources:
+            digest.update(src.name.encode())
+            digest.update(src.read_bytes())
+        target = (_BUILD_DIR
+                  / f"libpydens_kernels_{digest.hexdigest()[:16]}.so")
+        log, built = "", not target.exists()
+        if built:
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.run(
+                [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *map(str, sources)],
+                capture_output=True, text=True, check=False)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"nvcc failed (exit {proc.returncode}):\n{log}")
+            os.replace(tmp, target)
+        lib = ctypes.CDLL(str(target))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.build_log = log
+        lib.path = str(target)
+        if sp is not None:
+            sp.attrs["built"] = built
     _LIB = lib
     return lib
 

@@ -8,7 +8,8 @@ weights resident on-chip and the activations never leaving it.  It carries
 
 :func:`fused_mlp_forward` launches ``csrc/fused_mlp.cu`` for CUDA tensors
 (or raises) and takes :func:`fused_mlp_forward_plain` only for CPU tensors;
-its ``launches`` attribute counts kernel launches.  It is an inference op:
+its ``launches`` attribute counts its wrapper calls (a CUDA-graph replay
+makes none).  It is an inference op:
 it has no backward and refuses inputs that require grad.
 """
 
@@ -215,6 +216,7 @@ def fused_mlp_forward(packed, x, plan):
     return out
 
 
+# Wrapper calls; a CUDA-graph replay makes none.
 fused_mlp_forward.launches = 0
 
 

@@ -11,7 +11,8 @@ Poisson-type residual in one traversal.
 * :func:`fused_taylor_forward` / :func:`fused_taylor_backward` launch the
   CUDA kernels of ``csrc/fused_taylor.cu`` for CUDA tensors (and raise if
   they cannot) and take the plain versions only for CPU tensors.  Each
-  keeps a ``launches`` counter of kernel launches.
+  keeps a ``launches`` counter of its wrapper calls; a CUDA-graph replay
+  makes none.
 * :func:`fused_taylor_forward_plain` is the same traversal in torch ops;
   :func:`fused_taylor_backward_plain` is its autograd VJP.
 * :func:`fused_taylor_jvp` launches the tangent kernel (the traversal and
@@ -376,6 +377,7 @@ def fused_taylor_forward(packed, x, plan):
     return out
 
 
+# Wrapper calls; a CUDA-graph replay makes none.
 fused_taylor_forward.launches = 0
 
 
@@ -445,6 +447,7 @@ def fused_taylor_backward(packed, x, g, plan):
     return d_packed, (dx[0] if K == 1 else dx.sum(0))
 
 
+# Wrapper calls; a CUDA-graph replay makes none.
 fused_taylor_backward.launches = 0
 
 
@@ -490,6 +493,7 @@ def fused_taylor_jvp(packed, x, v, plan):
     return out, tangent
 
 
+# Wrapper calls; a CUDA-graph replay makes none.
 fused_taylor_jvp.launches = 0
 
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
+from . import tracing
 from .models import ConvBlockModel
 from .models.base import resolve_device
 from .parallel.shards import Shards, mesh_axes
@@ -328,6 +329,7 @@ class _FitStep:
         self.constants = {}
         self.eager_steps = 0     # steps run eagerly (the warm-up, or all)
         self.replays = 0         # steps run as replays of the graph
+        self.captures = 0        # graphs captured, of every kind
         self.rebalance_graph = None
         self.rebalance_eager = 0
         self.rebalance_replays = 0
@@ -576,35 +578,47 @@ class _FitStep:
         graph.replay()
         return eager, replays + 1, graph
 
+    def tallies(self):
+        """``(eager, replays, captures)``: steps run eagerly, graph
+        replays of every kind (an L-BFGS step's trials too) and graphs
+        captured, since the step was built."""
+        return (self.eager_steps + self.rebalance_eager,
+                self.replays + self.rebalance_replays, self.captures)
+
     def _warm_up(self, fn):
         dev = self.theta.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with staging(self.constants), torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream(dev).wait_stream(side)
+        with tracing.span("pydens.fit.warmup"):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with staging(self.constants), torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream(dev).wait_stream(side)
 
     def _capture(self, fn):
         # Capture records fn without running it: theta, the state and the
         # index move only when the graph is replayed.  The cyclic garbage
         # collector is held off meanwhile: collecting a dead solver there
         # frees its graphs and their memory, which invalidates the capture.
-        graph = torch.cuda.CUDAGraph()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with staging(self.constants), torch.cuda.graph(graph):
-                fn()
-        except RuntimeError as err:
-            first, site = _capture_error(err)
-            raise RuntimeError(
-                f"CUDA-graph capture of the fit step failed at {site}: "
-                f"{first}. A step must not read a device value on the host "
-                "(.item(), float(), .tolist(), a Python `if` on a tensor), "
-                "e.g. in an equation, a condition or an lr schedule") from err
-        finally:
-            if collecting:
-                gc.enable()
+        # The span lies around the capture, never inside it.
+        with tracing.span("pydens.fit.capture"):
+            graph = torch.cuda.CUDAGraph()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with staging(self.constants), torch.cuda.graph(graph):
+                    fn()
+            except RuntimeError as err:
+                first, site = _capture_error(err)
+                raise RuntimeError(
+                    f"CUDA-graph capture of the fit step failed at {site}: "
+                    f"{first}. A step must not read a device value on the "
+                    "host (.item(), float(), .tolist(), a Python `if` on a "
+                    "tensor), e.g. in an equation, a condition or an lr "
+                    "schedule") from err
+            finally:
+                if collecting:
+                    gc.enable()
+        self.captures += 1
         return graph
 
 
@@ -636,6 +650,10 @@ class _LinesearchFitStep(_FitStep):
         self.trial_graph = None
         self.eager_trials = 0    # trials after a step's first, run eagerly
         self.trial_replays = 0   # and as replays of the trial graph
+
+    def tallies(self):
+        eager, replays, captures = super().tallies()
+        return eager, replays + self.trial_replays, captures
 
     def _trial_value_and_grad(self, point):
         point = point.detach().requires_grad_(True)
@@ -763,6 +781,25 @@ def _constraint_terms(loss_terms, n_constraints):
     return nums
 
 
+@contextlib.contextmanager
+def _profiled(profile_dir, device):
+    """A ``torch.profiler`` over the block, its chrome trace written into
+    ``profile_dir`` when the block ends (nothing without a directory)."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    profiler = profile(activities=[ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else []))
+    try:
+        with profiler:
+            yield
+    finally:
+        os.makedirs(profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(
+            profile_dir, f"fit_{time.time_ns()}.pt.trace.json"))
+
+
 class _CtxShim:
     """``Solver.ctx`` compatibility object (see the property docstring)."""
 
@@ -855,114 +892,120 @@ class Solver:
                  boundary_condition=None, domain=(0, 1), nparams=0,
                  model=ConvBlockModel, constraints=None, seed=0, device=None,
                  mesh=None, n_models=1, formulation="residual", **kwargs):
-        if mesh is not None and not isinstance(mesh, DeviceMesh):
-            raise TypeError(
-                "mesh must be a torch.distributed.device_mesh.DeviceMesh "
-                f"(pydens_tpu_torch.make_mesh()), got {type(mesh).__name__}")
-        if (isinstance(n_models, bool)
-                or not isinstance(n_models, (int, np.integer))
-                or n_models < 1):
-            raise ValueError(
-                f"n_models must be an int >= 1, got {n_models!r}")
-        self.n_models = int(n_models)
-        if formulation not in ("residual", "variational"):
-            raise ValueError(
-                f"formulation must be 'residual' or 'variational', got "
-                f"{formulation!r}")
-        # 'variational' is Deep Ritz: the equation returns an energy
-        # density whose mean is minimized.
-        self.formulation = formulation
-        self.equation = equation
-        if constraints is None:
-            self.constraints = ()
-        elif isinstance(constraints, (tuple, list)):
-            self.constraints = tuple(constraints)
-        else:
-            self.constraints = (constraints,)
-        self.device = resolve_device(device)
-        # Data parallelism: every rank of the mesh constructs the Solver
-        # and drives it in lockstep (one process a rank).
-        self.mesh = mesh
-        self._shards = (None if mesh is None
-                        else Shards(mesh, self.n_models, self.device))
-        self.losses = []
-        self.history = []   # one record per fit call
-        self.last_balanced_weights = None   # set by load() from a snapshot
-        self._step_counter = 0
-        self.model = model(**kwargs, ndims=ndims,
-                           initial_condition=initial_condition,
-                           boundary_condition=boundary_condition,
-                           domain=domain, nparams=nparams, device=self.device)
-        seed = 0 if seed is None else int(seed)
-        self._init_generator = torch.Generator().manual_seed(seed)
-        self.model.reset_parameters(self._init_generator)
-        self._generator = torch.Generator(device=self.device).manual_seed(
-            _sampling_seed(seed, self.device))
-        self._opt = None
-        self._opt_state = None
-        self._pending_opt_state = None   # set by a checkpoint load
-        self._opt_cache = {}
-        self._step_cache = {}
-        self._residual_fn = None
-
-        # Discovery: one real forward of model + equation + constraints on a
-        # single row of domain midpoints registers the V variables and
-        # records which pure field derivatives the equation takes (the
-        # plan).  The constraints run in a context of their own, so D used
-        # there does not void the equation's plan.
-        total = self.model.total
-        mids = ([0.5 * (float(lo) + float(hi)) for lo, hi in
-                 self.model.domain] + [0.5] * nparams)
-        leaves = [torch.full((1, 1), m, dtype=self.model.dtype,
-                             device=self.device).requires_grad_(True)
-                  for m in mids]
-        registry = {}
-        params = self.model.params
-        with variable_scope("create", registry, self.device):
-            ctx = EvalContext(leaves)
-            f = Expr(lambda: self.model.apply_leaves(params, ctx.leaves), ctx,
-                     deriv=())
-            coords = [Expr(_leaf_fn(ctx, k), ctx, leaf_index=k)
-                      for k in range(total)]
-            try:
-                residuals = _as_residual_list(self.equation(f, *coords))
-            except TypeError as err:
-                if "positional argument" in str(err):
-                    raise TypeError(
-                        f"equation callable must accept (f, *coords) with "
-                        f"{total} coordinate argument(s) — one per variable "
-                        f"and one per parameter (ndims={ndims} + "
-                        f"nparams={nparams}): {err}") from None
-                raise
-            for r in residuals:
-                as_array(r)
-            ctx_c = EvalContext(leaves)
-            coords_c = [Expr(_leaf_fn(ctx_c, k), ctx_c, leaf_index=k)
-                        for k in range(total)]
-            fwd = self._make_forward(params, ctx_c)
-            for constraint in self.constraints:
-                as_array(constraint(fwd, *coords_c))
-        self._plan_derivs = frozenset(ctx.derivs)
-        self._plan_ok = (ctx.plan_ok and bool(ctx.derivs)
-                         and self.model.supports_taylor)
-        # A separable model's grid taps by forward mode on jets
-        # (``SeparableModel.grid_taps``): its grid D without create_graph
-        # backward passes, whose results moved with the process's earlier
-        # autograd work.
-        self._grid_plan_ok = (ctx.plan_ok and bool(ctx.derivs) and total > 1
-                              and getattr(self.model, "separable", False))
-        self.model.set_variables(registry)
-        if getattr(self.model, "separable", False):
-            self._probe_grid()
-        # Copies: on the CPU the variables share the registry's memory.
-        self._initial_variables = {k: np.array(v) for k, v in
-                                   registry.items()}
-        if self.n_models > 1:
-            # The members, drawn from the seed after the discovery run
-            # (which ran one model), as reset(seed) draws them.
-            self.model.make_ensemble(self.n_models)
-            self._init_generator.manual_seed(seed)
+        with tracing.span("pydens.init"):
+            if mesh is not None and not isinstance(mesh, DeviceMesh):
+                raise TypeError(
+                    "mesh must be a torch.distributed.device_mesh."
+                    "DeviceMesh (pydens_tpu_torch.make_mesh()), got "
+                    f"{type(mesh).__name__}")
+            if (isinstance(n_models, bool)
+                    or not isinstance(n_models, (int, np.integer))
+                    or n_models < 1):
+                raise ValueError(
+                    f"n_models must be an int >= 1, got {n_models!r}")
+            self.n_models = int(n_models)
+            if formulation not in ("residual", "variational"):
+                raise ValueError(
+                    f"formulation must be 'residual' or 'variational', got "
+                    f"{formulation!r}")
+            # 'variational' is Deep Ritz: the equation returns an energy
+            # density whose mean is minimized.
+            self.formulation = formulation
+            self.equation = equation
+            if constraints is None:
+                self.constraints = ()
+            elif isinstance(constraints, (tuple, list)):
+                self.constraints = tuple(constraints)
+            else:
+                self.constraints = (constraints,)
+            self.device = resolve_device(device)
+            # Data parallelism: every rank of the mesh constructs the Solver
+            # and drives it in lockstep (one process a rank).
+            self.mesh = mesh
+            self._shards = (None if mesh is None
+                            else Shards(mesh, self.n_models, self.device))
+            self.losses = []
+            self.history = []   # one record per fit call
+            # Set by load() from a snapshot.
+            self.last_balanced_weights = None
+            self._step_counter = 0
+            self.model = model(**kwargs, ndims=ndims,
+                               initial_condition=initial_condition,
+                               boundary_condition=boundary_condition,
+                               domain=domain, nparams=nparams,
+                               device=self.device)
+            seed = 0 if seed is None else int(seed)
+            self._init_generator = torch.Generator().manual_seed(seed)
             self.model.reset_parameters(self._init_generator)
+            self._generator = torch.Generator(device=self.device).manual_seed(
+                _sampling_seed(seed, self.device))
+            self._opt = None
+            self._opt_state = None
+            self._pending_opt_state = None   # set by a checkpoint load
+            self._opt_cache = {}
+            self._step_cache = {}
+            self._residual_fn = None
+
+            # Discovery: one real forward of model + equation + constraints
+            # on a single row of domain midpoints registers the V variables
+            # and records which pure field derivatives the equation takes
+            # (the plan).  The constraints run in a context of their own, so
+            # D used there does not void the equation's plan.
+            total = self.model.total
+            mids = ([0.5 * (float(lo) + float(hi)) for lo, hi in
+                     self.model.domain] + [0.5] * nparams)
+            leaves = [torch.full((1, 1), m, dtype=self.model.dtype,
+                                 device=self.device).requires_grad_(True)
+                      for m in mids]
+            registry = {}
+            params = self.model.params
+            with variable_scope("create", registry, self.device):
+                ctx = EvalContext(leaves)
+                f = Expr(lambda: self.model.apply_leaves(params, ctx.leaves),
+                         ctx, deriv=())
+                coords = [Expr(_leaf_fn(ctx, k), ctx, leaf_index=k)
+                          for k in range(total)]
+                try:
+                    residuals = _as_residual_list(self.equation(f, *coords))
+                except TypeError as err:
+                    if "positional argument" in str(err):
+                        raise TypeError(
+                            f"equation callable must accept (f, *coords) "
+                            f"with {total} coordinate argument(s) — one per "
+                            f"variable and one per parameter (ndims={ndims}"
+                            f" + nparams={nparams}): {err}") from None
+                    raise
+                for r in residuals:
+                    as_array(r)
+                ctx_c = EvalContext(leaves)
+                coords_c = [Expr(_leaf_fn(ctx_c, k), ctx_c, leaf_index=k)
+                            for k in range(total)]
+                fwd = self._make_forward(params, ctx_c)
+                for constraint in self.constraints:
+                    as_array(constraint(fwd, *coords_c))
+            self._plan_derivs = frozenset(ctx.derivs)
+            self._plan_ok = (ctx.plan_ok and bool(ctx.derivs)
+                             and self.model.supports_taylor)
+            # A separable model's grid taps by forward mode on jets
+            # (``SeparableModel.grid_taps``): its grid D without
+            # create_graph backward passes, whose results moved with the
+            # process's earlier autograd work.
+            self._grid_plan_ok = (ctx.plan_ok and bool(ctx.derivs)
+                                  and total > 1
+                                  and getattr(self.model, "separable",
+                                              False))
+            self.model.set_variables(registry)
+            if getattr(self.model, "separable", False):
+                self._probe_grid()
+            # Copies: on the CPU the variables share the registry's memory.
+            self._initial_variables = {k: np.array(v) for k, v in
+                                       registry.items()}
+            if self.n_models > 1:
+                # The members, drawn from the seed after the discovery run
+                # (which ran one model), as reset(seed) draws them.
+                self.model.make_ensemble(self.n_models)
+                self._init_generator.manual_seed(seed)
+                self.model.reset_parameters(self._init_generator)
 
     def _probe_grid(self):
         """A separable model's grid-shape probe (``pydens_tpu/solver.py:
@@ -1014,21 +1057,22 @@ class Solver:
         equal those of a new ``Solver(..., seed=seed)`` and the sampling
         generator restarts from ``seed``; without, both continue their
         streams, so the parameters are new."""
-        if seed is not None:
-            self._init_generator.manual_seed(int(seed))
-            self._generator.manual_seed(_sampling_seed(int(seed),
-                                                     self.device))
-        self.model.reset_parameters(self._init_generator)
-        with torch.no_grad():
-            for name, value in self._initial_variables.items():
-                self.model.variable(name).copy_(torch.as_tensor(value))
-        self.losses = []
-        self.history = []
-        self._opt = None
-        self._opt_state = None
-        self._pending_opt_state = None
-        self._step_counter = 0
-        return self
+        with tracing.span("pydens.reset"):
+            if seed is not None:
+                self._init_generator.manual_seed(int(seed))
+                self._generator.manual_seed(_sampling_seed(int(seed),
+                                                           self.device))
+            self.model.reset_parameters(self._init_generator)
+            with torch.no_grad():
+                for name, value in self._initial_variables.items():
+                    self.model.variable(name).copy_(torch.as_tensor(value))
+            self.losses = []
+            self.history = []
+            self._opt = None
+            self._opt_state = None
+            self._pending_opt_state = None
+            self._step_counter = 0
+            return self
 
     @property
     def optimizer(self):
@@ -1578,7 +1622,8 @@ class Solver:
         fit, a callback stop included but not a stop at a non-finite loss.
         ``profile_dir`` writes a ``torch.profiler`` trace of the whole fit
         there (``fit_<time>.pt.trace.json``, for ``chrome://tracing`` or
-        TensorBoard).
+        TensorBoard); its ranges name the fit's stages (``pydens.fit.*``,
+        :mod:`pydens_tpu_torch.tracing`).
 
         ``stop_on_nan=True`` (the default) arms a divergence guard: at the
         first non-finite loss the rest of the chunk's updates become no-ops
@@ -1621,13 +1666,16 @@ class Solver:
         size and ``n_models`` by the models axis' (``pydens_tpu``'s
         messages), and every rank stops at the same step.
         """
-        with self._local_members():
+        if int(niters) <= 0:
+            return self
+        with self._local_members(), _profiled(profile_dir, self.device), \
+                tracing.span("pydens.fit") as root:
             return self._fit(niters, batch_size, sampler, loss_terms,
                              optimizer, criterion, lr, losses, progress,
-                             chunk_size, profile_dir, resample, adaptive,
-                             fast_taps, callback, loss_balancing,
-                             checkpoint_path, checkpoint_every, stop_on_nan,
-                             causal, causal_axis, rba, until_loss, **kwargs)
+                             chunk_size, resample, adaptive, fast_taps,
+                             callback, loss_balancing, checkpoint_path,
+                             checkpoint_every, stop_on_nan, causal,
+                             causal_axis, rba, until_loss, root, **kwargs)
 
     @contextlib.contextmanager
     def _local_members(self):
@@ -1687,77 +1735,89 @@ class Solver:
                 f"'{shards.model_axis}' mesh axis size "
                 f"{shards.n_member_ranks}")
 
-    def _fit(self, niters, batch_size, sampler, loss_terms, optimizer, criterion, lr, losses, progress, chunk_size, profile_dir, resample, adaptive, fast_taps, callback, loss_balancing, checkpoint_path, checkpoint_every, stop_on_nan, causal, causal_axis, rba, until_loss, **kwargs):
+    def _fit(self, niters, batch_size, sampler, loss_terms, optimizer, criterion, lr, losses, progress, chunk_size, resample, adaptive, fast_taps, callback, loss_balancing, checkpoint_path, checkpoint_every, stop_on_nan, causal, causal_axis, rba, until_loss, root, **kwargs):
         fit_t0 = time.perf_counter()
         niters = int(niters)
-        if niters <= 0:
-            return self
-        if until_loss is not None:
-            until_loss = float(until_loss)
-            stop_on_nan = True
-        if losses is not None:
-            loss_terms = losses
-        loss_terms = _normalize_loss_terms(loss_terms)
-        criterion_fn, criterion_key = resolve_criterion(criterion)
-        fresh_optimizer = optimizer is not None
-        if fresh_optimizer:
-            # One instance per (optimizer, lr, kwargs), as the JAX package
-            # keys it (a schedule by identity): the cached fit steps key on
-            # the instance.  The entry keeps the optimizer and lr objects
-            # alive, so an id in the token is never reused.
-            opt_token = (optimizer if isinstance(optimizer, str)
-                         else id(optimizer),
-                         float(lr) if isinstance(lr, (int, float))
-                         else id(lr),
-                         tuple(sorted(kwargs.items())))
-            if opt_token not in self._opt_cache:
-                self._opt_cache[opt_token] = (
-                    resolve_optimizer(optimizer, lr, kwargs), optimizer, lr)
-            self._opt = self._opt_cache[opt_token][0]
-        elif self._opt is None:
-            raise ValueError("fit(optimizer=None) requires a previous fit "
-                             "call that created an optimizer")
-        if fast_taps not in (True, False, "auto", "never", "always"):
-            raise ValueError(
-                f"fast_taps={fast_taps!r} is not a recognized value; use "
-                "'auto' or True/'always' (Taylor plan when valid), or "
-                "False/'never' (nested gradients)")
-        use_plan = (bool(self._plan_ok or self._grid_plan_ok)
-                    and fast_taps not in (False, "never"))
-        if isinstance(self._opt, LMConfig):
-            self._check_lm(criterion_key, adaptive, causal, rba,
-                           loss_balancing)
-        options, causal_eps = self._collocation(
-            loss_terms, criterion_key, sampler, resample, adaptive, rba,
-            causal, causal_axis, loss_balancing)
-        batch_size = int(batch_size)
-        self._check_mesh(batch_size)
-        chunk = max(1, min(niters, int(chunk_size)))
-        step = self._fit_step(loss_terms, criterion_fn, use_plan, batch_size,
-                              chunk, bool(resample), bool(stop_on_nan),
-                              options)
-        if step.causal_eps is not None:
-            step.causal_eps.fill_(causal_eps)
-        if step.wts is not None:    # each fit starts from loss_terms
-            step.wts.copy_(torch.as_tensor([w for _, w in
-                                            step.loss_fn.term_order]))
-        if step.rba_w is not None:  # and from no attention
-            step.rba_w.fill_(1.0)
-        with torch.no_grad():
-            step.theta.copy_(self._local_theta())
-        if fresh_optimizer or self._opt_state is None:
-            self._opt_state = self._opt.init(step.theta.detach())
-        for name, value in self._opt_state.items():
-            step.state[name].copy_(value)
-        self._graft_pending_opt_state(step.state)
-        # The guard's predicate, the same on the device and on the host:
-        # a loss is good when finite and above tol (-inf without until_loss).
-        tol = np.float32(-np.inf if until_loss is None else until_loss)
-        if step.armed is not None:
-            step.armed.fill_(True)
-            step.tol.fill_(float(tol))
-        if not step.resample:
-            step.points[0].copy_(self._draw(step, sampler, 1)[0])
+        with tracing.span("pydens.fit.prepare") as prep:
+            cached = len(self._step_cache)
+            if until_loss is not None:
+                until_loss = float(until_loss)
+                stop_on_nan = True
+            if losses is not None:
+                loss_terms = losses
+            loss_terms = _normalize_loss_terms(loss_terms)
+            criterion_fn, criterion_key = resolve_criterion(criterion)
+            fresh_optimizer = optimizer is not None
+            if fresh_optimizer:
+                # One instance per (optimizer, lr, kwargs), as the JAX
+                # package keys it (a schedule by identity): the cached fit
+                # steps key on the instance.  The entry keeps the optimizer
+                # and lr objects alive, so an id in the token is never
+                # reused.
+                opt_token = (optimizer if isinstance(optimizer, str)
+                             else id(optimizer),
+                             float(lr) if isinstance(lr, (int, float))
+                             else id(lr),
+                             tuple(sorted(kwargs.items())))
+                if opt_token not in self._opt_cache:
+                    self._opt_cache[opt_token] = (
+                        resolve_optimizer(optimizer, lr, kwargs), optimizer,
+                        lr)
+                self._opt = self._opt_cache[opt_token][0]
+            elif self._opt is None:
+                raise ValueError("fit(optimizer=None) requires a previous "
+                                 "fit call that created an optimizer")
+            if fast_taps not in (True, False, "auto", "never", "always"):
+                raise ValueError(
+                    f"fast_taps={fast_taps!r} is not a recognized value; use "
+                    "'auto' or True/'always' (Taylor plan when valid), or "
+                    "False/'never' (nested gradients)")
+            use_plan = (bool(self._plan_ok or self._grid_plan_ok)
+                        and fast_taps not in (False, "never"))
+            if isinstance(self._opt, LMConfig):
+                self._check_lm(criterion_key, adaptive, causal, rba,
+                               loss_balancing)
+            options, causal_eps = self._collocation(
+                loss_terms, criterion_key, sampler, resample, adaptive, rba,
+                causal, causal_axis, loss_balancing)
+            batch_size = int(batch_size)
+            self._check_mesh(batch_size)
+            chunk = max(1, min(niters, int(chunk_size)))
+            step = self._fit_step(loss_terms, criterion_fn, use_plan,
+                                  batch_size, chunk, bool(resample),
+                                  bool(stop_on_nan), options)
+            if step.causal_eps is not None:
+                step.causal_eps.fill_(causal_eps)
+            if step.wts is not None:    # each fit starts from loss_terms
+                step.wts.copy_(torch.as_tensor([w for _, w in
+                                                step.loss_fn.term_order]))
+            if step.rba_w is not None:  # and from no attention
+                step.rba_w.fill_(1.0)
+            with torch.no_grad():
+                step.theta.copy_(self._local_theta())
+            if fresh_optimizer or self._opt_state is None:
+                self._opt_state = self._opt.init(step.theta.detach())
+            for name, value in self._opt_state.items():
+                step.state[name].copy_(value)
+            self._graft_pending_opt_state(step.state)
+            # The guard's predicate, the same on the device and on the
+            # host: a loss is good when finite and above tol (-inf without
+            # until_loss).
+            tol = np.float32(-np.inf if until_loss is None else until_loss)
+            if step.armed is not None:
+                step.armed.fill_(True)
+                step.tol.fill_(float(tol))
+            if not step.resample:
+                step.points[0].copy_(self._draw(step, sampler, 1)[0])
+            if prep is not None:
+                prep.attrs["cached"] = len(self._step_cache) == cached
+        # The device counter a chunk's span reads while recording: the live
+        # CG iterations of LM steps, the linesearch trials of L-BFGS steps.
+        live_name = ("cg_iters" if isinstance(self._opt, LMConfig)
+                     else "trials" if isinstance(self._opt, LBFGS) else None)
+        opt_name = (optimizer if isinstance(optimizer, str)
+                    else "reused" if optimizer is None
+                    else type(optimizer).__name__)
 
         bounds = range(0, niters, chunk)
         if progress is True or (progress == "auto" and sys.stderr.isatty()):
@@ -1766,12 +1826,6 @@ class Solver:
                 bounds = tqdm(bounds, unit="chunk")
             except ImportError:
                 pass
-        profiler = contextlib.nullcontext()
-        if profile_dir:
-            from torch.profiler import ProfilerActivity, profile
-            profiler = profile(activities=[ProfilerActivity.CPU] + (
-                [ProfilerActivity.CUDA] if self.device.type == "cuda"
-                else []))
         ckpt_every = int(checkpoint_every or chunk)
         ckpt_saved = -1
         fit_losses = []
@@ -1794,50 +1848,67 @@ class Solver:
                         balanced_weights=balanced_weights())
 
         try:
-            with profiler:
-                for start in bounds:
-                    n = min(chunk, niters - start)
-                    if step.resample:
+            for start in bounds:
+                n = min(chunk, niters - start)
+                if step.resample:
+                    with tracing.span("pydens.fit.draw") as sp:
                         step.points[:n].copy_(self._draw(step, sampler, n))
-                    if step.uniforms is not None:
-                        step.uniforms[:n].copy_(torch.rand(
-                            step.uniforms[:n].shape,
-                            generator=self._generator, device=self.device,
-                            dtype=self.model.dtype))
+                        if step.uniforms is not None:
+                            step.uniforms[:n].copy_(torch.rand(
+                                step.uniforms[:n].shape,
+                                generator=self._generator,
+                                device=self.device, dtype=self.model.dtype))
+                        if sp is not None:
+                            sp.attrs["points"] = n * step.pool
+                with tracing.span("pydens.fit.steps") as steps_span:
+                    if steps_span is not None:
+                        tallies = step.tallies()
+                        live = (step.live.clone() if live_name is not None
+                                else None)
                     step.run(n, start)
-                    # The one host read of this chunk.
+                    if steps_span is not None:
+                        eager, replays, captures = (
+                            now - then for now, then in zip(step.tallies(),
+                                                            tallies))
+                        steps_span.attrs.update(steps=n, replays=replays,
+                                                eager=eager,
+                                                captures=captures)
+                # The one host read of this chunk.
+                with tracing.span("pydens.fit.read"):
                     chunk_losses = step.losses[:n].tolist()
-                    if stop_on_nan:
-                        arr = np.asarray(chunk_losses, np.float32)
-                        bad = ~(np.isfinite(arr) & (arr > tol))
-                        if bad.any():
-                            done = int(np.argmax(bad)) + 1
-                            fit_losses.extend(chunk_losses[:done])
-                            iters_run = start + done
-                            stop_at = self._step_counter + iters_run - 1
-                            if until_loss is not None and np.isfinite(
-                                    arr[done - 1]):
-                                converged_at = stop_at
-                                break
-                            nan_stop = stop_at
-                            warnings.warn(
-                                f"fit stopped early: non-finite loss at "
-                                f"iteration {nan_stop} (of {niters}); the "
-                                "partial loss history is kept. Lower the "
-                                "learning rate or check the sampled "
-                                "domain. Pass stop_on_nan=False to "
-                                "disable this guard.")
+                if steps_span is not None and live is not None:
+                    steps_span.attrs[live_name] = int(step.live - live)
+                if stop_on_nan:
+                    arr = np.asarray(chunk_losses, np.float32)
+                    bad = ~(np.isfinite(arr) & (arr > tol))
+                    if bad.any():
+                        done = int(np.argmax(bad)) + 1
+                        fit_losses.extend(chunk_losses[:done])
+                        iters_run = start + done
+                        stop_at = self._step_counter + iters_run - 1
+                        if until_loss is not None and np.isfinite(
+                                arr[done - 1]):
+                            converged_at = stop_at
                             break
-                    fit_losses.extend(chunk_losses)
-                    iters_run = start + n
-                    if checkpoint_path is not None and (
-                            iters_run // ckpt_every
-                            > max(ckpt_saved, 0) // ckpt_every):
-                        save_checkpoint()
-                    if callback is not None and callback(
-                            self._step_counter + iters_run,
-                            np.asarray(chunk_losses, np.float32)):
+                        nan_stop = stop_at
+                        warnings.warn(
+                            f"fit stopped early: non-finite loss at "
+                            f"iteration {nan_stop} (of {niters}); the "
+                            "partial loss history is kept. Lower the "
+                            "learning rate or check the sampled "
+                            "domain. Pass stop_on_nan=False to "
+                            "disable this guard.")
                         break
+                fit_losses.extend(chunk_losses)
+                iters_run = start + n
+                if checkpoint_path is not None and (
+                        iters_run // ckpt_every
+                        > max(ckpt_saved, 0) // ckpt_every):
+                    save_checkpoint()
+                if callback is not None and callback(
+                        self._step_counter + iters_run,
+                        np.asarray(chunk_losses, np.float32)):
+                    break
             # The final snapshot: at the end of the fit or a callback stop,
             # whatever the interval; a non-finite stop keeps the last good
             # one.
@@ -1846,20 +1917,21 @@ class Solver:
                 save_checkpoint()
         finally:
             # Commit whatever completed, also when a callback raised.
-            self._step_counter += iters_run
-            self.model.load_params(self._full_params(step.theta.detach()))
-            self._opt_state = {k: v.clone() for k, v in step.state.items()}
-            self.losses.extend(fit_losses)
-            if profile_dir:
-                os.makedirs(profile_dir, exist_ok=True)
-                profiler.export_chrome_trace(os.path.join(
-                    profile_dir, f"fit_{time.time_ns()}.pt.trace.json"))
+            with tracing.span("pydens.fit.commit"):
+                self._step_counter += iters_run
+                self.model.load_params(self._full_params(
+                    step.theta.detach()))
+                self._opt_state = {k: v.clone()
+                                   for k, v in step.state.items()}
+                self.losses.extend(fit_losses)
+            if root is not None:
+                root.attrs.update(niters=niters, steps=iters_run,
+                                  batch_size=batch_size,
+                                  optimizer=opt_name)
 
         self.history.append({
             "niters": iters_run, "batch_size": batch_size,
-            "optimizer": (optimizer if isinstance(optimizer, str)
-                          else "reused" if optimizer is None
-                          else type(optimizer).__name__),
+            "optimizer": opt_name,
             "lr": (lr if isinstance(lr, (int, float))
                    else getattr(lr, "__name__", "schedule")),
             "loss_terms": list(loss_terms),
