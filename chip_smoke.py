@@ -4,6 +4,7 @@
     python3 chip_smoke.py --profile    # per-step profile of w1-w5 only
     python3 chip_smoke.py --mlp-turns OLD.cu   # MLP kernel: OLD.cu vs this
     python3 chip_smoke.py --jvp-turns OLD.cu   # tangent kernel: OLD.cu vs this
+    python3 chip_smoke.py --states-turns   # Taylor backward: states vs recompute
     python3 chip_smoke.py --finishers  # phases 1, 2 and 9 only
     python3 chip_smoke.py --collocation   # phases 1, 2 and 10 only
     python3 chip_smoke.py --model-features   # phases 1, 2 and 11 only
@@ -25,7 +26,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    MLP at 1,048,576 points on four layouts, at a ragged n and at an n that
    takes the persistent blocks around more than once), with timings, each
    shape's bound and share of it, and the backward's peak device memory at
-   width 64;
+   width 64; the Taylor kernels as a fit runs them (the forward keeping
+   its states, the backward reading them, bitwise the backward that
+   recomputes them, which is timed beside it);
 4. the README 2D Poisson fit (1500 Adam steps, batch 100) and predict on a
    100 x 100 grid through the public Solver, with the launch counters
    showing that every step ran the fused Taylor kernels and predict the
@@ -241,12 +244,21 @@ plain twin.  To take the
 source from git: ``git show 6444749:pydens_tpu_torch/csrc/fused_taylor.cu
 > build/fused_taylor_old.cu``.
 
+``--states-turns`` runs phases 1 and 2, then ``states_turns``: the Taylor
+forward that keeps the states its backward reads against the one that
+keeps none, and the backward from those states against the one that
+recomputes them, in turns, with each kernel's blocks an SM from the
+occupancy calculator; then ``states_memory``, the peak device memory of
+64-wide Adam and LM fits through ``Solver`` up to 1,048,576 points and
+K = 4, keeping the states and recomputing them.
+
 Bounds: the least time the card could take for a kernel's work, the larger
 of its FMAs (2 FLOPs each) over the H100 SXM's 67 TFLOP/s f32 peak and its
 bytes (each input read once, each output written once) over 3.35 TB/s; the
 Taylor forward counts the products of all its streams, the backward twice
-that (its recompute is the kernel's own choice and not counted), the
-tangent kernel three times that.
+that (a fit's backward reads the forward's states; the recompute of a
+direct call without them is not counted), the tangent kernel three times
+that.
 """
 
 import contextlib
@@ -456,29 +468,42 @@ def _taylor_case(layout, features, act, n, seed, closure, in_dim):
 
 def check_taylor(features, n, seed=0, reps=0, closure=POISSON_CLOSURE,
                  in_dim=2, memory=False, layout="fa fa fa f", act="Tanh"):
-    """Forward and backward kernels against the plain autograd path; with
-    ``memory``, the backward's peak device memory beyond its inputs."""
+    """Forward and backward kernels against the plain autograd path, as a
+    fit runs them: the forward keeping its states (bitwise the streams of
+    one keeping none) and the backward reading them (``bwd``), held to the
+    plain twin, bitwise the backward that recomputes the states
+    (``bwd_recompute``, timed beside it) and bitwise repeatable; with
+    ``memory``, each backward's peak device memory beyond its inputs."""
     from pydens_tpu_torch.ops import fused_taylor as ft
     plan, packed, x = _taylor_case(layout, features, act, n, seed, closure,
                                    in_dim)
-    out = ft.fused_taylor_forward(packed, x, plan)
+    out, states = ft.fused_taylor_forward(packed, x, plan, keep_states=True)
     ref = ft.fused_taylor_forward_plain(packed, x, plan)
     sync()
     torch.testing.assert_close(out, ref, **VALUE_TOL)
+    assert torch.equal(out, ft.fused_taylor_forward(packed, x, plan)), \
+        "forward keeping its states differs from one keeping none"
     fwd_err = max_err(out, ref)
     g = 2.0 * ref / ref.numel()   # cotangent of mean(out ** 2)
     del out
-    sync()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    dp, dx = ft.fused_taylor_backward(packed, x, g, plan)
-    sync()
-    peak = torch.cuda.max_memory_allocated() - base
+    peaks = {}
+    grads = {}
+    for path, given in (("states", states), ("recompute", None)):
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grads[path] = ft.fused_taylor_backward(packed, x, g, plan, given)
+        sync()
+        peaks[path] = torch.cuda.max_memory_allocated() - base
+    dp, dx = grads["states"]
     rdp, rdx = ft.fused_taylor_backward_plain(packed, x, g, plan)
     sync()
     torch.testing.assert_close(dp, rdp, **GRAD_TOL)
     torch.testing.assert_close(dx, rdx, **GRAD_TOL)
-    dp2, dx2 = ft.fused_taylor_backward(packed, x, g, plan)
+    cdp, cdx = grads["recompute"]
+    assert torch.equal(dp, cdp) and torch.equal(dx, cdx), \
+        "backward from the states differs from the recompute"
+    dp2, dx2 = ft.fused_taylor_backward(packed, x, g, plan, states)
     sync()
     assert torch.equal(dp, dp2) and torch.equal(dx, dx2), \
         "backward not bitwise repeatable"
@@ -487,22 +512,38 @@ def check_taylor(features, n, seed=0, reps=0, closure=POISSON_CLOSURE,
     times = {}
     if reps:
         times = timed_pair(
-            "fwd", lambda: ft.fused_taylor_forward(packed, x, plan),
+            "fwd", lambda: ft.fused_taylor_forward(packed, x, plan,
+                                                   keep_states=True),
             lambda: ft.fused_taylor_forward_plain(packed, x, plan), reps)
         times.update(timed_pair(
-            "bwd", lambda: ft.fused_taylor_backward(packed, x, g, plan),
+            "bwd", lambda: ft.fused_taylor_backward(packed, x, g, plan,
+                                                    states),
             lambda: ft.fused_taylor_backward_plain(packed, x, g, plan), reps))
+        # The direct calls' paths, timed in turns with the fit's.
+        times.update(timed_pair(
+            "fwd_no_states", lambda: ft.fused_taylor_forward(packed, x, plan),
+            lambda: ft.fused_taylor_forward(packed, x, plan,
+                                            keep_states=True), reps))
+        times.update(timed_pair(
+            "bwd_recompute", lambda: ft.fused_taylor_backward(packed, x, g,
+                                                              plan),
+            lambda: ft.fused_taylor_backward(packed, x, g, plan, states),
+            reps))
+        del times["fwd_no_states_plain"], times["bwd_recompute_plain"]
     mem = ""
     if memory:
         _, save_f, part_f = plan.backward_workspace(
             n, torch.cuda.get_device_properties(0).multi_processor_count)
-        mem = (f", backward peak memory {peak / 2**20:.2f} MiB beyond its "
-               f"inputs (outputs {(dp.numel() + dx.numel()) * 4 / 2**20:.2f}"
-               f" MiB, workspace {(save_f + part_f) * 4 / 2**20:.2f} MiB)")
+        mem = (f", backward peak memory beyond its inputs from the states "
+               f"{peaks['states'] / 2**20:.2f} MiB, recomputing "
+               f"{peaks['recompute'] / 2**20:.2f} MiB (outputs "
+               f"{(dp.numel() + dx.numel()) * 4 / 2**20:.2f} MiB, partials "
+               f"{part_f * 4 / 2**20:.2f} MiB, slab {save_f * 4 / 2**20:.2f}"
+               f" MiB; the states {states.numel() * 4 / 2**20:.2f} MiB)")
     log(f"taylor {layout!r} {act} {features} in_dim {in_dim} closure "
         f"{len(closure)} n={n}: "
         f"max|err| fwd {errs['fwd']:.3e} bwd {errs['bwd']:.3e}, "
-        "bitwise-repeatable"
+        "backward from the states bitwise the recompute and repeatable"
         + "".join(f", {k} {v:.4f} ms" for k, v in times.items())
         + "".join(f"; {k} {work}, {_share(times[k], b)} ({by})"
                   for k, (b, by, work) in bounds.items() if k in times)
@@ -654,7 +695,8 @@ def check_members(chain, n, mlp_n, n_members, reps):
     """The member-axis launches of the forward, backward, tangent and (with
     ``mlp_n``) MLP kernels on ``n_members`` members' ``(K, P)`` weights and
     shared points, each against its plain version (values VALUE_TOL,
-    gradients GRAD_TOL, the backward bitwise repeatable), each member's
+    gradients GRAD_TOL; the backward reads the forward's states, as a fit
+    does, bitwise repeatable and bitwise the recompute), each member's
     slice against a single-member launch on its weights (bit for bit where
     the blocks a member are the single model's, else at the tolerances),
     and timed in turns with the plain version; bounds ``taylor_bounds`` /
@@ -667,19 +709,22 @@ def check_members(chain, n, mlp_n, n_members, reps):
     gen = torch.Generator(dev).manual_seed(3)
     x = torch.rand((n, chain["in_dim"]), device=dev, generator=gen)
     v = torch.randn(packed.shape, device=dev, generator=gen)
-    out = ft.fused_taylor_forward(packed, x, plan)
+    out, states = ft.fused_taylor_forward(packed, x, plan, keep_states=True)
     ref = ft.fused_taylor_forward_plain(packed, x, plan)
     sync()
     torch.testing.assert_close(out, ref, **VALUE_TOL)
     g = 2.0 * ref / ref.numel()
-    dp, dx = ft.fused_taylor_backward(packed, x, g, plan)
+    dp, dx = ft.fused_taylor_backward(packed, x, g, plan, states)
     rdp, rdx = ft.fused_taylor_backward_plain(packed, x, g, plan)
-    dp2, dx2 = ft.fused_taylor_backward(packed, x, g, plan)
+    dp2, dx2 = ft.fused_taylor_backward(packed, x, g, plan, states)
+    cdp, cdx = ft.fused_taylor_backward(packed, x, g, plan)
     sync()
     torch.testing.assert_close(dp, rdp, **GRAD_TOL)
     torch.testing.assert_close(dx, rdx, **GRAD_TOL)
     assert torch.equal(dp, dp2) and torch.equal(dx, dx2), \
         "member-axis backward not bitwise repeatable"
+    assert torch.equal(dp, cdp) and torch.equal(dx, cdx), \
+        "member-axis backward from the states differs from the recompute"
     sv, tv = ft.fused_taylor_jvp(packed, x, v, plan)
     rsv, rtv = ft.fused_taylor_jvp_plain(packed, x, v, plan)
     sync()
@@ -705,10 +750,11 @@ def check_members(chain, n, mlp_n, n_members, reps):
             "bwd": max(max_err(dp, rdp), max_err(dx, rdx)),
             "jvp": max(max_err(sv, rsv), max_err(tv, rtv))}
     times = timed_pair(
-        "fwd", lambda: ft.fused_taylor_forward(packed, x, plan),
+        "fwd", lambda: ft.fused_taylor_forward(packed, x, plan,
+                                               keep_states=True),
         lambda: ft.fused_taylor_forward_plain(packed, x, plan), reps)
     times.update(timed_pair(
-        "bwd", lambda: ft.fused_taylor_backward(packed, x, g, plan),
+        "bwd", lambda: ft.fused_taylor_backward(packed, x, g, plan, states),
         lambda: ft.fused_taylor_backward_plain(packed, x, g, plan), reps))
     times.update(timed_pair(
         "jvp", lambda: ft.fused_taylor_jvp(packed, x, v, plan),
@@ -4749,6 +4795,155 @@ def jvp_turns(old_source, reps=20):
     print(json.dumps({"jvp_turns": rows}), flush=True)
 
 
+STATES_SHAPES = {
+    "wide": (65537, POISSON_CLOSURE, 2),
+    "wide_n262144": (262144, POISSON_CLOSURE, 2),
+    "wide_heat": (65537, HEAT_CLOSURE, 3),
+}
+
+
+def states_turns(reps=20):
+    """The 64-wide chain's Taylor forward keeping its states (``keep``)
+    against keeping none (``none``), and the backward from those states
+    (``states``) against the backward that recomputes them
+    (``recompute``), in turns (A, B, B, A; CUDA events, ``reps`` wrapper
+    calls each) at ``STATES_SHAPES``: the two backwards bitwise equal and
+    held to the plain twin; blocks an SM of the forward and both backwards
+    from the occupancy calculator; a Levenberg-Marquardt step's 51
+    backwards of one forward, as the two paths' sums; then
+    ``states_memory``."""
+    from pydens_tpu_torch.ops import fused_taylor as ft
+    from pydens_tpu_torch.ops._build import load_library
+    lib = load_library()
+    rows = {}
+    for tag, (n, closure, in_dim) in STATES_SHAPES.items():
+        plan, packed, x = _taylor_case("fa fa fa f", [64, 64, 64, 1], "Tanh",
+                                       n, 0, closure, in_dim)
+        per_sm = [lib.pdt_taylor_blocks_per_sm(k, plan.n_params,
+                                               plan.n_streams, plan.wmax)
+                  for k in range(3)]
+        out, states = ft.fused_taylor_forward(packed, x, plan,
+                                              keep_states=True)
+        ref = ft.fused_taylor_forward_plain(packed, x, plan)
+        g = 2.0 * ref / ref.numel()   # cotangent of mean(out ** 2)
+        dp, dx = ft.fused_taylor_backward(packed, x, g, plan)
+        sp, sx = ft.fused_taylor_backward(packed, x, g, plan, states)
+        rdp, rdx = ft.fused_taylor_backward_plain(packed, x, g, plan)
+        sync()
+        torch.testing.assert_close(out, ref, **VALUE_TOL)
+        assert torch.equal(out, ft.fused_taylor_forward(packed, x, plan))
+        for a, b in ((dp, rdp), (dx, rdx), (sp, rdp), (sx, rdx)):
+            torch.testing.assert_close(a, b, **GRAD_TOL)
+        bitwise = bool(torch.equal(dp, sp) and torch.equal(dx, sx))
+        diff = max(max_err(dp, sp), max_err(dx, sx))
+        del ref, rdp, rdx
+        free_card()
+        fwd = {"none": lambda: ft.fused_taylor_forward(packed, x, plan),
+               "keep": lambda: ft.fused_taylor_forward(packed, x, plan,
+                                                       keep_states=True)}
+        bwd = {"recompute": lambda: ft.fused_taylor_backward(packed, x, g,
+                                                             plan),
+               "states": lambda: ft.fused_taylor_backward(packed, x, g, plan,
+                                                          states)}
+        times = {}
+        for pair in (fwd, bwd):
+            (a, fa), (b, fb) = pair.items()
+            a1, b1, b2, a2 = (time_ms(f, reps) for f in (fa, fb, fb, fa))
+            times[a], times[b] = [a1, a2], [b1, b2]
+        mean = {k: sum(v) / 2 for k, v in times.items()}
+        bounds = taylor_bounds(plan, n)
+        row = dict(n=n, n_streams=plan.n_streams, ms=times,
+                   blocks_per_sm=dict(zip(("fwd", "bwd_recompute",
+                                           "bwd_states"), per_sm)),
+                   states_bytes=4 * states.numel(), bitwise_equal=bitwise,
+                   max_abs_diff=diff,
+                   fwd_share={k: 100 * bounds["fwd"][0] / mean[k]
+                              for k in fwd},
+                   bwd_share={k: 100 * bounds["bwd"][0] / mean[k]
+                              for k in bwd},
+                   lm_step_ms={"recompute": 51 * mean["recompute"]
+                               + mean["none"],
+                               "states": 51 * mean["states"] + mean["keep"]})
+        rows[tag] = row
+        log(f"states turns {tag} n={n} streams {plan.n_streams}: forward "
+            f"none {times['none'][0]:.4f} / {times['none'][1]:.4f} ms, keep "
+            f"{times['keep'][0]:.4f} / {times['keep'][1]:.4f} ms "
+            f"({4 * states.numel() / 1e6:.1f} MB of states); backward "
+            f"recompute {times['recompute'][0]:.4f} / "
+            f"{times['recompute'][1]:.4f} ms, states "
+            f"{times['states'][0]:.4f} / {times['states'][1]:.4f} ms "
+            f"({mean['recompute'] / mean['states']:.3f}x); "
+            f"{_share(mean['states'], bounds['bwd'][0])} from states, "
+            f"{100 * bounds['bwd'][0] / mean['recompute']:.1f}% recomputing; "
+            f"blocks/SM fwd {per_sm[0]}, bwd {per_sm[1]} / {per_sm[2]}; "
+            f"gradients bitwise equal: {bitwise} (max |diff| {diff:.3e})")
+        del out, states, dp, dx, sp, sx, g
+        free_card()
+    rows["fit_memory"] = states_memory()
+    print(json.dumps({"states_turns": rows}), flush=True)
+
+
+# The 64-wide Poisson fits whose memory states_memory reads:
+# (optimizer, batch, members, steps).
+STATES_FITS = (("Adam", 65536, 1, 5), ("Adam", 262144, 1, 5),
+               ("Adam", 1048576, 1, 5), ("Adam", 65536, 4, 5),
+               ("LM", 65536, 1, 2))
+
+
+def states_memory():
+    """Peak device memory of 64-wide Poisson fits through ``Solver`` (the
+    eager step, the capture and replays) beyond what the solver held
+    before the fit, with the forward keeping its states and, for the
+    same fit on a fresh solver, recomputing them (``_device_bytes`` read
+    as 0, so ``TaylorPlan.keeps_states`` says no); the two fits' losses
+    bitwise equal."""
+    from pydens_tpu_torch import Solver
+    from pydens_tpu_torch.ops import fused_taylor as ft
+    bwd = ft.fused_taylor_backward
+    card = ft._device_bytes
+    plan = _taylor_case(WIDE["layout"], WIDE["units"], WIDE["activation"],
+                        16, 0, POISSON_CLOSURE, 2)[0]
+    rows = []
+    for opt, batch, k, steps in STATES_FITS:
+        row = dict(optimizer=opt, batch=batch, members=k, steps=steps)
+        losses = {}
+        for path in ("states", "recompute"):
+            ft._device_bytes = card if path == "states" else lambda d: 0
+            try:
+                solver = Solver(_pde(), seed=0, n_models=k, **WIDE)
+                sync()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                calls, reads = bwd.launches, bwd.from_states
+                solver.fit(niters=steps, batch_size=batch, optimizer=opt,
+                           progress=False)
+                sync()
+            finally:
+                ft._device_bytes = card
+            row[path] = dict(
+                peak_bytes=torch.cuda.max_memory_allocated() - base,
+                held_bytes=torch.cuda.memory_allocated() - base,
+                backward_calls=bwd.launches - calls,
+                from_states=bwd.from_states - reads)
+            losses[path] = np.asarray(solver.losses)
+            del solver
+            free_card()
+        row["states_bytes"] = 4 * plan.state_floats(batch, k)
+        row["losses_bitwise_equal"] = bool(
+            np.array_equal(losses["states"], losses["recompute"]))
+        assert row["states"]["from_states"] == row["states"]["backward_calls"]
+        assert row["recompute"]["from_states"] == 0
+        rows.append(row)
+        log(f"states memory {opt} batch {batch} K={k}: peak "
+            f"{row['states']['peak_bytes'] / 2**20:.1f} MiB keeping the "
+            f"states ({row['states_bytes'] / 2**20:.1f} MiB of them), "
+            f"{row['recompute']['peak_bytes'] / 2**20:.1f} MiB recomputing; "
+            f"held after the fit {row['states']['held_bytes'] / 2**20:.1f} / "
+            f"{row['recompute']['held_bytes'] / 2**20:.1f} MiB; losses "
+            f"bitwise equal: {row['losses_bitwise_equal']}")
+    return rows
+
+
 def w3_repeat():
     """Queue 3's repeatability probe: ``w3``'s eager fit (no graphs) for its
     full 1000 steps, twice under ``torch.use_deterministic_algorithms(True,
@@ -4864,6 +5059,10 @@ def main():
         jvp_turns(sys.argv[2])
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--states-turns"]:
+        states_turns()
+        print(smi, flush=True)
+        return 0
     taylor, tut_taylor, mlp, tut_mlp, jvp, members = phase_kernels()
     launches, w1_device, w1_prof = phase_poisson()
     phase_wide_fit()
@@ -4918,11 +5117,16 @@ def main():
     mlp_shapes = {key: times for key, (_, times)
                   in list(mlp.items())[1:] + list(tut_mlp.items())}
 
+    # The Taylor kernels' direct-call paths beside the fit's: the forward
+    # keeping no states, the backward recomputing them.
+    secondary = (("no_states_", "_no_states"), ("recompute_", "_recompute"))
+
     def shape_times(key, table):
         return {f"{tag}_{kind}ms": times[key + suffix]
                 for tag, times in table.items()
                 for kind, suffix in (("", ""), ("plain_", "_plain"),
-                                     ("bound_", "_bound"))}
+                                     ("bound_", "_bound")) + secondary
+                if key + suffix in times}
 
     def entry(name, src, replaces, times, key, err, table, kernel=None):
         # No single PyTorch call computes a Taylor traversal or a layout
@@ -4943,6 +5147,8 @@ def main():
                 "plain_ms": times[f"{key}_plain"],
                 "bound_ms": times[f"{key}_bound"],
                 "bound_by": times[f"{key}_bound_by"], "library_ms": None,
+                **{f"{kind}ms": times[key + suffix]
+                   for kind, suffix in secondary if key + suffix in times},
                 **shape_times(key, table),
                 "path_launches": path_launches[name], **graph}
 

@@ -53,11 +53,33 @@
 //   blocks per SM (as shared memory allows); each copies the packed weights
 //   into shared memory once with cp.async and walks the tiles
 //   blockIdx.x, blockIdx.x + gridDim.x, ...
-// * The backward recomputes the forward per tile, keeping in a per-block
-//   slab only the input state of each activation (and of a dense layer fed
-//   by another dense layer); a dense layer's input is that activation
-//   applied again.  The slab and the partial gradients are sized by the
-//   grid, not by n (about 25 MB at the 64-wide chain, resident in L2).
+// * The backward reads, per tile, only the input state of each activation
+//   (and of a dense layer fed by another dense layer); a dense layer's
+//   input is that activation applied again.  It takes those states from
+//   one of two places, fixed at compile time (taylor_bwd_kernel<FROM_STATES>):
+//   - a forward's states: where autograd will run the backward of a
+//     forward and the states take at most a quarter of the card's memory
+//     (the wrapper's choice), that forward writes each tile's states to
+//     device memory, laid out (members, tiles, save_rows, TILE_POINTS) so
+//     that one tile's rows are contiguous (251 MB at the 64-wide chain and
+//     65,536 points), and the backward runs no forward.  Every backward of that forward (a
+//     Levenberg-Marquardt step's 51) reads the same states.
+//   - recomputed: called without states, the backward replays the forward
+//     per tile into a per-block slab of the same rows.  The slab and the
+//     partial gradients are sized by the grid, not by n (about 25 MB at the
+//     64-wide chain, resident in L2).
+//   The states come from the same init_state / product / act_columns code
+//   a tile at a time, so both paths give the same bits.  The adjoint stages
+//   each state into a shared-memory tile buffer with cp.async (one round
+//   trip for the whole state, where reading it in place took one for each
+//   of a thread's items, twice), a dense layer's while the activation above
+//   it runs its adjoint; the activation is applied out of place, so that
+//   the staged input serves its adjoint too, and the product below it
+//   then waits for param_grad (one more barrier).  On an NVIDIA H100 80GB
+//   HBM3 at 700 W, at the 64-wide chain and 65,537 points: 1.18 ms from
+//   the states (read in place: 1.32 ms, and 1.45 with an L2 prefetch of
+//   the next tile's rows), 1.63 ms recomputing them (1.66 before the
+//   staging); the forward keeping its states 0.49 ms against 0.44.
 // * Each block sums dW, db over its tiles in its fixed tile order into its
 //   own partial (every element owned by one thread); a second launch sums
 //   the partials in block order.  No atomics: the gradient is bitwise
@@ -79,9 +101,9 @@
 //   then n_ops records of OP_INTS ints:
 //     dense: 0, K, N, w_off, b_off, save_off
 //     act:   1, width, act_kind (0 tanh, 1 sigmoid, 2 sin), 0, 0, save_off
-//   save_off counts rows of the backward's per-block slab (one row per
-//   stream and feature of the op's input state, TILE_POINTS floats each),
-//   or is -1 where the backward does not keep the op's input.
+//   save_off counts rows of a tile's saved states (one row per stream and
+//   feature of the op's input state, TILE_POINTS floats each), or is -1
+//   where the backward does not read the op's input.
 
 #include <cuda_runtime.h>
 
@@ -199,16 +221,15 @@ __device__ __forceinline__ void act_element(const Plan& p, const float* d,
   out[0] = d[0];
 }
 
-// The activation of features [0, width) of a state read from `src` (feature
-// stride src_ld) into `dst` (feature stride dst_ld); src may be dst.  With
-// `save`, the input state is copied there too (feature stride p.rows).
+// The activation of features [0, width) of a state read from `src` into
+// `dst` (feature stride p.ld each); src may be dst.  With `save`, the input
+// state is copied there too (feature stride p.rows).
 __device__ void act_columns(const Plan& p, int width, int kind,
-                            const float* src, int src_ld, float* dst,
-                            int dst_ld, float* save) {
+                            const float* src, float* dst, float* save) {
   for (int idx = threadIdx.x; idx < width * TILE_POINTS; idx += THREADS) {
     const int j = idx / TILE_POINTS, m = idx - j * TILE_POINTS;
-    const float* in = src + j * src_ld + m;
-    float* out = dst + j * dst_ld + m;
+    const float* in = src + j * p.ld + m;
+    float* out = dst + j * p.ld + m;
     if (save != nullptr) {
       float* sv = save + j * p.rows + m;
       for (int s = 0; s < p.n_streams; ++s)
@@ -363,8 +384,8 @@ __device__ void param_grad(const float* X, const float* G, int ld, int rows,
   }
 }
 
-// Copies features [0, width) of a state between shared memory (stride
-// p.ld) and the slab (stride p.rows).
+// Copies features [0, width) of a state from shared memory (stride p.ld)
+// to saved rows (stride p.rows).
 __device__ void save_state(const Plan& p, const float* buf, int width,
                            float* save) {
   for (int idx = threadIdx.x; idx < width * p.rows; idx += THREADS) {
@@ -373,22 +394,14 @@ __device__ void save_state(const Plan& p, const float* buf, int width,
   }
 }
 
-__device__ void load_state(const Plan& p, const float* save, int width,
-                           float* buf) {
-  for (int idx = threadIdx.x; idx < width * p.rows; idx += THREADS) {
-    const int j = idx / p.rows, r = idx - j * p.rows;
-    buf[j * p.ld + r] = save[idx];
-  }
-}
-
-// The adjoint of act_columns, in place on the cotangent G, from the saved
-// input state `sv` (feature stride p.rows).
+// The adjoint of act_columns, in place on the cotangent G, from the input
+// state `sv` (feature stride p.ld).
 __device__ void act_adjoint(const Plan& p, int width, int kind,
                             const float* sv, float* G) {
   const int F = p.n_first;
   for (int idx = threadIdx.x; idx < width * TILE_POINTS; idx += THREADS) {
     const int j = idx / TILE_POINTS, m = idx - j * TILE_POINTS;
-    const float* in = sv + j * p.rows + m;
+    const float* in = sv + j * p.ld + m;
     float* g = G + j * p.ld + m;
     float d[4];
     sigma_derivs(kind, in[0], d);
@@ -444,10 +457,13 @@ __device__ void load_cotangent(const Plan& p, const float* __restrict__ g,
   }
 }
 
+// With `states` (members, tiles, save_rows, TILE_POINTS), each tile's rows
+// of the states the backward reads are written there too (padded points as
+// computed from x = 0); without, nothing is.
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS_PER_SM)
 taylor_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
-                  const int* __restrict__ tab, float* __restrict__ out, int n,
-                  int P, int out_dim) {
+                  const int* __restrict__ tab, float* __restrict__ out,
+                  float* __restrict__ states, int n, int P, int out_dim) {
   extern __shared__ float4 smem4[];
   float* w = reinterpret_cast<float*>(smem4);
   const Plan p = read_plan(tab);
@@ -459,20 +475,26 @@ taylor_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
   buf[1] = buf[0] + p.wmax * p.ld;
   load_weights_async(w, w_glob, P);
   const int tiles = (n + TILE_POINTS - 1) / TILE_POINTS;
+  const size_t tile_floats = (size_t)p.save_rows * TILE_POINTS;
+  if (states != nullptr) states += member * tiles * tile_floats;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float* slab = states != nullptr ? states + tile * tile_floats : nullptr;
     init_state(p, buf[0], x, n, tile);
     wait_weights();
     __syncthreads();
     int cur = 0, width = p.in_dim;
     for (int o = 0; o < p.n_ops; ++o) {
       const int* op = p.ops + o * OP_INTS;
+      float* sv =
+          slab != nullptr && op[5] >= 0 ? slab + op[5] * TILE_POINTS : nullptr;
       if (op[0] == 0) {
+        if (sv != nullptr) save_state(p, buf[cur], width, sv);
         product(buf[cur], buf[1 - cur], p.ld, p.rows, op[1], op[2], w + op[3],
                 1, op[2], w + op[4]);
         cur = 1 - cur;
         width = op[2];
       } else {
-        act_columns(p, width, op[2], buf[cur], p.ld, buf[cur], p.ld, nullptr);
+        act_columns(p, width, op[2], buf[cur], buf[cur], sv);
       }
       __syncthreads();
     }
@@ -890,6 +912,35 @@ taylor_jvp_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
   }
 }
 
+// Starts the copy of features [0, width) of saved rows (stride p.rows, 16-byte
+// aligned) into `buf` (stride p.ld), one cp.async group.
+__device__ void stage_state(const Plan& p, const float* src, int width,
+                            float* buf) {
+  constexpr int CHUNKS = TILE_POINTS / 4;  // 16-byte copies a row
+  const int rows = width * p.n_streams;
+  for (int c = threadIdx.x; c < rows * CHUNKS; c += THREADS) {
+    const int r = c / CHUNKS, q = c - r * CHUNKS;
+    const int j = r / p.n_streams, s = r - j * p.n_streams;
+    cp_async16(buf + j * p.ld + s * TILE_POINTS + 4 * q,
+               src + r * TILE_POINTS + 4 * q);
+  }
+  cp_async_commit();
+}
+
+// The saved rows a dense op's input comes from (its index > 0): the
+// previous activation's input, or its own where the previous op is dense.
+__device__ const float* dense_source(const int* op, const float* slab) {
+  const int* prev = op - OP_INTS;
+  return slab + (prev[0] == 1 ? prev[5] : op[5]) * TILE_POINTS;
+}
+
+// FROM_STATES: `saves` holds a forward's states (members, tiles, save_rows,
+// TILE_POINTS) and no forward is run; else `saves` holds the per-block
+// slabs (members * gridDim.x, save_rows, TILE_POINTS) that each tile's
+// replay of the forward fills.  The adjoint is the same: it stages each
+// saved state into shared memory (stage_state, cp.async) and reads it
+// there.
+template <bool FROM_STATES>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS_PER_SM)
 taylor_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
                   const int* __restrict__ tab, const float* __restrict__ g,
@@ -902,82 +953,128 @@ taylor_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
   buf[0] = w + weights_floats(P);
   buf[1] = buf[0] + p.wmax * p.ld;
   buf[2] = buf[1] + p.wmax * p.ld;
-  // Member k's weights, cotangent and d x; block (b, k)'s slab and
+  // Member k's weights, cotangent, d x and states; block (b, k)'s slab and
   // partial are slot k * gridDim.x + b.
   const size_t member = blockIdx.y;
   const size_t slot = member * gridDim.x + blockIdx.x;
   w_glob += member * P;
   g += member * n * p.n_streams * out_dim;
   dx += member * n * p.in_dim;
-  float* slab = saves + slot * p.save_rows * TILE_POINTS;
+  const int tiles = (n + TILE_POINTS - 1) / TILE_POINTS;
+  const size_t tile_floats = (size_t)p.save_rows * TILE_POINTS;
+  float* slab = saves + slot * tile_floats;
   float* part = partials + slot * P;
   load_weights_async(w, w_glob, P);
-  const int tiles = (n + TILE_POINTS - 1) / TILE_POINTS;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const bool first = tile == (int)blockIdx.x;
-    // Recompute the forward, keeping what the adjoint reads.  The last op's
-    // output is not needed.
-    init_state(p, buf[0], x, n, tile);
-    wait_weights();
-    __syncthreads();
-    int cur = 0, width = p.in_dim;
-    for (int o = 0; o < p.n_ops; ++o) {
-      const int* op = p.ops + o * OP_INTS;
-      float* sv = op[5] >= 0 ? slab + op[5] * TILE_POINTS : nullptr;
-      if (op[0] == 0) {
-        if (sv != nullptr) save_state(p, buf[cur], width, sv);
-        if (o + 1 < p.n_ops) {
-          product(buf[cur], buf[1 - cur], p.ld, p.rows, op[1], op[2],
-                  w + op[3], 1, op[2], w + op[4]);
-          cur = 1 - cur;
-          width = op[2];
-        }
-      } else {
-        act_columns(p, width, op[2], buf[cur], p.ld, buf[cur], p.ld, sv);
-      }
+    if constexpr (FROM_STATES) {
+      slab = saves + (member * tiles + tile) * tile_floats;
+      wait_weights();
+    } else {
+      // Recompute the forward, keeping what the adjoint reads.  The last
+      // op's output is not needed.
+      init_state(p, buf[0], x, n, tile);
+      wait_weights();
       __syncthreads();
+      int cur = 0, width = p.in_dim;
+      for (int o = 0; o < p.n_ops; ++o) {
+        const int* op = p.ops + o * OP_INTS;
+        float* sv = op[5] >= 0 ? slab + op[5] * TILE_POINTS : nullptr;
+        if (op[0] == 0) {
+          if (sv != nullptr) save_state(p, buf[cur], width, sv);
+          if (o + 1 < p.n_ops) {
+            product(buf[cur], buf[1 - cur], p.ld, p.rows, op[1], op[2],
+                    w + op[3], 1, op[2], w + op[4]);
+            cur = 1 - cur;
+            width = op[2];
+          }
+        } else {
+          act_columns(p, width, op[2], buf[cur], buf[cur], sv);
+        }
+        __syncthreads();
+      }
     }
 
-    float* G = buf[0];
-    float* Gn = buf[1];
-    float* X = buf[2];
-    load_cotangent(p, g, G, n, tile, out_dim);
+    // The adjoint, last op first.  buf[gi] holds the cotangent; buf[ri] a
+    // staged saved state (-1: none): the next dense layer's source, staged
+    // while the activation above it runs its adjoint, and kept after the
+    // layer for the adjoint of the activation below it.
+    int gi = 0, ri = -1;
+    load_cotangent(p, g, buf[gi], n, tile, out_dim);
+    const int last = p.n_ops - 1;
+    if (last > 0 && p.ops[last * OP_INTS] == 0) {
+      ri = 2;
+      stage_state(p, dense_source(p.ops + last * OP_INTS, slab),
+                  p.ops[last * OP_INTS + 1], buf[ri]);
+    }
+    cp_async_wait<0>();
     __syncthreads();
-    for (int o = p.n_ops - 1; o >= 0; --o) {
+    for (int o = last; o >= 0; --o) {
       const int* op = p.ops + o * OP_INTS;
       if (op[0] == 0) {
         const int K = op[1], N = op[2];
-        // The layer's input: x, the previous activation applied again to
-        // its saved input, or the saved output of the previous dense layer.
+        // The layer's input buf[xi]: x; the previous activation applied,
+        // out of place, to its staged input; or the staged output of the
+        // previous dense layer.  The cotangent below goes to buf[oi].
+        int xi, oi;
         if (o == 0) {
-          init_state(p, X, x, n, tile);
+          xi = (gi + 1) % 3;
+          oi = 3 - gi - xi;
+          init_state(p, buf[xi], x, n, tile);
         } else {
+          if (ri < 0) {
+            ri = (gi + 1) % 3;
+            stage_state(p, dense_source(op, slab), K, buf[ri]);
+          }
+          cp_async_wait<0>();
+          __syncthreads();
           const int* prev = op - OP_INTS;
-          if (prev[0] == 1)
-            act_columns(p, K, prev[2], slab + prev[5] * TILE_POINTS, p.rows, X,
-                        p.ld, nullptr);
-          else
-            load_state(p, slab + op[5] * TILE_POINTS, K, X);
+          if (prev[0] == 1) {
+            xi = oi = 3 - gi - ri;
+            act_columns(p, K, prev[2], buf[ri], buf[xi], nullptr);
+          } else {
+            xi = ri;
+            oi = 3 - gi - xi;
+            ri = -1;
+          }
         }
         __syncthreads();
-        param_grad(X, G, p.ld, p.rows, K, N, part + op[3], part + op[4], first);
+        param_grad(buf[xi], buf[gi], p.ld, p.rows, K, N, part + op[3],
+                   part + op[4], first);
         // G_in[k][r] = sum_j G[j][r] * W[k][j]; below the first layer only
-        // the V rows (d x) are needed.
-        product(G, Gn, p.ld, o == 0 ? TILE_POINTS : p.rows, N, K, w + op[3], N,
-                1, nullptr);
+        // the V rows (d x) are needed.  Into the input's buffer once
+        // param_grad is done with it, where the staged state is kept.
+        if (oi == xi) __syncthreads();
+        product(buf[gi], buf[oi], p.ld, o == 0 ? TILE_POINTS : p.rows, N, K,
+                w + op[3], N, 1, nullptr);
         __syncthreads();
-        float* t = G;
-        G = Gn;
-        Gn = t;
+        gi = oi;
       } else {
-        act_adjoint(p, op[1], op[2], slab + op[5] * TILE_POINTS, G);
+        // The activation's input: kept from the dense layer above, or
+        // staged now.  The dense layer below stages its source meanwhile.
+        int si = ri;
+        if (si < 0) {
+          si = (gi + 1) % 3;
+          stage_state(p, slab + op[5] * TILE_POINTS, op[1], buf[si]);
+        }
+        ri = -1;
+        if (o > 1 && op[-OP_INTS] == 0) {
+          ri = 3 - gi - si;
+          stage_state(p, dense_source(op - OP_INTS, slab), op[-OP_INTS + 1],
+                      buf[ri]);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        act_adjoint(p, op[1], op[2], buf[si], buf[gi]);
         __syncthreads();
       }
     }
     for (int idx = threadIdx.x; idx < TILE_POINTS * p.in_dim; idx += THREADS) {
       const int m = idx / p.in_dim, k = idx - m * p.in_dim;
       const int row = tile * TILE_POINTS + m;
-      if (row < n) dx[(size_t)row * p.in_dim + k] = G[k * p.ld + m];
+      if (row < n) dx[(size_t)row * p.in_dim + k] = buf[gi][k * p.ld + m];
     }
     __syncthreads();
   }
@@ -1021,6 +1118,18 @@ cudaError_t allow_smem(const void* kernel, size_t smem) {
                               (int)smem);
 }
 
+// Blocks of `kernel` at `smem` bytes that one SM holds at once, from the
+// occupancy calculator (registers and shared memory), or a negative CUDA
+// error code.
+int blocks_per_sm(const void* kernel, size_t smem) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS,
+                                                      smem);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
 template <int TP>
 int launch_jvp(const float* x, const float* w, const float* v, const int* tab,
                float* out, float* tout, int n, size_t smem, int out_dim,
@@ -1033,17 +1142,16 @@ int launch_jvp(const float* x, const float* w, const float* v, const int* tab,
   return (int)cudaGetLastError();
 }
 
-// Blocks of the tangent kernel at `smem` bytes that one SM holds at once,
-// from the occupancy calculator (registers and shared memory), or a
-// negative CUDA error code.
-template <int TP>
-int jvp_blocks_per_sm(size_t smem) {
-  cudaError_t err = allow_smem((const void*)taylor_jvp_kernel<TP>, smem);
-  if (err != cudaSuccess) return -(int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, taylor_jvp_kernel<TP>, THREADS, smem);
-  return err == cudaSuccess ? blocks : -(int)err;
+template <bool FROM_STATES>
+cudaError_t launch_bwd(const float* x, const float* w, const int* tab,
+                       const float* g, float* saves, float* partials,
+                       float* dx, int n, int P, int out_dim, size_t smem,
+                       int grid, int members, cudaStream_t stream) {
+  cudaError_t err = allow_smem((const void*)taylor_bwd_kernel<FROM_STATES>, smem);
+  if (err != cudaSuccess) return err;
+  taylor_bwd_kernel<FROM_STATES><<<dim3(grid, members), THREADS, smem, stream>>>(
+      x, w, tab, g, saves, partials, dx, n, P, out_dim);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1058,23 +1166,38 @@ int pdt_taylor_tile_points() { return TILE_POINTS; }
 int pdt_taylor_jvp_blocks_per_sm(int n_streams, int wmax, int tile, int P,
                                  int resident) {
   const size_t smem = taylor_jvp_smem_bytes(n_streams, wmax, tile, P, resident);
-  if (tile == 16) return jvp_blocks_per_sm<16>(smem);
-  if (tile == 8) return jvp_blocks_per_sm<8>(smem);
-  if (tile == 4) return jvp_blocks_per_sm<4>(smem);
+  if (tile == 16) return blocks_per_sm((const void*)taylor_jvp_kernel<16>, smem);
+  if (tile == 8) return blocks_per_sm((const void*)taylor_jvp_kernel<8>, smem);
+  if (tile == 4) return blocks_per_sm((const void*)taylor_jvp_kernel<4>, smem);
+  return -(int)cudaErrorInvalidValue;
+}
+
+// Blocks one SM holds at once of the forward (kernel 0), the backward that
+// recomputes (1) or the backward from a forward's states (2) at these
+// sizes, or a negative CUDA error code.
+int pdt_taylor_blocks_per_sm(int kernel, int P, int n_streams, int wmax) {
+  if (kernel == 0)
+    return blocks_per_sm((const void*)taylor_fwd_kernel,
+                         taylor_smem_bytes(P, n_streams, wmax, 2));
+  const size_t smem = taylor_smem_bytes(P, n_streams, wmax, 3);
+  if (kernel == 1) return blocks_per_sm((const void*)taylor_bwd_kernel<false>, smem);
+  if (kernel == 2) return blocks_per_sm((const void*)taylor_bwd_kernel<true>, smem);
   return -(int)cudaErrorInvalidValue;
 }
 
 // x (n, in_dim), w (members, P), tab (device op table), out (members, n,
-// n_streams*out_dim); `grid` persistent blocks a member.
+// n_streams*out_dim), states (members, tiles, save_rows, TILE_POINTS) or
+// null; `grid` persistent blocks a member.
 int pdt_taylor_forward(const float* x, const float* w, const int* tab,
-                       float* out, int n, int P, int n_streams, int wmax,
-                       int out_dim, int grid, int members, void* stream) {
+                       float* out, float* states, int n, int P,
+                       int n_streams, int wmax, int out_dim, int grid,
+                       int members, void* stream) {
   const size_t smem = taylor_smem_bytes(P, n_streams, wmax, 2);
   cudaError_t err = allow_smem((const void*)taylor_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   taylor_fwd_kernel<<<dim3(grid, members), THREADS, smem,
                       (cudaStream_t)stream>>>(
-      x, w, tab, out, n, P, out_dim);
+      x, w, tab, out, states, n, P, out_dim);
   return (int)cudaGetLastError();
 }
 
@@ -1099,24 +1222,26 @@ int pdt_taylor_jvp(const float* x, const float* w, const float* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// g (members, n, n_streams*out_dim); saves (members * grid * save_rows *
-// TILE_POINTS); partials (members * grid * P); dw (members, P); dx (members,
-// n, in_dim).  grid (blocks a member) <= number of tiles.
+// g (members, n, n_streams*out_dim); saves, with from_states, a forward's
+// states (members, tiles, save_rows, TILE_POINTS), else the slabs (members *
+// grid * save_rows * TILE_POINTS); partials (members * grid * P); dw
+// (members, P); dx (members, n, in_dim).  grid (blocks a member) <= number
+// of tiles.
 int pdt_taylor_backward(const float* x, const float* w, const int* tab,
                         const float* g, float* saves, float* partials,
                         float* dw, float* dx, int n, int P, int n_streams,
                         int wmax, int out_dim, int grid, int members,
-                        void* stream) {
+                        int from_states, void* stream) {
   const size_t smem = taylor_smem_bytes(P, n_streams, wmax, 3);
-  cudaError_t err = allow_smem((const void*)taylor_bwd_kernel, smem);
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = from_states
+      ? launch_bwd<true>(x, w, tab, g, saves, partials, dx, n, P, out_dim,
+                         smem, grid, members, st)
+      : launch_bwd<false>(x, w, tab, g, saves, partials, dx, n, P, out_dim,
+                          smem, grid, members, st);
   if (err != cudaSuccess) return (int)err;
-  taylor_bwd_kernel<<<dim3(grid, members), THREADS, smem,
-                      (cudaStream_t)stream>>>(
-      x, w, tab, g, saves, partials, dx, n, P, out_dim);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<dim3((P + 255) / 256, members), 256, 0,
-                           (cudaStream_t)stream>>>(partials, dw, grid, P);
+  reduce_partials_kernel<<<dim3((P + 255) / 256, members), 256, 0, st>>>(
+      partials, dw, grid, P);
   return (int)cudaGetLastError();
 }
 

@@ -36,8 +36,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "pdt_taylor_tile_points": [],
-    "pdt_taylor_forward": [_P, _P, _P, _P] + [_I] * 7 + [_P],
-    "pdt_taylor_backward": [_P] * 8 + [_I] * 7 + [_P],
+    "pdt_taylor_forward": [_P] * 5 + [_I] * 7 + [_P],
+    "pdt_taylor_backward": [_P] * 8 + [_I] * 8 + [_P],
+    "pdt_taylor_blocks_per_sm": [_I] * 4,
     "pdt_taylor_jvp": [_P] * 6 + [_I] * 9 + [_P],
     "pdt_taylor_jvp_blocks_per_sm": [_I] * 5,
     "pdt_mlp_blocks_per_sm": [_I] * 5,

@@ -12,7 +12,10 @@ Poisson-type residual in one traversal.
   CUDA kernels of ``csrc/fused_taylor.cu`` for CUDA tensors (and raise if
   they cannot) and take the plain versions only for CPU tensors.  Each
   keeps a ``launches`` counter of its wrapper calls; a CUDA-graph replay
-  makes none.
+  makes none.  The forward can keep the per-point states its backward
+  reads (``keep_states``); a backward given them runs no forward, one
+  given none recomputes them tile by tile (the backward's ``from_states``
+  counts its calls given states).
 * :func:`fused_taylor_forward_plain` is the same traversal in torch ops;
   :func:`fused_taylor_backward_plain` is its autograd VJP.
 * :func:`fused_taylor_jvp` launches the tangent kernel (the traversal and
@@ -22,6 +25,9 @@ Poisson-type residual in one traversal.
   whose backward is differentiable once more with respect to its cotangent:
   the VJP of ``g -> J^T g`` is ``J v``, the tangent kernel.  That is how a
   Levenberg-Marquardt step takes ``J v`` of the residual through the plan.
+  A forward that autograd records for a gradient keeps its states where
+  they fit in a quarter of the card's memory, and every backward of it
+  reads them.
 
 The chain reaches the kernels as an int32 op table plus ONE packed weight
 buffer (each layer's ``w`` row-major, then its ``b``), so one compiled
@@ -69,7 +75,11 @@ _JVP_RESIDENT_FLOATS = 8192
 # Shared memory of one H100 SM, and what CUDA reserves of it per block.
 _SM_SHARED_BYTES = 233_472
 _BLOCK_RESERVED_BYTES = 1024
+# A forward keeps its states for the backward only where they take at most
+# 1 / _STATES_SHARE of the card's memory (TaylorPlan.keeps_states).
+_STATES_SHARE = 4
 _SM_COUNTS = {}
+_DEVICE_BYTES = {}
 _JVP_BLOCKS_PER_SM = {}
 
 
@@ -302,12 +312,34 @@ class TaylorPlan:
         slots = sm_count * blocks_per_sm
         return _per_member(slots, -(-n // self.jvp_tile), n_members), slots
 
+    def states_shape(self, n, n_members=1):
+        """Shape of the states a forward keeps for its backward over ``n``
+        points: ``(n_members, tiles, save_rows, TILE_POINTS)``, each tile's
+        rows contiguous, the last tile's padded points included."""
+        return (n_members, -(-n // _TILE_POINTS), self.save_rows,
+                _TILE_POINTS)
+
+    def state_floats(self, n, n_members=1):
+        """Floats of :meth:`states_shape`: they grow with ``n`` (about 251
+        MB at the 64-wide chain and 65,536 points)."""
+        members, tiles, rows, points = self.states_shape(n, n_members)
+        return members * tiles * rows * points
+
+    def keeps_states(self, n, n_members, device_bytes):
+        """Whether a recorded forward over ``n`` points keeps its states
+        for the backward: where their bytes are at most a quarter of the
+        card's ``device_bytes`` (the 64-wide chain, 3,840 B a point and
+        member: up to 5.5 M points of an 80 GB card).  Beyond that the
+        backward recomputes them, in a workspace sized by the grid."""
+        return _STATES_SHARE * 4 * self.state_floats(n, n_members) \
+            <= device_bytes
+
     def backward_workspace(self, n, sm_count, n_members=1):
         """``(grid, save_floats, partial_floats)`` of one backward launch.
         The workspace is sized by the slots, never by ``n``: a slab of
-        ``save_rows * TILE_POINTS`` floats and a partial gradient of
-        ``n_params`` floats for each of the ``max(1, slots // n_members)``
-        blocks of each member."""
+        ``save_rows * TILE_POINTS`` floats (where the backward recomputes
+        the states) and a partial gradient of ``n_params`` floats for each
+        of the ``max(1, slots // n_members)`` blocks of each member."""
         grid, slots = self.launch_shape(n, sm_count, 3, n_members)
         blocks = n_members * max(1, slots // n_members)
         return (grid, blocks * self.save_rows * _TILE_POINTS,
@@ -349,32 +381,46 @@ def _sm_count(device):
     return _SM_COUNTS[device]
 
 
+def _device_bytes(device):
+    if device not in _DEVICE_BYTES:
+        _DEVICE_BYTES[device] = torch.cuda.get_device_properties(
+            device).total_memory
+    return _DEVICE_BYTES[device]
+
+
 def _stream_shape(packed, n, plan):
     return tuple(packed.shape[:-1]) + (n, plan.n_streams * plan.out_dim)
 
 
-def fused_taylor_forward(packed, x, plan):
+def fused_taylor_forward(packed, x, plan, keep_states=False):
     """Streams ``[V, T..., S...]`` of the chain at points ``x`` as
     ``(n, n_streams * out_dim)``, or ``(K, n, ...)`` for an ensemble's
     ``(K, P)`` weights: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    for CPU tensors.  With ``keep_states``, ``(streams, states)``: the
+    kernel also writes the states its backward reads
+    (:meth:`TaylorPlan.states_shape`), which :func:`fused_taylor_backward`
+    then takes instead of recomputing them; the plain version keeps none
+    (``None``)."""
     if x.device.type == "cpu":
-        return fused_taylor_forward_plain(packed, x, plan)
+        out = fused_taylor_forward_plain(packed, x, plan)
+        return (out, None) if keep_states else out
     n = check_packed(packed, x, plan)
+    K = members(packed)
     out = torch.empty(_stream_shape(packed, n, plan), dtype=x.dtype,
                       device=x.device)
-    if n == 0:
-        return out
-    lib = _lib()
-    K = members(packed)
-    grid, _ = plan.launch_shape(n, _sm_count(x.device), 2, K)
-    err = lib.pdt_taylor_forward(
-        x.data_ptr(), packed.data_ptr(), plan.device_table(x.device).data_ptr(),
-        out.data_ptr(), n, plan.n_params, plan.n_streams, plan.wmax,
-        plan.out_dim, grid, K, torch.cuda.current_stream(x.device).cuda_stream)
-    launch_checked("pdt_taylor_forward", err)
-    fused_taylor_forward.launches += 1
-    return out
+    states = (torch.empty(plan.states_shape(n, K), dtype=x.dtype,
+                          device=x.device) if keep_states else None)
+    if n > 0:
+        grid, _ = plan.launch_shape(n, _sm_count(x.device), 2, K)
+        err = _lib().pdt_taylor_forward(
+            x.data_ptr(), packed.data_ptr(),
+            plan.device_table(x.device).data_ptr(), out.data_ptr(),
+            None if states is None else states.data_ptr(), n, plan.n_params,
+            plan.n_streams, plan.wmax, plan.out_dim, grid, K,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        launch_checked("pdt_taylor_forward", err)
+        fused_taylor_forward.launches += 1
+    return (out, states) if keep_states else out
 
 
 # Wrapper calls; a CUDA-graph replay makes none.
@@ -413,42 +459,49 @@ def fused_taylor_forward_plain(packed, x, plan):
     return torch.cat([V] + T + S, dim=1)
 
 
-def fused_taylor_backward(packed, x, g, plan):
+def fused_taylor_backward(packed, x, g, plan, states=None):
     """``(d packed, d x)`` for the cotangent ``g`` of
     :func:`fused_taylor_forward`'s output: the CUDA kernels (persistent
     blocks, each summing its tiles into one partial, then a fixed-order sum
     over a member's blocks) for CUDA tensors, the plain version for CPU
     tensors.  For an ensemble ``d packed`` is ``(K, P)``, each member's own,
-    and ``d x`` the sum over members (the points are shared).  The
-    workspace does not grow with ``n``
-    (:meth:`TaylorPlan.backward_workspace`)."""
+    and ``d x`` the sum over members (the points are shared).  Given the
+    ``states`` of the forward at the same weights and points
+    (``keep_states``), the kernel reads them; without, it recomputes them
+    tile by tile in a workspace that does not grow with ``n``
+    (:meth:`TaylorPlan.backward_workspace`).  Both give the same bits."""
     if x.device.type == "cpu":
         return fused_taylor_backward_plain(packed, x, g, plan)
     n = check_packed(packed, x, plan)
     K = members(packed)
     check_operand("g", g, _stream_shape(packed, n, plan))
+    if states is not None:
+        check_operand("states", states, plan.states_shape(n, K))
     d_packed = torch.empty(packed.shape, dtype=x.dtype, device=x.device)
     dx = torch.empty((K, n, plan.in_dim), dtype=x.dtype, device=x.device)
     if n == 0:
         return d_packed.zero_(), dx[0].zero_()
     grid, save_floats, partial_floats = plan.backward_workspace(
         n, _sm_count(x.device), K)
-    saves = torch.empty((save_floats,), dtype=x.dtype, device=x.device)
+    saves = (states if states is not None else
+             torch.empty((save_floats,), dtype=x.dtype, device=x.device))
     partials = torch.empty((partial_floats,), dtype=x.dtype, device=x.device)
-    lib = _lib()
-    err = lib.pdt_taylor_backward(
+    err = _lib().pdt_taylor_backward(
         x.data_ptr(), packed.data_ptr(), plan.device_table(x.device).data_ptr(),
         g.data_ptr(), saves.data_ptr(), partials.data_ptr(),
         d_packed.data_ptr(), dx.data_ptr(), n, plan.n_params, plan.n_streams,
-        plan.wmax, plan.out_dim, grid, K,
+        plan.wmax, plan.out_dim, grid, K, int(states is not None),
         torch.cuda.current_stream(x.device).cuda_stream)
     launch_checked("pdt_taylor_backward", err)
     fused_taylor_backward.launches += 1
+    fused_taylor_backward.from_states += int(states is not None)
     return d_packed, (dx[0] if K == 1 else dx.sum(0))
 
 
-# Wrapper calls; a CUDA-graph replay makes none.
+# Wrapper calls, and those of them given a forward's states; a CUDA-graph
+# replay makes none.
 fused_taylor_backward.launches = 0
+fused_taylor_backward.from_states = 0
 
 
 def fused_taylor_backward_plain(packed, x, g, plan):
@@ -518,22 +571,42 @@ class FusedTaylor(torch.autograd.Function):
     """The fused traversal as a differentiable op: forward and backward
     each run :func:`fused_taylor_forward` / :func:`fused_taylor_backward`,
     and the backward is itself differentiable with respect to its
-    cotangent (:class:`_FusedTaylorAdjoint`)."""
+    cotangent (:class:`_FusedTaylorAdjoint`).  ``recorded`` is whether
+    autograd records the call (grad mode where it is applied, which
+    ``forward`` cannot see).  On the card a recorded forward that an
+    input's gradient may be asked of keeps its states
+    (:meth:`TaylorPlan.keeps_states`: where they take at most a quarter of
+    the card's memory), and every backward of it reads them.  Memory: the
+    states, ``save_rows * 4`` bytes a point and member (3,840 at the
+    64-wide chain), live from the forward to the last backward of it (a
+    step; a Levenberg-Marquardt step's 50 CG iterations), and inside a
+    captured graph's pool; a forward that keeps none adds nothing that
+    grows with ``n`` to the backward."""
 
     @staticmethod
-    def forward(ctx, packed, x, plan):
-        ctx.save_for_backward(packed, x)
+    def forward(ctx, packed, x, plan, recorded):
+        states = None
+        if (recorded and any(ctx.needs_input_grad[:2])
+                and x.device.type == "cuda"
+                and plan.keeps_states(x.shape[0], members(packed),
+                                      _device_bytes(x.device))):
+            out, states = fused_taylor_forward(packed, x, plan,
+                                               keep_states=True)
+        else:
+            out = fused_taylor_forward(packed, x, plan)
+        ctx.save_for_backward(packed, x, states)
         ctx.plan = plan
-        return fused_taylor_forward(packed, x, plan)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        packed, x = ctx.saved_tensors
+        packed, x, states = ctx.saved_tensors
         # Views, so that the adjoint's inputs are never leaves: the engine
         # can tell whether it runs a non-leaf node under autograd.grad.
         d_packed, dx = _FusedTaylorAdjoint.apply(
-            packed.view_as(packed), x.view_as(x), g.contiguous(), ctx.plan)
-        return d_packed, (dx if ctx.needs_input_grad[1] else None), None
+            packed.view_as(packed), x.view_as(x), g.contiguous(), ctx.plan,
+            states)
+        return d_packed, (dx if ctx.needs_input_grad[1] else None), None, None
 
 
 class _FusedTaylorAdjoint(torch.autograd.Function):
@@ -542,14 +615,15 @@ class _FusedTaylorAdjoint(torch.autograd.Function):
     the tangent kernel (:func:`fused_taylor_jvp`); the derivatives it does
     not compute — with respect to the weights and the points (third-order
     terms of the traversal), and ``J_x`` of a cotangent of ``d x`` — raise
-    when a backward pass needs them, and it is not differentiable again."""
+    when a backward pass needs them, and it is not differentiable again.
+    ``states`` (the forward's, or None) is read, never differentiated."""
 
     @staticmethod
-    def forward(ctx, packed, x, g, plan):
+    def forward(ctx, packed, x, g, plan, states):
         ctx.save_for_backward(packed, x)
         ctx.plan = plan
         ctx.set_materialize_grads(False)
-        return fused_taylor_backward(packed, x, g, plan)
+        return fused_taylor_backward(packed, x, g, plan, states)
 
     @staticmethod
     @once_differentiable
@@ -565,11 +639,11 @@ class _FusedTaylorAdjoint(torch.autograd.Function):
                 "the fused Taylor op has no tangent with respect to its "
                 "points: J.v takes the weights' direction only")
         if v_packed is None or not ctx.needs_input_grad[2]:
-            return None, None, None, None
+            return None, None, None, None, None
         packed, x = ctx.saved_tensors
         _, tangent = fused_taylor_jvp(packed, x, v_packed.contiguous(),
                                       ctx.plan)
-        return None, None, tangent, None
+        return None, None, tangent, None, None
 
 
 def split_streams(out, plan):
@@ -587,5 +661,5 @@ def split_streams(out, plan):
 
 def fused_taylor_taps(packed, x, plan):
     """``(V, taps)`` of the chain through :class:`FusedTaylor`."""
-    return split_streams(FusedTaylor.apply(packed, x.contiguous(), plan),
-                         plan)
+    return split_streams(FusedTaylor.apply(packed, x.contiguous(), plan,
+                                           torch.is_grad_enabled()), plan)

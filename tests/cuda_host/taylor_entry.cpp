@@ -10,11 +10,12 @@ int host_taylor_smem_bytes(int P, int S, int W, int n_bufs) {
 }
 
 void host_taylor_forward(const float* x, const float* w, const int* tab,
-                         float* out, int n, int P, int S, int W, int out_dim,
-                         int grid, int members) {
+                         float* out, float* states, int n, int P, int S, int W,
+                         int out_dim, int grid, int members) {
   host_launch(
       grid, THREADS, taylor_smem_bytes(P, S, W, 2),
-      [&] { taylor_fwd_kernel(x, w, tab, out, n, P, out_dim); }, members);
+      [&] { taylor_fwd_kernel(x, w, tab, out, states, n, P, out_dim); },
+      members);
 }
 
 int host_taylor_jvp_smem_bytes(int S, int W, int tile, int P, int resident) {
@@ -40,12 +41,19 @@ void host_taylor_jvp(const float* x, const float* w, const float* v,
     }, members);
 }
 
+// `saves`: with from_states a forward's states, else the per-block slabs.
 void host_taylor_backward(const float* x, const float* w, const int* tab,
                           const float* g, float* saves, float* partials,
                           float* dw, float* dx, int n, int P, int S, int W,
-                          int out_dim, int grid, int members) {
+                          int out_dim, int grid, int members,
+                          int from_states) {
   host_launch(grid, THREADS, taylor_smem_bytes(P, S, W, 3), [&] {
-    taylor_bwd_kernel(x, w, tab, g, saves, partials, dx, n, P, out_dim);
+    if (from_states)
+      taylor_bwd_kernel<true>(x, w, tab, g, saves, partials, dx, n, P,
+                              out_dim);
+    else
+      taylor_bwd_kernel<false>(x, w, tab, g, saves, partials, dx, n, P,
+                               out_dim);
   }, members);
   host_launch((P + 255) / 256, 256, 0,
               [&] { reduce_partials_kernel(partials, dw, grid, P); }, members);

@@ -175,7 +175,7 @@ def test_fused_taylor_double_backward_is_jv_and_refuses_the_rest():
     packed = packed.detach().requires_grad_()
     x = torch.rand(7, 2, dtype=torch.float64,
                    generator=torch.Generator().manual_seed(1))
-    out = fused_taylor.FusedTaylor.apply(packed, x, plan)
+    out = fused_taylor.FusedTaylor.apply(packed, x, plan, True)
     u = torch.randn(out.shape, dtype=torch.float64).requires_grad_()
     jtu, = torch.autograd.grad(out, packed, u, create_graph=True)
     v = torch.randn(packed.shape, dtype=torch.float64)
@@ -243,7 +243,8 @@ def test_fused_taylor_autograd_function_gradcheck():
     packed = packed.detach().requires_grad_()
     x = torch.rand(7, 2, dtype=torch.float64, requires_grad=True)
     assert torch.autograd.gradcheck(
-        lambda p, z: fused_taylor.FusedTaylor.apply(p, z, plan), (packed, x))
+        lambda p, z: fused_taylor.FusedTaylor.apply(p, z, plan, True),
+        (packed, x))
 
 
 def test_scope_guards():
@@ -509,3 +510,53 @@ def test_backward_workspace_does_not_grow_with_n(layout, features, act,
     if features[0] == 64 and len(closure) == 4:
         # The 64-wide Poisson chain: under 32 MiB at any n.
         assert 4 * sum(large[1:]) < 32 * 2**20
+
+
+@pytest.mark.parametrize("layout,features,act,in_dim,closure,n,members,rows", [
+    # 3 activations x 64 features x 5 streams; 4,096 tiles: 251,658,240 B
+    ("fa fa fa f", [64, 64, 64, 1], "Tanh", 2, POISSON_CLOSURE, 65536, 1,
+     3 * 64 * 5),
+    ("fa fa fa f", [64, 64, 64, 1], "Tanh", 3, HEAT_CLOSURE, 65537, 4,
+     3 * 64 * 6),
+    ("fa fa fa f", [10, 12, 15, 1], "Tanh", 2, POISSON_CLOSURE, 100, 1,
+     (10 + 12 + 15) * 5),
+    # the activation (9 wide) and the dense layer fed by a dense layer (7)
+    # and the second activation (5), 4 streams
+    ("fa f f a f", [9, 7, 5, 2], "Tanh", 2, [(0,), (1,), (0, 1)], 50, 3,
+     (9 + 7 + 5) * 4),
+])
+def test_state_floats_match_a_hand_count(layout, features, act, in_dim,
+                                         closure, n, members, rows):
+    # The states a forward keeps for its backward: (members, tiles,
+    # save_rows, TILE_POINTS) floats, the last tile whole; the plain
+    # forward on the CPU keeps none.
+    plan = _plan(layout, features, act, in_dim, closure)
+    M = fused_taylor._TILE_POINTS
+    tiles = -(-n // M)
+    assert plan.save_rows == rows
+    assert plan.states_shape(n, members) == (members, tiles, rows, M)
+    assert plan.state_floats(n, members) == members * tiles * rows * M
+    if features[0] == 64 and members == 1:
+        assert 4 * plan.state_floats(n) == 251_658_240
+    packed = torch.zeros(plan.n_params)
+    x = torch.rand(n, in_dim)
+    out, states = fused_taylor.fused_taylor_forward(packed, x, plan,
+                                                    keep_states=True)
+    assert states is None and torch.equal(
+        out, fused_taylor.fused_taylor_forward(packed, x, plan))
+
+
+@pytest.mark.parametrize("n,members", [(65536, 1), (5_536_464, 1),
+                                       (20000, 4), (100, 1)])
+def test_states_are_kept_up_to_a_quarter_of_the_card(n, members):
+    # A recorded forward keeps its states where their bytes (3,840 a point
+    # and member at the 64-wide chain) are at most a quarter of the card's
+    # memory: at exactly a quarter it keeps them, one byte less of card
+    # and it recomputes them; an 80 GB card keeps 65,536 points.
+    plan = _plan("fa fa fa f", [64, 64, 64, 1], "Tanh", 2, POISSON_CLOSURE)
+    M = fused_taylor._TILE_POINTS
+    nbytes = members * -(-n // M) * M * 3840
+    assert 4 * plan.state_floats(n, members) == nbytes
+    assert plan.keeps_states(n, members, 4 * nbytes)
+    assert not plan.keeps_states(n, members, 4 * nbytes - 1)
+    assert plan.keeps_states(n, members, 80 * 10**9) == (nbytes <= 20 * 10**9)

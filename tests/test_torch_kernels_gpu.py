@@ -179,6 +179,154 @@ def test_taylor_backward_memory_does_not_grow_with_n():
     assert extra < 64 * 2**20
 
 
+# The backward chains of the states path: the README chain, the 64-wide
+# chain at 65,537 points, the heat closure (6 streams), Sigmoid, Sin, 128
+# wide, and an ensemble of K = 4 (n_members).
+STATES_CASES = [
+    (*README_CHAIN, 100, 1),
+    (*WIDE_CHAIN, 65537, 1),
+    ("fa fa fa f", [64, 64, 64, 1], "Tanh", 3, HEAT_CLOSURE, 20000, 1),
+    ("fa fa f", [16, 16, 1], "Sigmoid", 3, [(0,), (2,), (0, 2)], 257, 1),
+    ("fa fa f", [16, 16, 1], "Sin", 2, [(0,), (1,), (0, 0), (0, 1)], 96, 1),
+    ("fa fa f", [128, 128, 1], "Tanh", 2, POISSON_CLOSURE, 65537, 1),
+    (*WIDE_CHAIN, 20000, 4),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,features,act,in_dim,closure,n,n_members",
+                         STATES_CASES)
+def test_backward_from_states_is_bitwise_the_recompute_on_cuda(
+        layout, features, act, in_dim, closure, n, n_members):
+    # A forward that keeps its states gives the streams of one that keeps
+    # none, bit for bit; the backward from those states gives d packed and
+    # d x torch.equal to the backward that recomputes them, both within the
+    # gradients' tolerance of the plain twin (rtol 2e-3 / atol 2e-5), and a
+    # second launch from the states is bitwise the first; from_states
+    # counts the calls given states.
+    _require_cuda()
+    plan, _, packed = _member_case(layout, features, act, in_dim, closure,
+                                   n_members)
+    if n_members == 1:
+        packed = packed[0].contiguous()
+    gen = torch.Generator("cuda").manual_seed(1)
+    x = torch.rand((n, in_dim), device="cuda", generator=gen)
+    out = fused_taylor.fused_taylor_forward(packed, x, plan)
+    kept, states = fused_taylor.fused_taylor_forward(packed, x, plan,
+                                                     keep_states=True)
+    g = torch.randn(out.shape, device="cuda", generator=gen) / out.numel()
+    bwd = fused_taylor.fused_taylor_backward
+    calls, reads = bwd.launches, bwd.from_states
+    dp, dx = bwd(packed, x, g, plan)
+    sp, sx = bwd(packed, x, g, plan, states)
+    sp2, sx2 = bwd(packed, x, g, plan, states)
+    torch.cuda.synchronize()
+    assert (bwd.launches - calls, bwd.from_states - reads) == (3, 2)
+    assert torch.equal(out, kept)
+    assert torch.equal(dp, sp) and torch.equal(dx, sx)
+    assert torch.equal(sp, sp2) and torch.equal(sx, sx2)
+    rdp, rdx = fused_taylor.fused_taylor_backward_plain(packed, x, g, plan)
+    for a, b in ((dp, rdp), (dx, rdx), (sp, rdp), (sx, rdx)):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_backward_from_states_memory_on_cuda():
+    # 64-wide chain, 262,144 points: the forward's states are exactly
+    # members x tiles x save_rows x TILE_POINTS floats (1 GB here), and a
+    # backward from them allocates only its outputs and its partial
+    # gradients, which are sized by the grid; the backward and the forward
+    # of the 64-wide chain hold two blocks an SM on the card, registers
+    # included (the occupancy calculator).
+    _require_cuda()
+    layout, features, act, in_dim, closure = WIDE_CHAIN
+    plan, _, packed = _member_case(layout, features, act, in_dim, closure, 1)
+    packed = packed[0].contiguous()
+    n = 262144
+    gen = torch.Generator("cuda").manual_seed(1)
+    x = torch.rand(n, in_dim, device="cuda", generator=gen)
+    plan.device_table(x.device)   # the op table, made once a device
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out, states = fused_taylor.fused_taylor_forward(packed, x, plan,
+                                                    keep_states=True)
+    torch.cuda.synchronize()
+    assert tuple(states.shape) == (1, n // M, plan.save_rows, M)
+    assert states.numel() == plan.state_floats(n) == (n // M) * 960 * M
+    assert torch.cuda.memory_allocated() - base == 4 * (out.numel()
+                                                        + states.numel())
+    g = torch.randn(out.shape, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dp, dx = fused_taylor.fused_taylor_backward(packed, x, g, plan, states)
+    torch.cuda.synchronize()
+    extra = (torch.cuda.max_memory_allocated() - base
+             - 4 * (dp.numel() + dx.numel()))
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    _, _, partial_floats = plan.backward_workspace(n, sm)
+    assert extra <= 4 * partial_floats + 2**20
+    lib = load_library()
+    assert [lib.pdt_taylor_blocks_per_sm(k, plan.n_params, plan.n_streams,
+                                         plan.wmax) for k in range(3)] == \
+        [2, 2, 2]
+
+
+@pytest.mark.gpu
+def test_fits_read_the_forward_states_on_cuda(monkeypatch):
+    # Where the mechanism engages: in a kernel-route Adam fit and in LM
+    # steps every backward wrapper call (eager, warm-up and captures) reads
+    # its forward's states; on a card too small to hold them
+    # (TaylorPlan.keeps_states) the same fits read none and give the same
+    # bits; a forward under no_grad allocates only its streams.
+    _require_cuda()
+    import numpy as np
+    from pydens_tpu_torch import D, Solver
+
+    def eq(f, x, y):
+        return D(D(f, x), x) + D(D(f, y), y) - 5 * torch.sin(np.pi * (x + y))
+
+    def fits():
+        solver = Solver(eq, ndims=2, boundary_condition=1, seed=0,
+                        layout="fa fa fa f", activation="Tanh",
+                        units=[10, 12, 15, 1], device="cuda")
+        reads = []
+        for kw in (dict(niters=30, batch_size=256),
+                   dict(niters=3, batch_size=256, optimizer="LM")):
+            calls, kept = bwd.launches, bwd.from_states
+            solver.fit(progress=False, **kw)
+            reads.append((bwd.launches - calls, bwd.from_states - kept))
+        theta = torch.cat([p.detach().flatten()
+                           for p in solver.model.parameters()])
+        return reads, np.asarray(solver.losses), theta
+
+    bwd = fused_taylor.fused_taylor_backward
+    reads, losses, theta = fits()
+    assert all(calls > 0 and kept == calls for calls, kept in reads), reads
+    monkeypatch.setattr(fused_taylor, "_device_bytes", lambda device: 1)
+    small, small_losses, small_theta = fits()
+    monkeypatch.undo()
+    assert [calls for calls, _ in small] == [calls for calls, _ in reads]
+    assert all(kept == 0 for _, kept in small), small
+    assert np.array_equal(losses, small_losses)
+    assert torch.equal(theta, small_theta)
+    plan, _, packed = _member_case(*README_CHAIN, 1)
+    packed = packed[0].contiguous().requires_grad_(True)
+    x = torch.rand(4096, 2, device="cuda")
+    plan.device_table(x.device)
+    for grad in (False, True):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        with torch.set_grad_enabled(grad):
+            v, taps = fused_taylor.fused_taylor_taps(packed, x, plan)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        streams = 4 * x.shape[0] * plan.n_streams * plan.out_dim
+        states = 4 * plan.state_floats(x.shape[0]) if grad else 0
+        assert held == streams + states, (grad, held, streams, states)
+        del v, taps
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("ic", [False, True])
 def test_solver_loss_through_kernels_matches_nested_gradients_on_cuda(ic):

@@ -78,8 +78,8 @@ def host_lib(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(out / "libtaylor_host.so"))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.host_taylor_forward.argtypes = [P, P, P, P] + [I] * 7
-    lib.host_taylor_backward.argtypes = [P] * 8 + [I] * 7
+    lib.host_taylor_forward.argtypes = [P] * 5 + [I] * 7
+    lib.host_taylor_backward.argtypes = [P] * 8 + [I] * 8
     lib.host_taylor_smem_bytes.argtypes = [I] * 4
     lib.host_taylor_jvp.argtypes = [P] * 6 + [I] * 9
     lib.host_taylor_jvp_smem_bytes.argtypes = [I] * 5
@@ -162,8 +162,8 @@ def test_taylor_kernels_on_the_host_match_plain(host_lib, layout, features,
 
     out = np.full((n, S * plan.out_dim), np.nan, np.float32)
     grid, _ = plan.launch_shape(n, sm_count, 2)
-    host_lib.host_taylor_forward(_ptr(x), _ptr(w), _ptr(tab), _ptr(out), n,
-                                 P, S, W, plan.out_dim, grid, 1)
+    host_lib.host_taylor_forward(_ptr(x), _ptr(w), _ptr(tab), _ptr(out),
+                                 None, n, P, S, W, plan.out_dim, grid, 1)
     ref = fused_taylor.fused_taylor_forward_plain(packed, torch.from_numpy(x),
                                                   plan)
     np.testing.assert_allclose(out, ref.numpy(), rtol=2e-5, atol=2e-5)
@@ -175,7 +175,7 @@ def test_taylor_kernels_on_the_host_match_plain(host_lib, layout, features,
     dx = np.full((n, in_dim), np.nan, np.float32)
     host_lib.host_taylor_backward(
         _ptr(x), _ptr(w), _ptr(tab), _ptr(g), _ptr(saves), _ptr(partials),
-        _ptr(dw), _ptr(dx), n, P, S, W, plan.out_dim, grid, 1)
+        _ptr(dw), _ptr(dx), n, P, S, W, plan.out_dim, grid, 1, 0)
     rdp, rdx = fused_taylor.fused_taylor_backward_plain(
         packed, torch.from_numpy(x), torch.from_numpy(g), plan)
     np.testing.assert_allclose(dw, rdp.numpy(), rtol=2e-3, atol=2e-5)
@@ -300,8 +300,8 @@ def _host_members(host_lib, plan, packed, x, g, v, grid, jvp_grid):
     tab = np.asarray(plan.table, np.int32)
     w = np.ascontiguousarray(packed)
     out = np.full((K, n, cols), np.nan, np.float32)
-    host_lib.host_taylor_forward(_ptr(x), _ptr(w), _ptr(tab), _ptr(out), n,
-                                 P, S, W, plan.out_dim, grid, K)
+    host_lib.host_taylor_forward(_ptr(x), _ptr(w), _ptr(tab), _ptr(out),
+                                 None, n, P, S, W, plan.out_dim, grid, K)
     saves = np.full(max(K * grid * plan.save_rows
                         * fused_taylor._TILE_POINTS, 1), np.nan, np.float32)
     partials = np.full(K * grid * P, np.nan, np.float32)
@@ -310,7 +310,7 @@ def _host_members(host_lib, plan, packed, x, g, v, grid, jvp_grid):
     host_lib.host_taylor_backward(
         _ptr(x), _ptr(w), _ptr(tab), _ptr(np.ascontiguousarray(g)),
         _ptr(saves), _ptr(partials), _ptr(dw), _ptr(dx), n, P, S, W,
-        plan.out_dim, grid, K)
+        plan.out_dim, grid, K, 0)
     sv = np.full((K, n, cols), np.nan, np.float32)
     tv = np.full((K, n, cols), np.nan, np.float32)
     host_lib.host_taylor_jvp(_ptr(x), _ptr(w), _ptr(np.ascontiguousarray(v)),
@@ -381,3 +381,116 @@ def test_member_axis_kernels_on_the_host(host_lib, case, members):
                                                     torch.from_numpy(v), plan)
     np.testing.assert_allclose(sv, ref.numpy(), rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(tv, tref.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def _plain_states(packed, x, plan):
+    """The states a forward keeps for the backward, by the plain traversal:
+    ``(tiles, save_rows, TILE_POINTS)``, row ``save_offsets[op] + j * S +
+    s`` the stream ``s`` of feature ``j`` of the op's input state, the last
+    tile's padded points as computed from x = 0."""
+    M = fused_taylor._TILE_POINTS
+    tiles = -(-x.shape[0] // M)
+    V = torch.zeros(tiles * M, plan.in_dim)
+    V[:x.shape[0]] = x
+    eye = torch.eye(plan.in_dim)
+    T = [eye[d].expand(len(V), plan.in_dim) for d in plan.firsts]
+    S = [torch.zeros_like(V) for _ in plan.pairs]
+    pos = {d: i for i, d in enumerate(plan.firsts)}
+    states = torch.empty(tiles, plan.save_rows, M)
+    for op, off in zip(plan.ops, plan.save_offsets):
+        if off >= 0:
+            st = torch.stack([V] + T + S)
+            rows = st.shape[2] * plan.n_streams
+            states[:, off:off + rows] = st.permute(2, 0, 1).reshape(
+                rows, tiles, M).permute(1, 0, 2)
+        if op[0] == "dense":
+            _, K, N, w_off, b_off = op
+            out = torch.stack([V] + T + S) @ packed[w_off:w_off + K * N].view(
+                K, N)
+            V = out[0] + packed[b_off:b_off + N]
+            T, S = list(out[1:1 + len(T)]), list(out[1 + len(T):])
+        else:
+            d = fused_taylor.sigma_table(op[1], V)
+            S = [d[2] * T[pos[a]] * T[pos[b]] + d[1] * s
+                 for (a, b), s in zip(plan.pairs, S)]
+            T = [d[1] * t for t in T]
+            V = d[0]
+    return states
+
+
+def _host_paths(host_lib, plan, packed, x, g, grid):
+    """``[out keeping no states, out keeping them]``, the states, and
+    ``[(d packed, d x) recomputing, (d packed, d x) from the states twice]``
+    of ``K`` members' ``(K, P)`` weights, from NaN-filled buffers."""
+    K, P = packed.shape
+    S, W, n = plan.n_streams, plan.wmax, x.shape[0]
+    tiles = -(-n // fused_taylor._TILE_POINTS)
+    tab = np.asarray(plan.table, np.int32)
+    w = np.ascontiguousarray(packed)
+    states = np.full(plan.states_shape(n, K), np.nan, np.float32)
+    assert states.size == plan.state_floats(n, K)
+    outs = []
+    for keep in (None, states):
+        out = np.full((K, n, S * plan.out_dim), np.nan, np.float32)
+        host_lib.host_taylor_forward(
+            _ptr(x), _ptr(w), _ptr(tab), _ptr(out),
+            None if keep is None else _ptr(keep), n, P, S, W, plan.out_dim,
+            grid, K)
+        outs.append(out)
+    grads = []
+    for from_states in (0, 1, 1):
+        saves = (states if from_states else
+                 np.full(max(K * grid * plan.save_rows
+                             * fused_taylor._TILE_POINTS, 1), np.nan,
+                         np.float32))
+        partials = np.full(K * grid * P, np.nan, np.float32)
+        dw = np.full((K, P), np.nan, np.float32)
+        dx = np.full((K, n, plan.in_dim), np.nan, np.float32)
+        host_lib.host_taylor_backward(
+            _ptr(x), _ptr(w), _ptr(tab), _ptr(np.ascontiguousarray(g)),
+            _ptr(saves), _ptr(partials), _ptr(dw), _ptr(dx), n, P, S, W,
+            plan.out_dim, grid, K, from_states)
+        grads.append((dw, dx))
+    assert states.shape == (K, tiles, plan.save_rows,
+                            fused_taylor._TILE_POINTS)
+    return outs, states, grads
+
+
+@pytest.mark.parametrize(
+    "layout,features,act,in_dim,closure,n,sm_count,members",
+    [case + (1,) for case in HOST_CASES]
+    + [case + (3,) for case in MEMBER_CASES])
+def test_backward_from_states_on_the_host_is_the_recompute(
+        host_lib, layout, features, act, in_dim, closure, n, sm_count,
+        members):
+    # A forward that keeps its states: its streams bit for bit those of a
+    # forward that keeps none; every element of its (members, tiles,
+    # save_rows, TILE_POINTS) states written (from NaN) and equal to the
+    # plain traversal's input states of the ops the backward reads (values
+    # rtol/atol 2e-5), the padded points included.  The backward from those
+    # states gives d packed and d x bit for bit those of the backward that
+    # recomputes them, twice.
+    plan, _ = _host_case(layout, features, act, in_dim, closure)
+    nets = []
+    for k in range(members):
+        net = make_layout_network(layout, features, act, in_dim=in_dim)
+        net.reset_parameters(torch.Generator().manual_seed(k))
+        nets.append(fused_taylor.pack_weights(net.params(),
+                                              net.layer_names).detach())
+    packed = torch.stack(nets)
+    rng = np.random.default_rng(4)
+    x = rng.uniform(size=(n, in_dim)).astype(np.float32)
+    g = rng.normal(size=(members, n, plan.n_streams * plan.out_dim)).astype(
+        np.float32)
+    grid, _ = plan.launch_shape(n, sm_count, 3, members)
+    (out, kept), states, grads = _host_paths(host_lib, plan, packed.numpy(),
+                                             x, g, grid)
+    assert np.array_equal(out, kept)
+    assert np.isfinite(states).all()
+    for k in range(members):
+        np.testing.assert_allclose(
+            states[k], _plain_states(packed[k], torch.from_numpy(x),
+                                     plan).numpy(), rtol=2e-5, atol=2e-5)
+    (dw0, dx0), (dw1, dx1), (dw2, dx2) = grads
+    assert np.array_equal(dw0, dw1) and np.array_equal(dx0, dx1)
+    assert np.array_equal(dw1, dw2) and np.array_equal(dx1, dx2)
