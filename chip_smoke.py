@@ -99,10 +99,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. the model options (``phase_model_features``) through the public
    Solver at their sources' widths, steps and batches: examples/07's
    oscillator system and tests/test_wave_second_ic.py's wave (plain
-   chains: both Taylor kernels on every step), examples/14 and /15
-   (periodic), /21 (Fourier features), /16 (the modified MLP with
-   adaptive collocation), /30 (branches) and /32 (adaptive activations),
-   which take the plain traversal; each holds its source's bound, each
+   chains) and examples/14 and /15 (periodic) and /21 (Fourier features,
+   from the embedding's Taylor state): both Taylor kernels on every step;
+   /16 (the modified MLP with adaptive collocation), /30 (branches) and
+   /32 (adaptive activations), which take the plain traversal; each holds its source's bound, each
    predict of an embedded model is one MLP launch, and ``torch.profiler``
    over replays of each arm's Adam step gives its device ops and busy ms;
    each example arm runs its file's own ``main()`` (examples_torch/07,
@@ -198,9 +198,13 @@ fits and the MLP kernel at the points of its predict calls
 counts its fits, candidate pools and ``Solver.residual`` give it and the
 MLP kernel at the points of phase 10's predicts (``COLLOCATION_CHAINS``;
 phase 10 asserts that each solver's chain is the one checked), phase 11's
-two plain chains at their batches and the MLP kernel at the embedded
-widths of its predicts (``FEATURE_CHAINS``: in_dim 3, 5, 21 and 65, out_dim
-2 and 3; phase 11 asserts each solver's chain), the MLP
+chains at their batches, the embedded ones (in_dim 3, 5, 21 and 65, out_dim
+2 and 3) from a Taylor state as their embedding gives it, and the MLP kernel
+at the embedded widths of its predicts (``FEATURE_CHAINS``; phase 11
+asserts each solver's chain), the Taylor kernels and the tangent kernel
+from an input state at the chain of portbench's ``nls-raissi`` cell
+(``NLS_CHAIN``: 4 x 100, 4 streams, 20,000 points) and the tangent kernel
+from the embedded chains' states at their first batch, the MLP
 kernel at ``w3``'s layout on 1,024 points, and the tangent kernel
 (``taylor_jvp_kernel``, Levenberg-Marquardt's J v) on the README chain at 1,024 points, the 64-wide chain
 and its 6-stream closure at 65,537, the ODE finisher's chain and the
@@ -212,8 +216,8 @@ member's slice against a single launch on its weights, and phase 13's
 chains (``SYMBOLIC_CHAINS``: examples/17's 3D Laplacian at 2,048 points
 and its first-order ``predict_grad`` plan at 10,000, examples/22's chain
 at 256, examples/24's at 1,024; the MLP at their predicts), and phase
-15's (``EXAMPLE_CHAINS``: the chains of examples_torch/10, /18 and /29 at
-their batches, the tangent kernel at 29's 512 LM points, the MLP at each
+15's (``EXAMPLE_CHAINS``: the chains of examples_torch/10, /18, /20 and
+/29 at their batches, the tangent kernel at 29's 512 LM points, the MLP at each
 example's predict points).
 
 Prints one JSON line of per-kernel results, the card's name and power
@@ -278,6 +282,7 @@ VALUE_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=2e-3, atol=2e-5)
 POISSON_CLOSURE = [(0,), (1,), (0, 0), (1, 1)]
 HEAT_CLOSURE = [(0,), (1,), (2,), (0, 0), (1, 1)]   # 2D + t: 6 streams
+NLS_CLOSURE = [(0,), (1,), (0, 0)]   # u_t and u_xx in 1D + t: 4 streams
 README = dict(ndims=2, boundary_condition=1, layout="fa fa fa f",
               activation="Tanh", units=[10, 12, 15, 1])
 WIDE = dict(ndims=2, boundary_condition=1, layout="fa fa fa f",
@@ -383,15 +388,17 @@ def _products(ops):
 
 
 def taylor_bounds(plan, n):
-    """Bounds of the Taylor forward (the products of all streams; x and the
-    weights in, the streams out), backward (twice the products; x, the
-    weights and the cotangent in, dW and dx out) and tangent (three times
+    """Bounds of the Taylor forward (the products of all streams; x, or the
+    input state, and the weights in, the streams out), backward (twice the
+    products; x, the weights and the cotangent in, dW and dx out) and
+    tangent (three times
     the products: the primal, tangent x W and state x tangent W; x, the
     weights and their tangent in, the streams and their tangent out)."""
     fmas = n * plan.n_streams * _products(plan.ops)
     streams = n * plan.n_streams * plan.out_dim
-    fwd_bytes = 4 * (n * plan.in_dim + plan.n_params + streams)
-    bwd_bytes = fwd_bytes + 4 * (plan.n_params + n * plan.in_dim)
+    inputs = math.prod(plan.input_shape(n))
+    fwd_bytes = 4 * (inputs + plan.n_params + streams)
+    bwd_bytes = fwd_bytes + 4 * (plan.n_params + inputs)
     jvp_bytes = fwd_bytes + 4 * (plan.n_params + streams)
     return {"fwd": bound(fmas, fwd_bytes), "bwd": bound(2 * fmas, bwd_bytes),
             "jvp": bound(3 * fmas, jvp_bytes)}
@@ -450,7 +457,12 @@ def phase_build():
             log(f"  ptxas: {line.strip()}")
 
 
-def _taylor_case(layout, features, act, n, seed, closure, in_dim):
+def _taylor_case(layout, features, act, n, seed, closure, in_dim,
+                 input_state=False):
+    """The plan, packed weights and input of one kernel check: ``n`` points
+    in [0, 1), or with ``input_state`` an embedding's Taylor state
+    ``(n, n_streams, in_dim)`` drawn in [-1, 1), every first- and
+    second-order tap non-zero (an embedding's (x, x) taps are)."""
     from pydens_tpu_torch.models.layout import make_layout_network
     from pydens_tpu_torch.ops import fused_taylor as ft
     dev = torch.device("cuda")
@@ -458,25 +470,31 @@ def _taylor_case(layout, features, act, n, seed, closure, in_dim):
                               device=dev)
     net.reset_parameters(torch.Generator().manual_seed(seed))
     plan = ft.TaylorPlan(net.tokens, net.activations, closure,
-                         net.layer_shapes, in_dim)
+                         net.layer_shapes, in_dim, input_state=input_state)
     with torch.no_grad():
         packed = ft.pack_weights(net.params(), net.layer_names)
-    x = torch.rand((n, in_dim), device=dev,
+    x = torch.rand(plan.input_shape(n), device=dev,
                    generator=torch.Generator(dev).manual_seed(seed))
+    if input_state:
+        x = 2.0 * x - 1.0
     return plan, packed, x
 
 
 def check_taylor(features, n, seed=0, reps=0, closure=POISSON_CLOSURE,
-                 in_dim=2, memory=False, layout="fa fa fa f", act="Tanh"):
+                 in_dim=2, memory=False, layout="fa fa fa f", act="Tanh",
+                 input_state=False):
     """Forward and backward kernels against the plain autograd path, as a
     fit runs them: the forward keeping its states (bitwise the streams of
     one keeping none) and the backward reading them (``bwd``), held to the
     plain twin, bitwise the backward that recomputes the states
     (``bwd_recompute``, timed beside it) and bitwise repeatable; with
-    ``memory``, each backward's peak device memory beyond its inputs."""
+    ``memory``, each backward's peak device memory beyond its inputs.  With
+    ``input_state`` the chain starts from an embedding's Taylor state
+    (``_taylor_case``), and the backward without the state's cotangent (a
+    fit's: ``input_grad=False``) gives the same weights' gradient bits."""
     from pydens_tpu_torch.ops import fused_taylor as ft
     plan, packed, x = _taylor_case(layout, features, act, n, seed, closure,
-                                   in_dim)
+                                   in_dim, input_state)
     out, states = ft.fused_taylor_forward(packed, x, plan, keep_states=True)
     ref = ft.fused_taylor_forward_plain(packed, x, plan)
     sync()
@@ -507,6 +525,13 @@ def check_taylor(features, n, seed=0, reps=0, closure=POISSON_CLOSURE,
     sync()
     assert torch.equal(dp, dp2) and torch.equal(dx, dx2), \
         "backward not bitwise repeatable"
+    if input_state:
+        for given in (states, None):
+            dp3, dx3 = ft.fused_taylor_backward(packed, x, g, plan, given,
+                                                input_grad=False)
+            sync()
+            assert dx3 is None and torch.equal(dp, dp3), \
+                "backward without the state's cotangent differs"
     errs = {"fwd": fwd_err, "bwd": max(max_err(dp, rdp), max_err(dx, rdx))}
     bounds = taylor_bounds(plan, n)
     times = {}
@@ -530,6 +555,7 @@ def check_taylor(features, n, seed=0, reps=0, closure=POISSON_CLOSURE,
             lambda: ft.fused_taylor_backward(packed, x, g, plan, states),
             reps))
         del times["fwd_no_states_plain"], times["bwd_recompute_plain"]
+    times["input_state"] = input_state
     mem = ""
     if memory:
         _, save_f, part_f = plan.backward_workspace(
@@ -541,10 +567,14 @@ def check_taylor(features, n, seed=0, reps=0, closure=POISSON_CLOSURE,
                f"{part_f * 4 / 2**20:.2f} MiB, slab {save_f * 4 / 2**20:.2f}"
                f" MiB; the states {states.numel() * 4 / 2**20:.2f} MiB)")
     log(f"taylor {layout!r} {act} {features} in_dim {in_dim} closure "
-        f"{len(closure)} n={n}: "
+        f"{len(closure)} n={n}"
+        f"{' from an input state' if input_state else ''}: "
         f"max|err| fwd {errs['fwd']:.3e} bwd {errs['bwd']:.3e}, "
         "backward from the states bitwise the recompute and repeatable"
-        + "".join(f", {k} {v:.4f} ms" for k, v in times.items())
+        + (", without the state's cotangent bitwise the same dW"
+           if input_state else "")
+        + "".join(f", {k} {v:.4f} ms" for k, v in times.items()
+                  if k != "input_state")
         + "".join(f"; {k} {work}, {_share(times[k], b)} ({by})"
                   for k, (b, by, work) in bounds.items() if k in times)
         + mem)
@@ -554,13 +584,15 @@ def check_taylor(features, n, seed=0, reps=0, closure=POISSON_CLOSURE,
 
 
 def check_taylor_jvp(features, n, reps, seed=0, closure=POISSON_CLOSURE,
-                     in_dim=2, layout="fa fa fa f", act="Tanh"):
+                     in_dim=2, layout="fa fa fa f", act="Tanh",
+                     input_state=False):
     """The tangent kernel against its plain twin (``torch.func.jvp`` of the
     plain forward) at VALUE_TOL, streams and tangent, for a seeded tangent
-    of the weights; both timed in turns, with the kernel's bound."""
+    of the weights, from the points or an input state (``_taylor_case``);
+    both timed in turns, with the kernel's bound."""
     from pydens_tpu_torch.ops import fused_taylor as ft
     plan, packed, x = _taylor_case(layout, features, act, n, seed, closure,
-                                   in_dim)
+                                   in_dim, input_state)
     v = torch.randn(plan.n_params, device=x.device,
                     generator=torch.Generator(x.device).manual_seed(seed + 1))
     out, tout = ft.fused_taylor_jvp(packed, x, v, plan)
@@ -580,7 +612,9 @@ def check_taylor_jvp(features, n, reps, seed=0, closure=POISSON_CLOSURE,
     grid, slots = plan.jvp_launch_shape(
         n, torch.cuda.get_device_properties(0).multi_processor_count, per_sm)
     log(f"taylor jvp {layout!r} {act} {features} in_dim {in_dim} closure "
-        f"{len(closure)} n={n}: max|err| {err:.3e} (streams and tangent; "
+        f"{len(closure)} n={n}"
+        f"{' from an input state' if input_state else ''}: max|err| "
+        f"{err:.3e} (streams and tangent; "
         f"{100 * max(_tol_used(out, ref), _tol_used(tout, tref)):.1f}% of "
         f"VALUE_TOL), jvp {times['jvp']:.4f} ms (plain "
         f"{times['jvp_plain']:.4f} ms); {work}, {_share(times['jvp'], b)} "
@@ -590,7 +624,8 @@ def check_taylor_jvp(features, n, reps, seed=0, closure=POISSON_CLOSURE,
         f"calculator; the plan sized for {plan.jvp_blocks_per_sm}), "
         f"{plan.jvp_smem} B shared memory each")
     times.update(jvp_tile=plan.jvp_tile, jvp_resident=plan.jvp_resident,
-                 jvp_blocks_per_sm=per_sm, jvp_smem_bytes=plan.jvp_smem)
+                 jvp_blocks_per_sm=per_sm, jvp_smem_bytes=plan.jvp_smem,
+                 input_state=input_state)
     times["jvp_bound"], times["jvp_bound_by"] = b, by
     return err, times
 
@@ -807,7 +842,8 @@ def phase_kernels():
     tut_taylor.update({f"{c}_n{n}": check_taylor(n=n, reps=200, **chain)
                        for c, (chain, counts, _)
                        in COLLOCATION_CHAINS.items() for n in counts})
-    # Phase 11's plain chains: two outputs, and the second-IC wave.
+    # Phase 11's chains: two outputs, the second-IC wave, and the embedded
+    # ones from their embedding's Taylor state at their fits' batches.
     tut_taylor.update({f"p11_{c}_n{n}": check_taylor(n=n, reps=200, **chain)
                        for c, (chain, counts, _)
                        in FEATURE_CHAINS.items() for n in counts})
@@ -822,6 +858,15 @@ def phase_kernels():
     # 9's LM arm; "readme_n1024" heads the JSON line.
     jvp = {tag: check_taylor_jvp(**case) for tag, case in JVP_SHAPES.items()}
     jvp["p15_ex29_n512"] = check_taylor_jvp(**EX29_JVP)
+    # The kernels from an input state at the nls cell's shape, and the
+    # tangent kernel from the embedded chains' states at their first batch.
+    tut_taylor["nls_n20000"] = check_taylor(n=NLS_POINTS, reps=20,
+                                            memory=True, **NLS_CHAIN)
+    jvp["nls_n20000"] = check_taylor_jvp(n=NLS_POINTS, reps=10, **NLS_CHAIN)
+    jvp.update({f"p11_{c}_n{counts[0]}": check_taylor_jvp(
+        n=counts[0], reps=50, **chain)
+        for c, (chain, counts, _) in FEATURE_CHAINS.items()
+        if chain.get("input_state")})
     sync()
     # The MLP shapes, keyed by tag; "readme_n10000" is the README predict.
     mlp = {"readme_n10000": check_mlp("fa fa fa f", [10, 12, 15, 1], 2,
@@ -2171,11 +2216,14 @@ def graph_launches(step, rebalance=False, kernels=True, reps=5,
 
 def _assert_chain(solver, chain):
     """The solver's network and plan closure are ``chain``'s, the chain
-    that ``phase_kernels`` holds against its plain version."""
+    that ``phase_kernels`` holds against its plain version; an embedded
+    model's plan takes the embedding's Taylor state (``input_state``)."""
     m = solver.model
+    closure = m.plan_closure(solver._plan_derivs)
     got = dict(layout=m.layout, features=m.features, act=m.activation,
-               in_dim=m.net.in_dim,
-               closure=m.plan_closure(solver._plan_derivs))
+               in_dim=m.net.in_dim, closure=closure)
+    if m._embedded:
+        got["input_state"] = m._fused_taylor_plan(closure).input_state
     assert got == chain, (got, chain)
     return solver
 
@@ -2509,8 +2557,8 @@ def phase_collocation():
 # kernel runs on there (``_assert_chain``, ``_assert_mlp_chain``), the point
 # counts its Taylor kernels take (the fits' batches) and the points of its
 # predicts, held in phase 3 against the plain twins.  The embedded models'
-# Taylor traversal is the plain one, so their chains reach only the MLP
-# kernel, at the embedded width.
+# chains take the Taylor kernels from the embedding's Taylor state
+# (``input_state``) and the MLP kernel, both at the embedded width.
 FEATURE_CHAINS = {
     # examples/07: two outputs from one input, Adam at 512, L-BFGS at 2,048;
     # its predicts on 100 points and at x = 0.
@@ -2520,20 +2568,27 @@ FEATURE_CHAINS = {
     "wave": (dict(layout="fa fa f", features=[32, 32, 1], act="Tanh",
                   in_dim=2, closure=POISSON_CLOSURE), (1024, 2048),
              (21, 200)),
-    # examples/14: x, y periodic (5 inputs), three outputs; its 32 x 32
-    # grid and a dense 1024 x 1024 one.
+    # examples/14: x, y periodic (5 inputs), three outputs, 6 streams;
+    # Adam at 1,024 then 2,048; its 32 x 32 grid and a dense 1024 x 1024
+    # one.
     "ex14": (dict(layout="fa fa fa f", features=[48, 48, 48, 3], act="Tanh",
-                  in_dim=5), (), (1024, 1_048_576)),
-    # examples/15: x periodic (3 inputs), two outputs.
+                  in_dim=5, closure=HEAT_CLOSURE, input_state=True),
+             (1024, 2048), (1024, 1_048_576)),
+    # examples/15: x periodic (3 inputs), two outputs, 4 streams; Adam at
+    # 1,024 then 2,048.
     "ex15": (dict(layout="fa fa fa f", features=[48, 48, 48, 2], act="Tanh",
-                  in_dim=3), (), (101,)),
-    # examples/21: 32 Fourier features of x (65 inputs).
+                  in_dim=3, closure=NLS_CLOSURE, input_state=True),
+             (1024, 2048), (101,)),
+    # examples/21: 32 Fourier features of x (65 inputs); Adam at 512.
     "ex21": (dict(layout="fa fa f", features=[32, 32, 1], act="Tanh",
-                  in_dim=65), (), (400, 401, 1_048_576)),
-    # examples/25's embedding: x with 10 harmonics (21 inputs); not an arm
-    # (its fit is item 10's causal recipe at 12,000 steps), checked here.
+                  in_dim=65, closure=[(0,), (0, 0)], input_state=True),
+             (512,), (400, 401, 1_048_576)),
+    # examples/25's embedding: x with 10 harmonics (21 inputs), Adam at
+    # 1,024; not an arm (its fit is item 10's causal recipe at 12,000
+    # steps), checked here and run by phase 15.
     "ex25": (dict(layout="fa fa fa fa f", features=[64, 64, 64, 64, 1],
-                  act="Tanh", in_dim=21), (), (512, 1_048_576)),
+                  act="Tanh", in_dim=21, closure=NLS_CLOSURE,
+                  input_state=True), (1024,), (512, 1_048_576)),
 }
 
 
@@ -2544,8 +2599,9 @@ def _assert_mlp_chain(solver, chain):
     m = solver.model
     got = dict(layout=m.layout, features=m.features, act=m.activation,
                in_dim=m.net.in_dim)
-    assert got == chain and m._mlp_plan.in_dim == chain["in_dim"], (got,
-                                                                    chain)
+    want = {k: chain[k] for k in got}
+    assert got == want and m._mlp_plan.in_dim == chain["in_dim"], (got,
+                                                                   chain)
     return solver
 
 
@@ -2676,10 +2732,10 @@ def _arm_wave(arm):
 def _arm_ex14(arm):
     """examples_torch/14: the periodic Taylor-Green vortex, [48, 48, 48,
     3]; its predicts timed, and a dense predict at t = 0.5."""
-    s, row = arm.example("14_navier_stokes_taylor_green", "plain",
+    s, row = arm.example("14_navier_stokes_taylor_green", "kernels",
                          FEATURE_CHAINS["ex14"][0])
     assert s._plan_ok
-    row["step"] = arm.step(False)
+    row["step"] = arm.step(True)
     g = np.linspace(0, 1, 33)[:-1]
     X, Y = [a.ravel() for a in np.meshgrid(g, g)]
     _, row_p = arm.predicts([(np.stack([X, Y, np.full_like(X, t)], -1),)
@@ -2694,10 +2750,10 @@ def _arm_ex14(arm):
 def _arm_ex15(arm):
     """examples_torch/15: the periodic Schrodinger soliton, persistent IC
     binding, [48, 48, 48, 2]; its predicts timed."""
-    s, row = arm.example("15_schrodinger_soliton", "plain",
+    s, row = arm.example("15_schrodinger_soliton", "kernels",
                          FEATURE_CHAINS["ex15"][0])
     assert s._plan_ok
-    row["step"] = arm.step(False)
+    row["step"] = arm.step(True)
     xs = np.linspace(-5, 5, 101)
     _, row_p = arm.predicts([(xs, np.full_like(xs, t))
                              for t in (np.pi / 4, np.pi / 2)], True)
@@ -2710,9 +2766,9 @@ def _arm_ex15(arm):
 def _arm_ex21(arm):
     """examples_torch/21: random Fourier features, multiscale Poisson; its
     predict timed."""
-    _, row = arm.example("21_multiscale_poisson", "plain",
+    _, row = arm.example("21_multiscale_poisson", "kernels",
                          FEATURE_CHAINS["ex21"][0])
-    row["step"] = arm.step(False)
+    row["step"] = arm.step(True)
     _, row_p = arm.predicts([(np.linspace(0, 1, 400),)], True)
     row.update(row_p)
     arm.done()
@@ -3000,9 +3056,10 @@ SYMBOLIC_CHAINS = {
 }
 EX17_GRAD_POINTS = 10000
 # Phase 15's shapes that the earlier tables lack: the chains of
-# examples_torch/10, /18 and /29 at their batches (18: one rank's 64 rows
-# of a card's group of one), and the MLP kernel at each example's predict
-# points (its embedded width for /20), by example: (chain, batches of the
+# examples_torch/10, /18, /20 (from its embedding's Taylor state) and /29 at
+# their batches (18: one rank's 64 rows of a card's group of one), and the
+# MLP kernel at each example's predict points (its embedded width for /20),
+# by example: (chain, batches of the
 # Taylor kernels, predict points).  01's shapes are w2's, 02's and 19's
 # the README's, 03's w4's, 04's w3's, 05's w5's, 25's ex25's above.
 README_CHAIN = dict(layout="fa fa fa f", features=[10, 12, 15, 1],
@@ -3022,11 +3079,18 @@ EXAMPLE_CHAINS = {
     "ex13": (dict(layout="fa fa f", features=[32, 32, 1], act="Tanh",
                   in_dim=2), (), (1681,)),
     "ex20": (dict(layout="fa fa fa f", features=[64, 64, 64, 1], act="Tanh",
-                  in_dim=3), (), (25929,)),
+                  in_dim=3, closure=[(0,), (1,)], input_state=True), (2048,),
+             (25929,)),
     "ex19": (README_CHAIN, (), (7, 33)),
     "ex12": (dict(layout="fa fa f", features=[24, 24, 1], act="Tanh",
                   in_dim=1), (), (101,)),
 }
+# The chain of portbench's nls-raissi cell (Raissi et al.'s Schrodinger net
+# at its published widths: x periodic, 3 inputs, 4 streams, one block an SM)
+# at its 20,000 points, from the embedding's Taylor state.
+NLS_CHAIN = dict(layout="fa fa fa fa f", features=[100, 100, 100, 100, 2],
+                 act="Tanh", in_dim=3, closure=NLS_CLOSURE, input_state=True)
+NLS_POINTS = 20000
 # The tangent kernel at examples_torch/29's 512 LM points.
 EX29_JVP = dict(features=[24, 24, 1], n=512, reps=100,
                 closure=[(0,), (0, 0)], in_dim=1, layout="fa fa f")
@@ -3799,8 +3863,9 @@ def phase_scale_out():
 # Phase 15: the port's examples (examples_torch/), each file's main() on the
 # card in the order below, its own asserts the check.  Route: "kernels",
 # one Taylor forward and backward a replayed Adam step (50 tangents a LM
-# step on 29); "plain", no Taylor launch (an order above two, a periodic
-# embedding or a custom body: the plain traversal or nested D).
+# step on 29; the periodic chains of 20 and 25 from the embedding's Taylor
+# state); "plain", no Taylor launch (an order above two or a custom body:
+# the plain traversal or nested D).
 EXAMPLES_DIR = "examples_torch"
 EXAMPLE_ROUTES = {
     "01_simple_ode": ("kernels", TUTORIAL_CHAINS["w2"][0]),
@@ -3813,8 +3878,8 @@ EXAMPLE_ROUTES = {
     "11_kdv_soliton": ("plain", EXAMPLE_CHAINS["ex11"][0]),
     "13_plate_bending": ("plain", EXAMPLE_CHAINS["ex13"][0]),
     "06_custom_model": ("plain", None),
-    "25_allen_cahn": ("plain", FEATURE_CHAINS["ex25"][0]),
-    "20_causal_convection": ("plain", EXAMPLE_CHAINS["ex20"][0]),
+    "25_allen_cahn": ("kernels", FEATURE_CHAINS["ex25"][0]),
+    "20_causal_convection": ("kernels", EXAMPLE_CHAINS["ex20"][0]),
     "19_serving_http": ("kernels", README_CHAIN),
     "18_distributed_data_parallel": ("kernels", None),
     # The two examples that no arm of phases 10-13 runs.
@@ -4762,7 +4827,8 @@ def jvp_turns(old_source, reps=20):
 
         def new_call():
             assert lib.pdt_taylor_jvp(
-                x.data_ptr(), packed.data_ptr(), v.data_ptr(), tab.data_ptr(),
+                x.data_ptr(), None, packed.data_ptr(), v.data_ptr(),
+                tab.data_ptr(),
                 outs[2].data_ptr(), outs[3].data_ptr(), n, plan.n_params,
                 plan.n_streams, plan.wmax, plan.out_dim, plan.jvp_tile,
                 int(plan.jvp_resident), grid, 1, stream) == 0
@@ -5107,6 +5173,10 @@ def main():
     all_taylor = taylor + list(tut_taylor.values())
     fwd_err = max(e["fwd"] for e, _ in all_taylor)
     bwd_err = max(e["bwd"] for e, _ in all_taylor)
+    # The shapes whose chain starts from an embedding's Taylor state.
+    state_taylor = {k: e for k, (e, t) in tut_taylor.items()
+                    if t["input_state"]}
+    state_jvp = {k: e for k, (e, t) in jvp.items() if t["input_state"]}
     main_taylor = taylor[0][1]          # README shapes: n = 100
     main_mlp = mlp["readme_n10000"][1]  # README predict: 10,000 points
     shapes = {"readme_n1000": taylor[1][1],
@@ -5181,7 +5251,9 @@ def main():
         "p16_notebooks_launches": notebook_launches["fused_taylor_jvp"],
         "p16_notebooks_device_launches": notebook_device["fused_taylor_jvp"],
         "lm_launches_per_step":
-            finishers["ode_lm"]["taylor_jvp_kernel_per_step"]}
+            finishers["ode_lm"]["taylor_jvp_kernel_per_step"],
+        "input_state_shapes": sorted(state_jvp),
+        "input_state_max_abs_err": max(state_jvp.values())}
     # The member axis (the grid's second axis, K ensemble members in one
     # launch): one more entry a kernel, its launches phase 12's path, its
     # times examples/08's at K = 8 (Taylor kernels at 400 points, the MLP
@@ -5229,6 +5301,10 @@ def main():
               mlp_shapes),
         jvp_entry,
     ] + member_kernels
+    for item, kind in zip(kernels[:2], ("fwd", "bwd")):
+        item.update(input_state_shapes=sorted(state_taylor),
+                    input_state_max_abs_err=max(
+                        e[kind] for e in state_taylor.values()))
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"phase 15 (examples): {example_s:.1f} s; phase 16 (notebooks): "
         f"{notebook_s:.1f} s; the whole run {time.perf_counter() - _T0:.1f} "

@@ -19,9 +19,9 @@ vector initial condition at t = 0, a point constraint pinning the
 pressure's spatial gauge, and the full second-order nonlinear system on
 the Taylor plan (all derivative taps in one network traversal).
 
-Route on the card: the embedded chain takes the traversal's plain
-PyTorch version in training; ``predict`` runs the fused MLP kernel after
-the embedding.  The port of examples/14.
+Route on the card: the embedded chain trains on the fused Taylor
+kernels, from the embedding's Taylor state; ``predict`` runs the fused MLP
+kernel after the embedding.  The port of examples/14.
 
 From the repository root, on the CUDA card (``--cpu``: on the CPU)::
 

@@ -16,9 +16,9 @@ Fourier embedding in x, exact vector IC at t = 0 kept for all t
 (``periodic_ic_decay=False``), and the coupled cubic-nonlinear system on
 the Taylor plan.
 
-Route on the card: the embedded chain takes the traversal's plain
-PyTorch version in training; ``predict`` runs the fused MLP kernel after
-the embedding.  The port of examples/15.
+Route on the card: the embedded chain trains on the fused Taylor
+kernels, from the embedding's Taylor state; ``predict`` runs the fused MLP
+kernel after the embedding.  The port of examples/15.
 
 From the repository root, on the CUDA card (``--cpu``: on the CPU)::
 

@@ -16,9 +16,9 @@ scalar, so annealing it across fit calls replays one captured step.
 
 At c >= 10 the bottleneck becomes spectral: random Fourier features on
 the t column with the gated modified MLP (``main(C=10)``) take over.  The
-periodic embedding takes the traversal's plain PyTorch version in
-training; ``predict`` runs the fused MLP kernel after the embedding.  The
-port of examples/20.
+periodic embedding's chain trains on the fused Taylor kernels, from the
+embedding's Taylor state; ``predict`` runs the fused MLP kernel after the
+embedding.  The port of examples/20.
 
 From the repository root, on the CUDA card (``--cpu``: on the CPU)::
 

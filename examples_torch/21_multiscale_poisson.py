@@ -9,9 +9,9 @@ factor).  A raw-coordinate tanh MLP cannot train it at this budget;
 random Fourier features at σ ≈ k (``fourier_features=(32, k)``) solve it.
 Boundary conditions bind exactly through the ansatz.
 
-Route on the card: the embedded chain (32 features: 65 inputs) takes the
-traversal's plain PyTorch version in training; ``predict`` runs the
-fused MLP kernel after the embedding.  The port of examples/21.
+Route on the card: the embedded chain (32 features: 65 inputs) trains on
+the fused Taylor kernels, from the embedding's Taylor state; ``predict``
+runs the fused MLP kernel after the embedding.  The port of examples/21.
 
 From the repository root, on the CUDA card (``--cpu``: on the CPU)::
 

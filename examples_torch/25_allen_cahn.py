@@ -14,9 +14,9 @@ trivial metastable branch.  The recipe:
   weighting, eps a runtime scalar, so the staged schedule replays ONE
   captured step.
 
-Ground truth: 512-mode Fourier spectral RK4.  The embedding takes the
-traversal's plain PyTorch version in training; ``predict`` runs the fused
-MLP kernel after it.  The port of examples/25 (the separable recipe,
+Ground truth: 512-mode Fourier spectral RK4.  The embedded chain trains
+on the fused Taylor kernels, from the embedding's Taylor state;
+``predict`` runs the fused MLP kernel after the embedding.  The port of examples/25 (the separable recipe,
 examples/28, does better where a tensor-product grid applies).
 
 From the repository root, on the CUDA card (``--cpu``: on the CPU)::

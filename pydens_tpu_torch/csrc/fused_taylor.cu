@@ -11,6 +11,20 @@
 // S_ab -> s''T_aT_b + s'S_ab.  The backward is the adjoint of that
 // recurrence; it needs s''' and the input state of each activation.
 //
+// The start may instead be given whole, as an input state (n, n_streams,
+// in_dim): an input embedding's value and Taylor streams (a periodic
+// column's sin, cos and their derivatives, whose (x, x) taps are not 0),
+// which the chain's first dense layer takes as it takes any state.  Every
+// kernel has an instance that loads it (load_input_state, in place of
+// init_state's one-hot start: the template flag INPUT_STATE) and is
+// otherwise unchanged; the backward's then writes the whole state's
+// cotangent, or none where no one asks for it.  The raw coordinates'
+// instances compile as they did before the input state: the flag is a
+// template argument, not a runtime branch, because a runtime one cost the
+// backward 24 bytes of spills and lowered its share of its roofline in the
+// 64-wide Adam cell from 13.91 to 13.70%, 1.5% (PERF.md section 6; NVIDIA
+// H100 80GB HBM3, 700 W).
+//
 // A third kernel, taylor_jvp_kernel, has no Pallas counterpart: it is the
 // tangent of the traversal with respect to the packed weights (the J.v of a
 // Levenberg-Marquardt step, which the JAX package takes by XLA autodiff of
@@ -202,6 +216,33 @@ __device__ void init_state(const Plan& p, float* buf,
     }
     buf[k * p.ld + r] = v;
   }
+}
+
+// The tile's input state given whole: `xs` (n, n_streams, in_dim), an
+// embedding's Taylor state; padded points get 0 in every stream.
+template <int TP = TILE_POINTS>
+__device__ void load_input_state(const Plan& p, float* buf,
+                                 const float* __restrict__ xs, int n,
+                                 int tile) {
+  for (int idx = threadIdx.x; idx < p.in_dim * p.rows; idx += THREADS) {
+    const int k = idx / p.rows, r = idx - k * p.rows;
+    const int s = r / TP;
+    const int row = tile * TP + (r - s * TP);
+    buf[k * p.ld + r] =
+        row < n ? xs[((size_t)row * p.n_streams + s) * p.in_dim + k] : 0.f;
+  }
+}
+
+// The tile's input state from x or, with INPUT_STATE, from xs.
+template <bool INPUT_STATE, int TP = TILE_POINTS>
+__device__ __forceinline__ void start_state(const Plan& p, float* buf,
+                                            const float* __restrict__ x,
+                                            const float* __restrict__ xs,
+                                            int n, int tile) {
+  if constexpr (INPUT_STATE)
+    load_input_state<TP>(p, buf, xs, n, tile);
+  else
+    init_state<TP>(p, buf, x, n, tile);
 }
 
 // The activation of one (feature, point) column of a state, every stream
@@ -457,13 +498,17 @@ __device__ void load_cotangent(const Plan& p, const float* __restrict__ g,
   }
 }
 
-// With `states` (members, tiles, save_rows, TILE_POINTS), each tile's rows
-// of the states the backward reads are written there too (padded points as
-// computed from x = 0); without, nothing is.
+// The input is the points x (n, in_dim), or with INPUT_STATE an embedding's
+// Taylor state xs (n, n_streams, in_dim) and no x.  With `states` (members,
+// tiles, save_rows, TILE_POINTS), each tile's rows of the states the
+// backward reads are written there too (padded points as computed from x =
+// 0, or from a zero state); without, nothing is.
+template <bool INPUT_STATE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS_PER_SM)
-taylor_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
-                  const int* __restrict__ tab, float* __restrict__ out,
-                  float* __restrict__ states, int n, int P, int out_dim) {
+taylor_fwd_kernel(const float* __restrict__ x, const float* __restrict__ xs,
+                  const float* __restrict__ w_glob, const int* __restrict__ tab,
+                  float* __restrict__ out, float* __restrict__ states, int n,
+                  int P, int out_dim) {
   extern __shared__ float4 smem4[];
   float* w = reinterpret_cast<float*>(smem4);
   const Plan p = read_plan(tab);
@@ -479,7 +524,7 @@ taylor_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
   if (states != nullptr) states += member * tiles * tile_floats;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     float* slab = states != nullptr ? states + tile * tile_floats : nullptr;
-    init_state(p, buf[0], x, n, tile);
+    start_state<INPUT_STATE>(p, buf[0], x, xs, n, tile);
     wait_weights();
     __syncthreads();
     int cur = 0, width = p.in_dim;
@@ -842,10 +887,12 @@ __device__ int next_dense(const Plan& p, int o) {
 // TP points a tile (16, or 8 or 4 where the states at 16 do not fit: the
 // plan's choice); the block holds four tile states (primal and tangent, in
 // and out) and the ring, or, with `resident` (the plan's choice for small
-// chains), W and Wv whole (P floats each) and the split-K partials.
-template <int TP>
+// chains), W and Wv whole (P floats each) and the split-K partials.  The
+// input is x or, with INPUT_STATE, xs, as the forward's.
+template <int TP, bool INPUT_STATE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS_PER_SM)
-taylor_jvp_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
+taylor_jvp_kernel(const float* __restrict__ x, const float* __restrict__ xs,
+                  const float* __restrict__ w_glob,
                   const float* __restrict__ v_glob, const int* __restrict__ tab,
                   float* __restrict__ out, float* __restrict__ tout, int n,
                   int out_dim, int P, int resident) {
@@ -878,7 +925,8 @@ taylor_jvp_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
   if (!resident && first >= 0 && (int)blockIdx.x < tiles)
     start_head(p, p.ops + first * OP_INTS, w_glob, v_glob, ring, slot_floats);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    init_state<TP>(p, buf[0], x, n, tile);
+    start_state<INPUT_STATE, TP>(p, buf[0], x, xs, n, tile);
+    // The input state does not depend on the weights: its tangent is 0.
     for (int idx = threadIdx.x; idx < p.in_dim * p.rows; idx += THREADS) {
       const int k = idx / p.rows;
       tbuf[0][k * p.ld + idx - k * p.rows] = 0.f;
@@ -939,13 +987,17 @@ __device__ const float* dense_source(const int* op, const float* slab) {
 // slabs (members * gridDim.x, save_rows, TILE_POINTS) that each tile's
 // replay of the forward fills.  The adjoint is the same: it stages each
 // saved state into shared memory (stage_state, cp.async) and reads it
-// there.
-template <bool FROM_STATES>
+// there.  The input is x or, with INPUT_STATE, xs, as the forward's.  dx
+// gets the input's cotangent: x's (members, n, in_dim), the V rows only; or
+// with INPUT_STATE the whole state's (members, n, n_streams, in_dim), and
+// none where dx is null.
+template <bool FROM_STATES, bool INPUT_STATE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS_PER_SM)
-taylor_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
-                  const int* __restrict__ tab, const float* __restrict__ g,
-                  float* __restrict__ saves, float* __restrict__ partials,
-                  float* __restrict__ dx, int n, int P, int out_dim) {
+taylor_bwd_kernel(const float* __restrict__ x, const float* __restrict__ xs,
+                  const float* __restrict__ w_glob, const int* __restrict__ tab,
+                  const float* __restrict__ g, float* __restrict__ saves,
+                  float* __restrict__ partials, float* __restrict__ dx, int n,
+                  int P, int out_dim) {
   extern __shared__ float4 smem4[];
   float* w = reinterpret_cast<float*>(smem4);
   const Plan p = read_plan(tab);
@@ -959,7 +1011,11 @@ taylor_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
   const size_t slot = member * gridDim.x + blockIdx.x;
   w_glob += member * P;
   g += member * n * p.n_streams * out_dim;
-  dx += member * n * p.in_dim;
+  if constexpr (INPUT_STATE) {
+    if (dx != nullptr) dx += member * n * p.n_streams * p.in_dim;
+  } else {
+    dx += member * n * p.in_dim;
+  }
   const int tiles = (n + TILE_POINTS - 1) / TILE_POINTS;
   const size_t tile_floats = (size_t)p.save_rows * TILE_POINTS;
   float* slab = saves + slot * tile_floats;
@@ -973,7 +1029,7 @@ taylor_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
     } else {
       // Recompute the forward, keeping what the adjoint reads.  The last
       // op's output is not needed.
-      init_state(p, buf[0], x, n, tile);
+      start_state<INPUT_STATE>(p, buf[0], x, xs, n, tile);
       wait_weights();
       __syncthreads();
       int cur = 0, width = p.in_dim;
@@ -1020,7 +1076,7 @@ taylor_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
         if (o == 0) {
           xi = (gi + 1) % 3;
           oi = 3 - gi - xi;
-          init_state(p, buf[xi], x, n, tile);
+          start_state<INPUT_STATE>(p, buf[xi], x, xs, n, tile);
         } else {
           if (ri < 0) {
             ri = (gi + 1) % 3;
@@ -1042,11 +1098,15 @@ taylor_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
         param_grad(buf[xi], buf[gi], p.ld, p.rows, K, N, part + op[3],
                    part + op[4], first);
         // G_in[k][r] = sum_j G[j][r] * W[k][j]; below the first layer only
-        // the V rows (d x) are needed.  Into the input's buffer once
-        // param_grad is done with it, where the staged state is kept.
-        if (oi == xi) __syncthreads();
-        product(buf[gi], buf[oi], p.ld, o == 0 ? TILE_POINTS : p.rows, N, K,
-                w + op[3], N, 1, nullptr);
+        // the input's rows are needed (x's V rows, or the whole state), and
+        // none without dx.  Into the input's buffer once param_grad is done
+        // with it, where the staged state is kept.
+        if (!INPUT_STATE || o > 0 || dx != nullptr) {
+          if (oi == xi) __syncthreads();
+          product(buf[gi], buf[oi], p.ld,
+                  INPUT_STATE || o > 0 ? p.rows : TILE_POINTS, N, K,
+                  w + op[3], N, 1, nullptr);
+        }
         __syncthreads();
         gi = oi;
       } else {
@@ -1071,10 +1131,25 @@ taylor_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w_glob,
         __syncthreads();
       }
     }
-    for (int idx = threadIdx.x; idx < TILE_POINTS * p.in_dim; idx += THREADS) {
-      const int m = idx / p.in_dim, k = idx - m * p.in_dim;
-      const int row = tile * TILE_POINTS + m;
-      if (row < n) dx[(size_t)row * p.in_dim + k] = buf[gi][k * p.ld + m];
+    if constexpr (INPUT_STATE) {
+      // Element (point m, column c) of the state's cotangent, c = s * in_dim
+      // + k, lies at feature k, row s * TILE_POINTS + m.
+      const int cols = p.n_streams * p.in_dim;
+      for (int idx = threadIdx.x; dx != nullptr && idx < TILE_POINTS * cols;
+           idx += THREADS) {
+        const int m = idx / cols, c = idx - m * cols;
+        const int s = c / p.in_dim, k = c - s * p.in_dim;
+        const int row = tile * TILE_POINTS + m;
+        if (row < n)
+          dx[(size_t)row * cols + c] = buf[gi][k * p.ld + s * TILE_POINTS + m];
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < TILE_POINTS * p.in_dim;
+           idx += THREADS) {
+        const int m = idx / p.in_dim, k = idx - m * p.in_dim;
+        const int row = tile * TILE_POINTS + m;
+        if (row < n) dx[(size_t)row * p.in_dim + k] = buf[gi][k * p.ld + m];
+      }
     }
     __syncthreads();
   }
@@ -1130,28 +1205,64 @@ int blocks_per_sm(const void* kernel, size_t smem) {
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-template <int TP>
-int launch_jvp(const float* x, const float* w, const float* v, const int* tab,
-               float* out, float* tout, int n, size_t smem, int out_dim,
-               int P, int resident, int grid, int members,
-               cudaStream_t stream) {
-  cudaError_t err = allow_smem((const void*)taylor_jvp_kernel<TP>, smem);
+template <int TP, bool INPUT_STATE>
+int launch_jvp_as(const float* x, const float* xs, const float* w,
+                  const float* v, const int* tab, float* out, float* tout,
+                  int n, size_t smem, int out_dim, int P, int resident,
+                  int grid, int members, cudaStream_t stream) {
+  cudaError_t err =
+      allow_smem((const void*)taylor_jvp_kernel<TP, INPUT_STATE>, smem);
   if (err != cudaSuccess) return (int)err;
-  taylor_jvp_kernel<TP><<<dim3(grid, members), THREADS, smem, stream>>>(
-      x, w, v, tab, out, tout, n, out_dim, P, resident);
+  taylor_jvp_kernel<TP, INPUT_STATE>
+      <<<dim3(grid, members), THREADS, smem, stream>>>(
+          x, xs, w, v, tab, out, tout, n, out_dim, P, resident);
   return (int)cudaGetLastError();
 }
 
-template <bool FROM_STATES>
-cudaError_t launch_bwd(const float* x, const float* w, const int* tab,
-                       const float* g, float* saves, float* partials,
-                       float* dx, int n, int P, int out_dim, size_t smem,
-                       int grid, int members, cudaStream_t stream) {
-  cudaError_t err = allow_smem((const void*)taylor_bwd_kernel<FROM_STATES>, smem);
+// The tangent kernel's instance for the input: x, or the input state xs.
+template <int TP>
+int launch_jvp(const float* x, const float* xs, const float* w, const float* v,
+               const int* tab, float* out, float* tout, int n, size_t smem,
+               int out_dim, int P, int resident, int grid, int members,
+               cudaStream_t stream) {
+  return xs != nullptr
+             ? launch_jvp_as<TP, true>(x, xs, w, v, tab, out, tout, n, smem,
+                                       out_dim, P, resident, grid, members,
+                                       stream)
+             : launch_jvp_as<TP, false>(x, xs, w, v, tab, out, tout, n, smem,
+                                        out_dim, P, resident, grid, members,
+                                        stream);
+}
+
+template <bool FROM_STATES, bool INPUT_STATE>
+cudaError_t launch_bwd_as(const float* x, const float* xs, const float* w,
+                          const int* tab, const float* g, float* saves,
+                          float* partials, float* dx, int n, int P,
+                          int out_dim, size_t smem, int grid, int members,
+                          cudaStream_t stream) {
+  cudaError_t err = allow_smem(
+      (const void*)taylor_bwd_kernel<FROM_STATES, INPUT_STATE>, smem);
   if (err != cudaSuccess) return err;
-  taylor_bwd_kernel<FROM_STATES><<<dim3(grid, members), THREADS, smem, stream>>>(
-      x, w, tab, g, saves, partials, dx, n, P, out_dim);
+  taylor_bwd_kernel<FROM_STATES, INPUT_STATE>
+      <<<dim3(grid, members), THREADS, smem, stream>>>(
+          x, xs, w, tab, g, saves, partials, dx, n, P, out_dim);
   return cudaGetLastError();
+}
+
+// The backward's instance for the input: x, or the input state xs.
+template <bool FROM_STATES>
+cudaError_t launch_bwd(const float* x, const float* xs, const float* w,
+                       const int* tab, const float* g, float* saves,
+                       float* partials, float* dx, int n, int P, int out_dim,
+                       size_t smem, int grid, int members,
+                       cudaStream_t stream) {
+  return xs != nullptr
+             ? launch_bwd_as<FROM_STATES, true>(x, xs, w, tab, g, saves,
+                                                partials, dx, n, P, out_dim,
+                                                smem, grid, members, stream)
+             : launch_bwd_as<FROM_STATES, false>(x, xs, w, tab, g, saves,
+                                                 partials, dx, n, P, out_dim,
+                                                 smem, grid, members, stream);
 }
 
 }  // namespace
@@ -1166,9 +1277,12 @@ int pdt_taylor_tile_points() { return TILE_POINTS; }
 int pdt_taylor_jvp_blocks_per_sm(int n_streams, int wmax, int tile, int P,
                                  int resident) {
   const size_t smem = taylor_jvp_smem_bytes(n_streams, wmax, tile, P, resident);
-  if (tile == 16) return blocks_per_sm((const void*)taylor_jvp_kernel<16>, smem);
-  if (tile == 8) return blocks_per_sm((const void*)taylor_jvp_kernel<8>, smem);
-  if (tile == 4) return blocks_per_sm((const void*)taylor_jvp_kernel<4>, smem);
+  if (tile == 16)
+    return blocks_per_sm((const void*)taylor_jvp_kernel<16, false>, smem);
+  if (tile == 8)
+    return blocks_per_sm((const void*)taylor_jvp_kernel<8, false>, smem);
+  if (tile == 4)
+    return blocks_per_sm((const void*)taylor_jvp_kernel<4, false>, smem);
   return -(int)cudaErrorInvalidValue;
 }
 
@@ -1177,68 +1291,81 @@ int pdt_taylor_jvp_blocks_per_sm(int n_streams, int wmax, int tile, int P,
 // sizes, or a negative CUDA error code.
 int pdt_taylor_blocks_per_sm(int kernel, int P, int n_streams, int wmax) {
   if (kernel == 0)
-    return blocks_per_sm((const void*)taylor_fwd_kernel,
+    return blocks_per_sm((const void*)taylor_fwd_kernel<false>,
                          taylor_smem_bytes(P, n_streams, wmax, 2));
   const size_t smem = taylor_smem_bytes(P, n_streams, wmax, 3);
-  if (kernel == 1) return blocks_per_sm((const void*)taylor_bwd_kernel<false>, smem);
-  if (kernel == 2) return blocks_per_sm((const void*)taylor_bwd_kernel<true>, smem);
+  if (kernel == 1)
+    return blocks_per_sm((const void*)taylor_bwd_kernel<false, false>, smem);
+  if (kernel == 2)
+    return blocks_per_sm((const void*)taylor_bwd_kernel<true, false>, smem);
   return -(int)cudaErrorInvalidValue;
 }
 
-// x (n, in_dim), w (members, P), tab (device op table), out (members, n,
+// x (n, in_dim), or null and xs (n, n_streams, in_dim) an embedding's
+// Taylor state; w (members, P), tab (device op table), out (members, n,
 // n_streams*out_dim), states (members, tiles, save_rows, TILE_POINTS) or
 // null; `grid` persistent blocks a member.
-int pdt_taylor_forward(const float* x, const float* w, const int* tab,
-                       float* out, float* states, int n, int P,
-                       int n_streams, int wmax, int out_dim, int grid,
+int pdt_taylor_forward(const float* x, const float* xs, const float* w,
+                       const int* tab, float* out, float* states, int n,
+                       int P, int n_streams, int wmax, int out_dim, int grid,
                        int members, void* stream) {
   const size_t smem = taylor_smem_bytes(P, n_streams, wmax, 2);
-  cudaError_t err = allow_smem((const void*)taylor_fwd_kernel, smem);
+  cudaError_t err = allow_smem(xs != nullptr
+                                   ? (const void*)taylor_fwd_kernel<true>
+                                   : (const void*)taylor_fwd_kernel<false>,
+                               smem);
   if (err != cudaSuccess) return (int)err;
-  taylor_fwd_kernel<<<dim3(grid, members), THREADS, smem,
-                      (cudaStream_t)stream>>>(
-      x, w, tab, out, states, n, P, out_dim);
+  const dim3 blocks(grid, members);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (xs != nullptr)
+    taylor_fwd_kernel<true><<<blocks, THREADS, smem, st>>>(
+        x, xs, w, tab, out, states, n, P, out_dim);
+  else
+    taylor_fwd_kernel<false><<<blocks, THREADS, smem, st>>>(
+        x, xs, w, tab, out, states, n, P, out_dim);
   return (int)cudaGetLastError();
 }
 
-// x (n, in_dim), w and v (members, P), tab, out and tout (members, n,
-// n_streams*out_dim); `tile` points a tile (16, 8 or 4), the weights
-// `resident` (1) or streamed (0), `grid` persistent blocks a member.
-int pdt_taylor_jvp(const float* x, const float* w, const float* v,
-                   const int* tab, float* out, float* tout, int n, int P,
-                   int n_streams, int wmax, int out_dim, int tile,
-                   int resident, int grid, int members, void* stream) {
+// x or xs as the forward's; w and v (members, P), tab, out and tout
+// (members, n, n_streams*out_dim); `tile` points a tile (16, 8 or 4), the
+// weights `resident` (1) or streamed (0), `grid` persistent blocks a member.
+int pdt_taylor_jvp(const float* x, const float* xs, const float* w,
+                   const float* v, const int* tab, float* out, float* tout,
+                   int n, int P, int n_streams, int wmax, int out_dim,
+                   int tile, int resident, int grid, int members,
+                   void* stream) {
   const size_t smem = taylor_jvp_smem_bytes(n_streams, wmax, tile, P, resident);
   const cudaStream_t st = (cudaStream_t)stream;
   if (tile == 16)
-    return launch_jvp<16>(x, w, v, tab, out, tout, n, smem, out_dim, P,
+    return launch_jvp<16>(x, xs, w, v, tab, out, tout, n, smem, out_dim, P,
                           resident, grid, members, st);
   if (tile == 8)
-    return launch_jvp<8>(x, w, v, tab, out, tout, n, smem, out_dim, P,
+    return launch_jvp<8>(x, xs, w, v, tab, out, tout, n, smem, out_dim, P,
                          resident, grid, members, st);
   if (tile == 4)
-    return launch_jvp<4>(x, w, v, tab, out, tout, n, smem, out_dim, P,
+    return launch_jvp<4>(x, xs, w, v, tab, out, tout, n, smem, out_dim, P,
                          resident, grid, members, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// g (members, n, n_streams*out_dim); saves, with from_states, a forward's
-// states (members, tiles, save_rows, TILE_POINTS), else the slabs (members *
-// grid * save_rows * TILE_POINTS); partials (members * grid * P); dw
-// (members, P); dx (members, n, in_dim).  grid (blocks a member) <= number
+// x or xs as the forward's; g (members, n, n_streams*out_dim); saves, with
+// from_states, a forward's states (members, tiles, save_rows, TILE_POINTS),
+// else the slabs (members * grid * save_rows * TILE_POINTS); partials
+// (members * grid * P); dw (members, P); dx (members, n, in_dim), with xs
+// (members, n, n_streams, in_dim) or null.  grid (blocks a member) <= number
 // of tiles.
-int pdt_taylor_backward(const float* x, const float* w, const int* tab,
-                        const float* g, float* saves, float* partials,
-                        float* dw, float* dx, int n, int P, int n_streams,
-                        int wmax, int out_dim, int grid, int members,
-                        int from_states, void* stream) {
+int pdt_taylor_backward(const float* x, const float* xs, const float* w,
+                        const int* tab, const float* g, float* saves,
+                        float* partials, float* dw, float* dx, int n, int P,
+                        int n_streams, int wmax, int out_dim, int grid,
+                        int members, int from_states, void* stream) {
   const size_t smem = taylor_smem_bytes(P, n_streams, wmax, 3);
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = from_states
-      ? launch_bwd<true>(x, w, tab, g, saves, partials, dx, n, P, out_dim,
+      ? launch_bwd<true>(x, xs, w, tab, g, saves, partials, dx, n, P, out_dim,
                          smem, grid, members, st)
-      : launch_bwd<false>(x, w, tab, g, saves, partials, dx, n, P, out_dim,
-                          smem, grid, members, st);
+      : launch_bwd<false>(x, xs, w, tab, g, saves, partials, dx, n, P,
+                          out_dim, smem, grid, members, st);
   if (err != cudaSuccess) return (int)err;
   reduce_partials_kernel<<<dim3((P + 255) / 256, members), 256, 0, st>>>(
       partials, dw, grid, P);

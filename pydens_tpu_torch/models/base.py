@@ -226,6 +226,10 @@ class Model(nn.Module):
         # False until the Solver's discovery run has created the V
         # variables: names frozen before then are validated lazily.
         self._params_ready = False
+        # Taylor traversals of full_taps by route (the fused kernels or the
+        # plain traversal), counted as the Python runs (a graph replay
+        # counts none): what a fit step's span reports.
+        self._taylor_traversals = {"kernels": 0, "plain": 0}
 
     # -- network body (provided by subclasses) ------------------------------
     def reset_parameters(self, generator):
@@ -684,6 +688,11 @@ class Model(nn.Module):
         kernels)."""
         return self.network_apply_taylor(net_params, xs, closure)
 
+    def _taylor_route(self, closure):
+        """``"kernels"`` where :meth:`network_apply_taylor` takes the fused
+        Taylor kernels for ``closure``, else ``"plain"``."""
+        return "plain"
+
     def full_taps(self, params, xs, derivs, plain=False):
         """All requested pure field taps of the FULL model (network body +
         ansatz) in one Taylor-mode network traversal (with ``plain``, the
@@ -714,6 +723,8 @@ class Model(nn.Module):
         closure = self.plan_closure(derivs)
         traversal = (self.network_taylor_plain if plain
                      else self.network_apply_taylor)
+        self._taylor_traversals["plain" if plain else
+                                self._taylor_route(closure)] += 1
         V, taps = traversal(params["net"], xs, closure)
         V = self.member_rows(V)
         taps = {mi: self.member_rows(t) for mi, t in taps.items()}
@@ -801,10 +812,13 @@ class ConvBlockModel(Model):
     * ``adaptive_activation``: L-LAAF slopes on every ``a`` slot.
 
     Routing is fixed here.  The fused Taylor kernels take plain ``f c a``
-    chains on the raw coordinates: embedded, modified, adaptive and
-    branched models take the plain traversal (an embedding's Taylor state
-    as its input state).  ``predict`` takes the MLP kernel after the
-    embedding for ``f c a R +`` chains without slopes.
+    chains, on the raw coordinates or, for periodic and Fourier-feature
+    models, from the embedding's Taylor state as their input state
+    (``TaylorPlan(input_state=True)``); modified, adaptive and branched
+    models, and closures above order two, take the plain traversal (from
+    the embedding's state where the model embeds).  ``predict`` takes the
+    MLP kernel after the embedding for ``f c a R +`` chains without
+    slopes.
     """
 
     def __init__(self, ndims, initial_condition=None, boundary_condition=None,
@@ -938,10 +952,11 @@ class ConvBlockModel(Model):
                     "trainable slope to — it would be a silent no-op")
         self.layer_names = self.net.layer_names
         self._taylor_plans = {}
+        self._net_in_dim = in_dim
         # The kernels' scope, decided here: the MLP kernel after the
-        # embedding, the Taylor kernels on the raw coordinates only.
+        # embedding, the Taylor kernels from the embedding's state.
         self._mlp_plan = None
-        self._taylor_kernels = self.arch == "mlp" and not self._embedded
+        self._taylor_kernels = self.arch == "mlp"
         if self.arch == "mlp" and fused_mlp.supports(
                 self.net.tokens, self.net.activations, self.net.layer_shapes,
                 in_dim, dtype, adaptive=self.net.adaptive):
@@ -1031,13 +1046,17 @@ class ConvBlockModel(Model):
     def network_apply_taylor(self, net_params, xs, closure):
         """The network's Taylor state: through the fused Taylor kernels
         when the (chain, closure) is in their scope, else the plain
-        traversal, from the embedding's state where the model embeds."""
+        traversal; from the embedding's state where the model embeds."""
         plan = self._fused_taylor_plan(closure)
-        if plan is not None:
-            return fused_taylor.fused_taylor_taps(
-                fused_taylor.pack_weights(net_params, self.net.dense_names),
-                xs, plan)
-        return self.network_taylor_plain(net_params, xs, closure)
+        if plan is None:
+            return self.network_taylor_plain(net_params, xs, closure)
+        if self._embedded:
+            V, taps = self._embed_state(xs, closure)
+            xs = torch.stack([V] + [taps[(d,)] for d in plan.firsts]
+                             + [taps[tuple(ab)] for ab in plan.pairs], dim=1)
+        return fused_taylor.fused_taylor_taps(
+            fused_taylor.pack_weights(net_params, self.net.dense_names),
+            xs, plan)
 
     def network_taylor_plain(self, net_params, xs, closure):
         """The network's Taylor state by the plain traversal, from the
@@ -1049,16 +1068,23 @@ class ConvBlockModel(Model):
         return self.net.taylor_taps(net_params, xs, closure)
 
     def _fused_taylor_plan(self, closure):
+        """The kernels' plan of ``closure``, or None off their scope; an
+        embedded model's takes the embedding's state (its width
+        ``_net_in_dim``) as its input."""
         key = tuple(closure)
         if key not in self._taylor_plans:
             args = (self.net.tokens, self.net.activations, list(closure),
-                    self.net.layer_shapes, self.total)
+                    self.net.layer_shapes, self._net_in_dim)
             self._taylor_plans[key] = (
-                fused_taylor.TaylorPlan(*args)
+                fused_taylor.TaylorPlan(*args, input_state=self._embedded)
                 if self._taylor_kernels and fused_taylor.supports(
                     *args, dtype=self.dtype, adaptive=self.net.adaptive)
                 else None)
         return self._taylor_plans[key]
+
+    def _taylor_route(self, closure):
+        return ("plain" if self._fused_taylor_plan(closure) is None
+                else "kernels")
 
     def network_apply_predict(self, net_params, xs):
         if self._mlp_plan is None:

@@ -36,10 +36,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "pdt_taylor_tile_points": [],
-    "pdt_taylor_forward": [_P] * 5 + [_I] * 7 + [_P],
-    "pdt_taylor_backward": [_P] * 8 + [_I] * 8 + [_P],
+    "pdt_taylor_forward": [_P] * 6 + [_I] * 7 + [_P],
+    "pdt_taylor_backward": [_P] * 9 + [_I] * 8 + [_P],
     "pdt_taylor_blocks_per_sm": [_I] * 4,
-    "pdt_taylor_jvp": [_P] * 6 + [_I] * 9 + [_P],
+    "pdt_taylor_jvp": [_P] * 7 + [_I] * 9 + [_P],
     "pdt_taylor_jvp_blocks_per_sm": [_I] * 5,
     "pdt_mlp_blocks_per_sm": [_I] * 5,
     "pdt_mlp_forward": [_P, _P, _P, _P] + [_I] * 10 + [_P],
@@ -126,12 +126,13 @@ def check_operand(name, t, shape):
                          f"{tuple(shape)}")
 
 
-def check_packed(packed, x, plan):
-    """Validate a kernel's points ``x`` ``(n, plan.in_dim)`` and packed
-    weights ``(P,)``, or ``(K, P)`` for an ensemble's K members, on the
-    points' device; returns ``n``."""
+def check_packed(packed, x, plan, x_shape=None):
+    """Validate a kernel's points ``x`` ``(n, plan.in_dim)`` (or of the
+    shape ``x_shape``, the input of ``n`` points) and packed weights
+    ``(P,)``, or ``(K, P)`` for an ensemble's K members, on the points'
+    device; returns ``n``."""
     n = x.shape[0]
-    check_operand("x", x, (n, plan.in_dim))
+    check_operand("x", x, x_shape or (n, plan.in_dim))
     if packed.dim() not in (1, 2):
         raise ValueError(f"packed weights of shape {tuple(packed.shape)}: "
                          "expected (P,) or, for an ensemble, (K, P)")

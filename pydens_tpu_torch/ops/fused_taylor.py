@@ -29,6 +29,13 @@ Poisson-type residual in one traversal.
   they fit in a quarter of the card's memory, and every backward of it
   reads them.
 
+The chain's input is the points ``(n, in_dim)`` (``V = x``, ``T_d = e_d``,
+``S = 0``), or, for a plan built with ``input_state=True``, an embedding's
+Taylor state ``(n, n_streams, in_dim)`` (the streams ``[V, T..., S...]`` of
+the embedded columns, in the plan's order): the kernels then start from it,
+so a periodic or Fourier-feature model runs on them too.  The state's
+cotangent is computed only where autograd needs it.
+
 The chain reaches the kernels as an int32 op table plus ONE packed weight
 buffer (each layer's ``w`` row-major, then its ``b``), so one compiled
 kernel serves every chain in scope.  An ensemble's packed weights are
@@ -216,8 +223,9 @@ def supports(tokens, acts, closure, layer_shapes, in_dim,
     (no skips, branches, joins or LayerNorm), activations with closed-form
     derivatives (tanh, sigmoid, sin) and no adaptive-activation slopes,
     derivative multi-indices of order <= 2, float32, and a state that fits
-    one block's shared memory.  The tangent kernel takes every such chain
-    (:func:`_jvp_tile`)."""
+    one block's shared memory.  ``in_dim`` is the chain's input width: an
+    embedding's where the chain starts from one.  The tangent kernel takes
+    every such chain (:func:`_jvp_tile`)."""
     if dtype != torch.float32 or not closure or adaptive:
         return False
     if any(t not in ("f", "c", "a") for t in tokens):
@@ -233,9 +241,12 @@ def supports(tokens, acts, closure, layer_shapes, in_dim,
 
 
 class TaylorPlan:
-    """The op table and sizes of one (chain, closure) for the kernels."""
+    """The op table and sizes of one (chain, closure) for the kernels.  With
+    ``input_state`` the chain's input is an embedding's Taylor state
+    ``(n, n_streams, in_dim)`` (:meth:`input_shape`), not the points."""
 
-    def __init__(self, tokens, acts, closure, layer_shapes, in_dim):
+    def __init__(self, tokens, acts, closure, layer_shapes, in_dim,
+                 input_state=False):
         closure = [tuple(mi) for mi in closure]
         if not supports(tokens, acts, closure, layer_shapes, in_dim):
             raise ValueError("fused Taylor kernel: unsupported layout/plan")
@@ -243,6 +254,7 @@ class TaylorPlan:
         self.pairs = [mi for mi in closure if len(mi) == 2]
         pos = {d: i for i, d in enumerate(self.firsts)}
         self.in_dim = in_dim
+        self.input_state = bool(input_state)
         self.n_streams = 1 + len(self.firsts) + len(self.pairs)
         self.ops, self.n_params = _chain_ops(tokens, acts, layer_shapes)
         self.out_dim = layer_shapes[-1][1]
@@ -284,6 +296,12 @@ class TaylorPlan:
                                         self.jvp_resident)
         self.jvp_blocks_per_sm = _blocks_per_sm(self.jvp_smem)
         self._device_tables = {}
+
+    def input_shape(self, n):
+        """The chain's input over ``n`` points: ``(n, in_dim)`` points, or
+        an embedding's Taylor state ``(n, n_streams, in_dim)``."""
+        return ((n, self.n_streams, self.in_dim) if self.input_state
+                else (n, self.in_dim))
 
     def smem_bytes(self, n_bufs):
         return _taylor_smem_bytes(self.n_params, self.n_streams, self.wmax,
@@ -392,19 +410,24 @@ def _stream_shape(packed, n, plan):
     return tuple(packed.shape[:-1]) + (n, plan.n_streams * plan.out_dim)
 
 
+def _inputs(x, plan):
+    """The C entries' ``(x, xs)`` pointers: the points, or the input state."""
+    return (None, x.data_ptr()) if plan.input_state else (x.data_ptr(), None)
+
+
 def fused_taylor_forward(packed, x, plan, keep_states=False):
-    """Streams ``[V, T..., S...]`` of the chain at points ``x`` as
-    ``(n, n_streams * out_dim)``, or ``(K, n, ...)`` for an ensemble's
-    ``(K, P)`` weights: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  With ``keep_states``, ``(streams, states)``: the
-    kernel also writes the states its backward reads
-    (:meth:`TaylorPlan.states_shape`), which :func:`fused_taylor_backward`
-    then takes instead of recomputing them; the plain version keeps none
-    (``None``)."""
+    """Streams ``[V, T..., S...]`` of the chain at ``x`` (the points, or
+    the input state: :meth:`TaylorPlan.input_shape`) as ``(n, n_streams *
+    out_dim)``, or ``(K, n, ...)`` for an ensemble's ``(K, P)`` weights:
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    With ``keep_states``, ``(streams, states)``: the kernel also writes the
+    states its backward reads (:meth:`TaylorPlan.states_shape`), which
+    :func:`fused_taylor_backward` then takes instead of recomputing them;
+    the plain version keeps none (``None``)."""
     if x.device.type == "cpu":
         out = fused_taylor_forward_plain(packed, x, plan)
         return (out, None) if keep_states else out
-    n = check_packed(packed, x, plan)
+    n = check_packed(packed, x, plan, plan.input_shape(x.shape[0]))
     K = members(packed)
     out = torch.empty(_stream_shape(packed, n, plan), dtype=x.dtype,
                       device=x.device)
@@ -413,18 +436,21 @@ def fused_taylor_forward(packed, x, plan, keep_states=False):
     if n > 0:
         grid, _ = plan.launch_shape(n, _sm_count(x.device), 2, K)
         err = _lib().pdt_taylor_forward(
-            x.data_ptr(), packed.data_ptr(),
+            *_inputs(x, plan), packed.data_ptr(),
             plan.device_table(x.device).data_ptr(), out.data_ptr(),
             None if states is None else states.data_ptr(), n, plan.n_params,
             plan.n_streams, plan.wmax, plan.out_dim, grid, K,
             torch.cuda.current_stream(x.device).cuda_stream)
         launch_checked("pdt_taylor_forward", err)
         fused_taylor_forward.launches += 1
+        fused_taylor_forward.from_embedding += int(plan.input_state)
     return (out, states) if keep_states else out
 
 
-# Wrapper calls; a CUDA-graph replay makes none.
+# Wrapper calls, and those of them from an embedding's input state; a
+# CUDA-graph replay makes none.
 fused_taylor_forward.launches = 0
+fused_taylor_forward.from_embedding = 0
 
 
 def fused_taylor_forward_plain(packed, x, plan):
@@ -434,11 +460,16 @@ def fused_taylor_forward_plain(packed, x, plan):
     if packed.dim() == 2:
         return torch.stack([fused_taylor_forward_plain(p, x, plan)
                             for p in packed.unbind(0)])
-    n = x.shape[0]
-    eye = torch.eye(plan.in_dim, dtype=x.dtype, device=x.device)
-    V = x
-    T = [eye[d].expand(n, plan.in_dim) for d in plan.firsts]
-    S = [x.new_zeros((n, plan.in_dim)) for _ in plan.pairs]
+    n, F = x.shape[0], len(plan.firsts)
+    if plan.input_state:
+        V = x[:, 0]
+        T = [x[:, 1 + i] for i in range(F)]
+        S = [x[:, 1 + F + j] for j in range(len(plan.pairs))]
+    else:
+        eye = torch.eye(plan.in_dim, dtype=x.dtype, device=x.device)
+        V = x
+        T = [eye[d].expand(n, plan.in_dim) for d in plan.firsts]
+        S = [x.new_zeros((n, plan.in_dim)) for _ in plan.pairs]
     pos = {d: i for i, d in enumerate(plan.firsts)}
     for op in plan.ops:
         if op[0] == "dense":
@@ -459,7 +490,7 @@ def fused_taylor_forward_plain(packed, x, plan):
     return torch.cat([V] + T + S, dim=1)
 
 
-def fused_taylor_backward(packed, x, g, plan, states=None):
+def fused_taylor_backward(packed, x, g, plan, states=None, input_grad=True):
     """``(d packed, d x)`` for the cotangent ``g`` of
     :func:`fused_taylor_forward`'s output: the CUDA kernels (persistent
     blocks, each summing its tiles into one partial, then a fixed-order sum
@@ -469,32 +500,41 @@ def fused_taylor_backward(packed, x, g, plan, states=None):
     ``states`` of the forward at the same weights and points
     (``keep_states``), the kernel reads them; without, it recomputes them
     tile by tile in a workspace that does not grow with ``n``
-    (:meth:`TaylorPlan.backward_workspace`).  Both give the same bits."""
+    (:meth:`TaylorPlan.backward_workspace`).  Both give the same bits.
+    From an input state, ``d x`` is the whole state's cotangent, and None
+    without ``input_grad`` (the kernel then skips it)."""
+    skip_dx = plan.input_state and not input_grad
     if x.device.type == "cpu":
-        return fused_taylor_backward_plain(packed, x, g, plan)
-    n = check_packed(packed, x, plan)
+        d_packed, dx = fused_taylor_backward_plain(packed, x, g, plan)
+        return d_packed, (None if skip_dx else dx)
+    n = check_packed(packed, x, plan, plan.input_shape(x.shape[0]))
     K = members(packed)
     check_operand("g", g, _stream_shape(packed, n, plan))
     if states is not None:
         check_operand("states", states, plan.states_shape(n, K))
     d_packed = torch.empty(packed.shape, dtype=x.dtype, device=x.device)
-    dx = torch.empty((K, n, plan.in_dim), dtype=x.dtype, device=x.device)
+    dx = (None if skip_dx else torch.empty(
+        (K,) + plan.input_shape(n), dtype=x.dtype, device=x.device))
     if n == 0:
-        return d_packed.zero_(), dx[0].zero_()
+        return d_packed.zero_(), (None if dx is None else dx[0].zero_())
     grid, save_floats, partial_floats = plan.backward_workspace(
         n, _sm_count(x.device), K)
     saves = (states if states is not None else
              torch.empty((save_floats,), dtype=x.dtype, device=x.device))
     partials = torch.empty((partial_floats,), dtype=x.dtype, device=x.device)
     err = _lib().pdt_taylor_backward(
-        x.data_ptr(), packed.data_ptr(), plan.device_table(x.device).data_ptr(),
-        g.data_ptr(), saves.data_ptr(), partials.data_ptr(),
-        d_packed.data_ptr(), dx.data_ptr(), n, plan.n_params, plan.n_streams,
-        plan.wmax, plan.out_dim, grid, K, int(states is not None),
+        *_inputs(x, plan), packed.data_ptr(),
+        plan.device_table(x.device).data_ptr(), g.data_ptr(),
+        saves.data_ptr(), partials.data_ptr(), d_packed.data_ptr(),
+        None if dx is None else dx.data_ptr(), n, plan.n_params,
+        plan.n_streams, plan.wmax, plan.out_dim, grid, K,
+        int(states is not None),
         torch.cuda.current_stream(x.device).cuda_stream)
     launch_checked("pdt_taylor_backward", err)
     fused_taylor_backward.launches += 1
     fused_taylor_backward.from_states += int(states is not None)
+    if dx is None:
+        return d_packed, None
     return d_packed, (dx[0] if K == 1 else dx.sum(0))
 
 
@@ -518,13 +558,14 @@ def fused_taylor_jvp(packed, x, v, plan):
     """``(streams, tangent)``: the streams of :func:`fused_taylor_forward`
     and their tangent for the tangent ``v`` of ``packed`` (same layout), each
     ``(n, n_streams * out_dim)``: the CUDA tangent kernel for CUDA tensors,
-    the plain version for CPU tensors.  The kernel takes every plan
+    the plain version for CPU tensors; ``x`` the points or the input state,
+    which has no tangent.  The kernel takes every plan
     (``TaylorPlan.jvp_tile`` points a tile); its grid is what the card holds
     at once (:func:`jvp_blocks_per_sm`), shared by an ensemble's members
     (``v`` then ``(K, P)`` as the weights, each output ``(K, n, ...)``)."""
     if x.device.type == "cpu":
         return fused_taylor_jvp_plain(packed, x, v, plan)
-    n = check_packed(packed, x, plan)
+    n = check_packed(packed, x, plan, plan.input_shape(x.shape[0]))
     check_operand("v", v, tuple(packed.shape))
     shape = _stream_shape(packed, n, plan)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
@@ -536,7 +577,7 @@ def fused_taylor_jvp(packed, x, v, plan):
     grid, _ = plan.jvp_launch_shape(n, _sm_count(x.device),
                                     jvp_blocks_per_sm(plan, x.device), K)
     err = lib.pdt_taylor_jvp(
-        x.data_ptr(), packed.data_ptr(), v.data_ptr(),
+        *_inputs(x, plan), packed.data_ptr(), v.data_ptr(),
         plan.device_table(x.device).data_ptr(), out.data_ptr(),
         tangent.data_ptr(), n, plan.n_params, plan.n_streams, plan.wmax,
         plan.out_dim, plan.jvp_tile, int(plan.jvp_resident), grid, K,
@@ -601,12 +642,13 @@ class FusedTaylor(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         packed, x, states = ctx.saved_tensors
+        input_grad = ctx.needs_input_grad[1]
         # Views, so that the adjoint's inputs are never leaves: the engine
         # can tell whether it runs a non-leaf node under autograd.grad.
         d_packed, dx = _FusedTaylorAdjoint.apply(
             packed.view_as(packed), x.view_as(x), g.contiguous(), ctx.plan,
-            states)
-        return d_packed, (dx if ctx.needs_input_grad[1] else None), None, None
+            states, input_grad)
+        return d_packed, (dx if input_grad else None), None, None
 
 
 class _FusedTaylorAdjoint(torch.autograd.Function):
@@ -616,14 +658,15 @@ class _FusedTaylorAdjoint(torch.autograd.Function):
     not compute — with respect to the weights and the points (third-order
     terms of the traversal), and ``J_x`` of a cotangent of ``d x`` — raise
     when a backward pass needs them, and it is not differentiable again.
-    ``states`` (the forward's, or None) is read, never differentiated."""
+    ``states`` (the forward's, or None) is read, never differentiated;
+    without ``input_grad`` an input state's cotangent is not computed."""
 
     @staticmethod
-    def forward(ctx, packed, x, g, plan, states):
+    def forward(ctx, packed, x, g, plan, states, input_grad):
         ctx.save_for_backward(packed, x)
         ctx.plan = plan
         ctx.set_materialize_grads(False)
-        return fused_taylor_backward(packed, x, g, plan, states)
+        return fused_taylor_backward(packed, x, g, plan, states, input_grad)
 
     @staticmethod
     @once_differentiable
@@ -639,11 +682,11 @@ class _FusedTaylorAdjoint(torch.autograd.Function):
                 "the fused Taylor op has no tangent with respect to its "
                 "points: J.v takes the weights' direction only")
         if v_packed is None or not ctx.needs_input_grad[2]:
-            return None, None, None, None, None
+            return None, None, None, None, None, None
         packed, x = ctx.saved_tensors
         _, tangent = fused_taylor_jvp(packed, x, v_packed.contiguous(),
                                       ctx.plan)
-        return None, None, tangent, None, None
+        return None, None, tangent, None, None, None
 
 
 def split_streams(out, plan):
@@ -660,6 +703,7 @@ def split_streams(out, plan):
 
 
 def fused_taylor_taps(packed, x, plan):
-    """``(V, taps)`` of the chain through :class:`FusedTaylor`."""
+    """``(V, taps)`` of the chain through :class:`FusedTaylor`; ``x`` the
+    points or the input state (:meth:`TaylorPlan.input_shape`)."""
     return split_streams(FusedTaylor.apply(packed, x.contiguous(), plan,
                                            torch.is_grad_enabled()), plan)

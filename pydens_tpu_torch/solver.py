@@ -333,6 +333,9 @@ class _FitStep:
         self.rebalance_graph = None
         self.rebalance_eager = 0
         self.rebalance_replays = 0
+        # The Taylor traversals of the step's last Python run by route
+        # ({"kernels": k, "plain": p}; a replay runs the same ones).
+        self.taylor_routes = None
 
     def _points_row(self):
         if self.resample:
@@ -510,10 +513,24 @@ class _FitStep:
             loss, grad = self.shards.share_sum(loss, grad)
         return loss, grad
 
+    @contextlib.contextmanager
+    def _routes(self):
+        """Counts the Taylor traversals of the block by route into
+        ``taylor_routes``."""
+        tally = getattr(self.loss_fn, "traversals", None)
+        before = dict(tally or {})
+        yield
+        if tally is not None:
+            self.taylor_routes = {k: v - before[k] for k, v in tally.items()}
+
     def step(self, rebalance=False):
         """One training step; reads and writes only the buffers above.  The
         update of the iteration that trips the guard is kept; every later
         one is a no-op."""
+        with self._routes():
+            self._step(rebalance)
+
+    def _step(self, rebalance):
         if isinstance(self.opt, LMConfig):
             pts = self._points_row()
             loss, live = self.opt.update(
@@ -667,6 +684,10 @@ class _LinesearchFitStep(_FitStep):
         self.live.add_(_any(was).to(torch.int64))
 
     def step(self):
+        with self._routes():
+            self._step_and_trial()
+
+    def _step_and_trial(self):
         pts, weight = self._batch()
         with torch.no_grad():
             self.step_points.copy_(pts)
@@ -1524,6 +1545,7 @@ class Solver:
         loss_fn.member_mean = member_mean
         loss_fn.term_blocks = term_blocks
         loss_fn.resvec = resvec
+        loss_fn.traversals = model._taylor_traversals
         return loss_fn
 
     def _sample(self, sampler, n, batch_size):
@@ -1925,9 +1947,12 @@ class Solver:
                                    for k, v in step.state.items()}
                 self.losses.extend(fit_losses)
             if root is not None:
+                routes = step.taylor_routes or {}
                 root.attrs.update(niters=niters, steps=iters_run,
                                   batch_size=batch_size,
-                                  optimizer=opt_name)
+                                  optimizer=opt_name,
+                                  taylor_kernels=routes.get("kernels", 0),
+                                  taylor_plain=routes.get("plain", 0))
 
         self.history.append({
             "niters": iters_run, "batch_size": batch_size,

@@ -451,9 +451,10 @@ def test_solver_predict_launches_the_mlp_kernel_once():
 def test_model_options_route_on_cuda(kind):
     # The model options on the card: a periodic or Fourier-feature predict
     # is one MLP launch at the embedded width; modified and adaptive
-    # models take the plain network; the second-IC wave's loss launches
-    # both Taylor kernels and equals the nested-gradient loss (rtol 2e-5,
-    # gradients rtol 2e-3 / atol 2e-5).
+    # models take the plain network; the second-IC wave's loss, and the
+    # periodic and Fourier-feature ones from the embedding's Taylor state,
+    # launch both Taylor kernels and equal the nested-gradient loss (rtol
+    # 2e-5, gradients rtol 2e-3 / atol 2e-5).
     _require_cuda()
     import numpy as np
     from pydens_tpu_torch import D, Solver
@@ -482,8 +483,8 @@ def test_model_options_route_on_cuda(kind):
                                  torch.as_tensor(pts, device="cuda"))
     np.testing.assert_allclose(u, ref.cpu().numpy(), rtol=2e-5, atol=2e-5)
     closure = solver.model.plan_closure(solver._plan_derivs)
-    assert (solver.model._fused_taylor_plan(closure) is not None) == (
-        kind == "second_ic")
+    kernels = kind in ("periodic", "fourier", "second_ic")
+    assert (solver.model._fused_taylor_plan(closure) is not None) == kernels
     x = torch.as_tensor(pts[:256], device="cuda")
     results = []
     for use_plan in (True, False):
@@ -495,7 +496,7 @@ def test_model_options_route_on_cuda(kind):
         loss = loss_fn(theta, x)
         grad, = torch.autograd.grad(loss, theta)
         assert fused_taylor.fused_taylor_forward.launches - fwd == int(
-            use_plan and kind == "second_ic")
+            use_plan and kernels)
         results.append((loss.detach(), grad))
     (pl, pg), (fl, fg) = results
     torch.testing.assert_close(pl, fl, rtol=2e-5, atol=0)

@@ -232,15 +232,16 @@ def test_loss_and_grads_match_jax(name):
     np.testing.assert_allclose(grad.numpy(), _flat(jg), **GRAD_TOL)
 
 
-# The kernels each model reaches: the Taylor kernels only on plain chains
-# of the raw coordinates (pydens_tpu/models/base.py:1027-1030), the MLP
-# kernel after the embedding for f c a R + chains without slopes
-# (:1051-1063), at the embedded width.
+# The kernels each model reaches: the Taylor kernels on plain chains, on
+# the raw coordinates or from the embedding's Taylor state (where the JAX
+# package keeps embedded models off its kernels,
+# pydens_tpu/models/base.py:1027-1030), the MLP kernel after the embedding
+# for f c a R + chains without slopes (:1051-1063), at the embedded width.
 ROUTES = {
-    "periodic_tuple": (False, 3), "periodic_dict": (False, 7),
-    "periodic_dirichlet": (False, 5), "fourier_tuple": (False, 10),
-    "fourier_dict": (False, 9), "second_ic": (True, 2),
-    "second_ic_decay": (False, 5), "modified": (False, None),
+    "periodic_tuple": (True, 3), "periodic_dict": (True, 7),
+    "periodic_dirichlet": (True, 5), "fourier_tuple": (True, 10),
+    "fourier_dict": (True, 9), "second_ic": (True, 2),
+    "second_ic_decay": (True, 5), "modified": (False, None),
     "modified_periodic": (False, None), "laaf_chain": (False, None),
     "laaf_branch": (False, None), "branch_concat": (False, None),
     "branch_sum": (False, None), "branch_product": (False, None),

@@ -78,10 +78,10 @@ def host_lib(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(out / "libtaylor_host.so"))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.host_taylor_forward.argtypes = [P] * 5 + [I] * 7
-    lib.host_taylor_backward.argtypes = [P] * 8 + [I] * 8
+    lib.host_taylor_forward.argtypes = [P] * 6 + [I] * 7
+    lib.host_taylor_backward.argtypes = [P] * 9 + [I] * 8
     lib.host_taylor_smem_bytes.argtypes = [I] * 4
-    lib.host_taylor_jvp.argtypes = [P] * 6 + [I] * 9
+    lib.host_taylor_jvp.argtypes = [P] * 7 + [I] * 9
     lib.host_taylor_jvp_smem_bytes.argtypes = [I] * 5
     lib.host_taylor_forward.restype = None
     lib.host_taylor_backward.restype = None
@@ -162,8 +162,9 @@ def test_taylor_kernels_on_the_host_match_plain(host_lib, layout, features,
 
     out = np.full((n, S * plan.out_dim), np.nan, np.float32)
     grid, _ = plan.launch_shape(n, sm_count, 2)
-    host_lib.host_taylor_forward(_ptr(x), _ptr(w), _ptr(tab), _ptr(out),
-                                 None, n, P, S, W, plan.out_dim, grid, 1)
+    host_lib.host_taylor_forward(_ptr(x), None, _ptr(w), _ptr(tab),
+                                 _ptr(out), None, n, P, S, W, plan.out_dim,
+                                 grid, 1)
     ref = fused_taylor.fused_taylor_forward_plain(packed, torch.from_numpy(x),
                                                   plan)
     np.testing.assert_allclose(out, ref.numpy(), rtol=2e-5, atol=2e-5)
@@ -174,8 +175,9 @@ def test_taylor_kernels_on_the_host_match_plain(host_lib, layout, features,
     dw = np.full(P, np.nan, np.float32)
     dx = np.full((n, in_dim), np.nan, np.float32)
     host_lib.host_taylor_backward(
-        _ptr(x), _ptr(w), _ptr(tab), _ptr(g), _ptr(saves), _ptr(partials),
-        _ptr(dw), _ptr(dx), n, P, S, W, plan.out_dim, grid, 1, 0)
+        _ptr(x), None, _ptr(w), _ptr(tab), _ptr(g), _ptr(saves),
+        _ptr(partials), _ptr(dw), _ptr(dx), n, P, S, W, plan.out_dim, grid,
+        1, 0)
     rdp, rdx = fused_taylor.fused_taylor_backward_plain(
         packed, torch.from_numpy(x), torch.from_numpy(g), plan)
     np.testing.assert_allclose(dw, rdp.numpy(), rtol=2e-3, atol=2e-5)
@@ -264,7 +266,7 @@ def _check_host_jvp(host_lib, plan, packed, n, sm_count, offset, resident,
     for _ in range(2):
         out = np.full((n, S * plan.out_dim), np.nan, np.float32)
         tout = np.full_like(out, np.nan)
-        host_lib.host_taylor_jvp(_ptr(x), _ptr(wbuf[offset:]),
+        host_lib.host_taylor_jvp(_ptr(x), None, _ptr(wbuf[offset:]),
                                  _ptr(vbuf[offset:]), _ptr(tab), _ptr(out),
                                  _ptr(tout), n, P, S, W, plan.out_dim, tile,
                                  int(resident), grid, 1)
@@ -300,20 +302,22 @@ def _host_members(host_lib, plan, packed, x, g, v, grid, jvp_grid):
     tab = np.asarray(plan.table, np.int32)
     w = np.ascontiguousarray(packed)
     out = np.full((K, n, cols), np.nan, np.float32)
-    host_lib.host_taylor_forward(_ptr(x), _ptr(w), _ptr(tab), _ptr(out),
-                                 None, n, P, S, W, plan.out_dim, grid, K)
+    host_lib.host_taylor_forward(_ptr(x), None, _ptr(w), _ptr(tab),
+                                 _ptr(out), None, n, P, S, W, plan.out_dim,
+                                 grid, K)
     saves = np.full(max(K * grid * plan.save_rows
                         * fused_taylor._TILE_POINTS, 1), np.nan, np.float32)
     partials = np.full(K * grid * P, np.nan, np.float32)
     dw = np.full((K, P), np.nan, np.float32)
     dx = np.full((K, n, plan.in_dim), np.nan, np.float32)
     host_lib.host_taylor_backward(
-        _ptr(x), _ptr(w), _ptr(tab), _ptr(np.ascontiguousarray(g)),
+        _ptr(x), None, _ptr(w), _ptr(tab), _ptr(np.ascontiguousarray(g)),
         _ptr(saves), _ptr(partials), _ptr(dw), _ptr(dx), n, P, S, W,
         plan.out_dim, grid, K, 0)
     sv = np.full((K, n, cols), np.nan, np.float32)
     tv = np.full((K, n, cols), np.nan, np.float32)
-    host_lib.host_taylor_jvp(_ptr(x), _ptr(w), _ptr(np.ascontiguousarray(v)),
+    host_lib.host_taylor_jvp(_ptr(x), None, _ptr(w),
+                             _ptr(np.ascontiguousarray(v)),
                              _ptr(tab), _ptr(sv), _ptr(tv), n, P, S, W,
                              plan.out_dim, plan.jvp_tile,
                              int(plan.jvp_resident), jvp_grid, K)
@@ -433,7 +437,7 @@ def _host_paths(host_lib, plan, packed, x, g, grid):
     for keep in (None, states):
         out = np.full((K, n, S * plan.out_dim), np.nan, np.float32)
         host_lib.host_taylor_forward(
-            _ptr(x), _ptr(w), _ptr(tab), _ptr(out),
+            _ptr(x), None, _ptr(w), _ptr(tab), _ptr(out),
             None if keep is None else _ptr(keep), n, P, S, W, plan.out_dim,
             grid, K)
         outs.append(out)
@@ -447,7 +451,7 @@ def _host_paths(host_lib, plan, packed, x, g, grid):
         dw = np.full((K, P), np.nan, np.float32)
         dx = np.full((K, n, plan.in_dim), np.nan, np.float32)
         host_lib.host_taylor_backward(
-            _ptr(x), _ptr(w), _ptr(tab), _ptr(np.ascontiguousarray(g)),
+            _ptr(x), None, _ptr(w), _ptr(tab), _ptr(np.ascontiguousarray(g)),
             _ptr(saves), _ptr(partials), _ptr(dw), _ptr(dx), n, P, S, W,
             plan.out_dim, grid, K, from_states)
         grads.append((dw, dx))
@@ -494,3 +498,186 @@ def test_backward_from_states_on_the_host_is_the_recompute(
     (dw0, dx0), (dw1, dx1), (dw2, dx2) = grads
     assert np.array_equal(dw0, dw1) and np.array_equal(dx0, dx1)
     assert np.array_equal(dw1, dw2) and np.array_equal(dx1, dx2)
+
+
+# Chains that start from an embedding's Taylor state (the kernels' input
+# state): (name, ConvBlockModel options, closure, n, sm_count).  A periodic
+# x with 1 and 2 harmonics under the Schrodinger closure (the (x, x) tap:
+# its state's second-order taps -w^2 sin, -w^2 cos are not 0), a periodic x
+# and y, and random Fourier features of a 1-D Poisson closure.
+NLS_CLOSURE = [(0,), (1,), (0, 0)]
+EMBEDDED_CASES = [
+    ("periodic1", dict(ndims=2, periodic=(0,), units=[16, 16, 2],
+                       domain=[(-5.0, 5.0), (0.0, 1.5707964)]),
+     NLS_CLOSURE, 64, 2),
+    ("periodic2", dict(ndims=2, periodic={0: 2}, units=[16, 16, 2],
+                       domain=[(-5.0, 5.0), (0.0, 1.5707964)]),
+     NLS_CLOSURE, 37, 1),
+    ("periodic_xy", dict(ndims=3, periodic=(0, 1), units=[12, 12, 3]),
+     [(0,), (1,), (2,), (0, 0), (1, 1)], 33, 2),
+    ("fourier", dict(ndims=1, fourier_features=(4, 2.0), units=[16, 16, 1]),
+     [(0,), (0, 0)], 50, 2),
+]
+
+
+def _embedded_case(kw, closure, n, seed=5):
+    """A ConvBlockModel of ``kw`` (Tanh ``fa fa f``), its plan from the
+    embedding's state, packed weights, points in its domain and the input
+    state ``(n, n_streams, in_dim)`` that the model hands the kernels."""
+    from pydens_tpu_torch.models.base import ConvBlockModel
+    model = ConvBlockModel(layout="fa fa f", activation="Tanh", device="cpu",
+                           **kw)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    plan = model._fused_taylor_plan(closure)
+    assert plan is not None and plan.input_state
+    packed = fused_taylor.pack_weights(model.network_params(),
+                                       model.net.dense_names).detach()
+    lo = torch.tensor([d[0] for d in model.domain])
+    hi = torch.tensor([d[1] for d in model.domain])
+    xs = lo + (hi - lo) * torch.rand(n, len(lo),
+                                     generator=torch.Generator().manual_seed(7))
+    V, taps = model._embed_state(xs, closure)
+    state = torch.stack([V] + [taps[(d,)] for d in plan.firsts]
+                        + [taps[tuple(ab)] for ab in plan.pairs], dim=1)
+    return model, plan, packed, xs, state.contiguous()
+
+
+def _host_from_state(host_lib, plan, packed, state, g, grid, input_grad=True):
+    """Forward streams (keeping its states), and ``(d packed, d state)``
+    recomputing and from the forward's states, from an input state, each
+    from NaN-filled buffers."""
+    S, W, P, n = plan.n_streams, plan.wmax, plan.n_params, state.shape[0]
+    tab = np.asarray(plan.table, np.int32)
+    w = np.ascontiguousarray(packed)
+    xs = np.ascontiguousarray(state)
+    out = np.full((n, S * plan.out_dim), np.nan, np.float32)
+    states = np.full(plan.states_shape(n), np.nan, np.float32)
+    host_lib.host_taylor_forward(None, _ptr(xs), _ptr(w), _ptr(tab),
+                                 _ptr(out), _ptr(states), n, P, S, W,
+                                 plan.out_dim, grid, 1)
+    grads = []
+    for from_states in (0, 1):
+        saves = (states if from_states else
+                 np.full(max(grid * plan.save_rows
+                             * fused_taylor._TILE_POINTS, 1), np.nan,
+                         np.float32))
+        partials = np.full(grid * P, np.nan, np.float32)
+        dw = np.full(P, np.nan, np.float32)
+        dx = (np.full(plan.input_shape(n), np.nan, np.float32)
+              if input_grad else None)
+        host_lib.host_taylor_backward(
+            None, _ptr(xs), _ptr(w), _ptr(tab), _ptr(np.ascontiguousarray(g)),
+            _ptr(saves), _ptr(partials), _ptr(dw),
+            None if dx is None else _ptr(dx), n, P, S, W, plan.out_dim, grid,
+            1, from_states)
+        grads.append((dw, dx))
+    return out, grads
+
+
+@pytest.mark.parametrize("name,kw,closure,n,sm_count", EMBEDDED_CASES)
+def test_kernels_from_an_embedding_state_match_the_plain_traversal(
+        host_lib, name, kw, closure, n, sm_count):
+    # The forward from the embedding's input state against the model's
+    # plain traversal from the same state (values rtol/atol 2e-5); the
+    # backward's d packed and the state's cotangent against the plain
+    # version's autograd VJP (rtol 2e-3 / atol 2e-5), recomputing and from
+    # the forward's states bit for bit alike; the tangent kernel against
+    # torch.func.jvp (2e-5).  All from NaN-filled buffers.
+    model, plan, packed, xs, state = _embedded_case(kw, closure, n)
+    grid, _ = plan.launch_shape(n, sm_count, 3)
+    rng = np.random.default_rng(8)
+    g = rng.normal(size=(n, plan.n_streams * plan.out_dim)).astype(np.float32)
+    out, ((dw0, ds0), (dw1, ds1)) = _host_from_state(
+        host_lib, plan, packed.numpy(), state.numpy(), g, grid)
+    with torch.no_grad():
+        V, taps = model.network_taylor_plain(model.network_params(), xs,
+                                             closure)
+    ref = torch.cat([V] + [taps[(d,)] for d in plan.firsts]
+                    + [taps[tuple(ab)] for ab in plan.pairs], dim=1)
+    np.testing.assert_allclose(out, ref.numpy(), rtol=2e-5, atol=2e-5)
+    rdp, rds = fused_taylor.fused_taylor_backward_plain(
+        packed, state, torch.from_numpy(g), plan)
+    np.testing.assert_allclose(dw0, rdp.numpy(), rtol=2e-3, atol=2e-5)
+    np.testing.assert_allclose(ds0, rds.numpy(), rtol=2e-3, atol=2e-5)
+    assert np.array_equal(dw0, dw1) and np.array_equal(ds0, ds1)
+    v = rng.normal(size=plan.n_params).astype(np.float32)
+    sv = np.full_like(out, np.nan)
+    tv = np.full_like(out, np.nan)
+    host_lib.host_taylor_jvp(
+        None, _ptr(state.numpy()), _ptr(packed.numpy()), _ptr(v),
+        _ptr(np.asarray(plan.table, np.int32)), _ptr(sv), _ptr(tv), n,
+        plan.n_params, plan.n_streams, plan.wmax, plan.out_dim, plan.jvp_tile,
+        int(plan.jvp_resident),
+        plan.jvp_launch_shape(n, sm_count, plan.jvp_blocks_per_sm)[0], 1)
+    rsv, rtv = fused_taylor.fused_taylor_jvp_plain(packed, state,
+                                                   torch.from_numpy(v), plan)
+    np.testing.assert_allclose(sv, rsv.numpy(), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(tv, rtv.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_the_xx_tap_of_the_state_reaches_the_streams(host_lib):
+    # The periodic state's (x, x) taps are -w^2 sin and -w^2 cos, not 0:
+    # with them zeroed the streams' (x, x) block moves (it is what u_xx of
+    # the Schrodinger residual reads), and the kernel's follows the plain
+    # version in both.
+    name, kw, closure, n, sm_count = EMBEDDED_CASES[0]
+    _, plan, packed, _, state = _embedded_case(kw, closure, n)
+    grid, _ = plan.launch_shape(n, sm_count, 3)
+    g = np.zeros((n, plan.n_streams * plan.out_dim), np.float32)
+    zeroed = state.clone()
+    zeroed[:, 1 + len(plan.firsts):] = 0
+    w = 2 * np.pi / 10
+    np.testing.assert_allclose(torch.linalg.vector_norm(
+        state[:, 1 + len(plan.firsts), :2], dim=1).numpy(), w * w, rtol=1e-5)
+    outs = []
+    for st in (state, zeroed):
+        out, _ = _host_from_state(host_lib, plan, packed.numpy(), st.numpy(),
+                                  g, grid, input_grad=False)
+        np.testing.assert_allclose(
+            out, fused_taylor.fused_taylor_forward_plain(packed, st,
+                                                         plan).numpy(),
+            rtol=2e-5, atol=2e-5)
+        outs.append(out)
+    k = plan.out_dim
+    pair = slice((1 + len(plan.firsts)) * k, (2 + len(plan.firsts)) * k)
+    assert np.abs(outs[0][:, pair] - outs[1][:, pair]).max() > 1e-2
+    assert np.array_equal(outs[0][:, :pair.start], outs[1][:, :pair.start])
+
+
+@pytest.mark.parametrize(
+    "layout,features,act,in_dim,closure,n,sm_count",
+    [HOST_CASES[i] for i in (0, 3, 5, 6, 14)])
+def test_the_raw_seed_as_an_input_state_gives_the_same_bits(
+        host_lib, layout, features, act, in_dim, closure, n, sm_count):
+    # The raw path's start (V = x, T_d = e_d, S = 0) handed over as an input
+    # state: the forward's streams and states, and the backward's d packed
+    # (recomputing and from the states), bit for bit those of the raw path;
+    # the state's V rows' cotangent bit for bit the raw path's d x.
+    plan, packed = _host_case(layout, features, act, in_dim, closure)
+    splan = fused_taylor.TaylorPlan(*_plan_args(layout, features, act,
+                                                in_dim, closure),
+                                    input_state=True)
+    assert splan.table == plan.table
+    rng = np.random.default_rng(9)
+    x = rng.uniform(size=(n, in_dim)).astype(np.float32)
+    g = rng.normal(size=(1, n, plan.n_streams * plan.out_dim)).astype(
+        np.float32)
+    eye = np.eye(in_dim, dtype=np.float32)
+    seed = np.zeros((n, plan.n_streams, in_dim), np.float32)
+    seed[:, 0] = x
+    for i, d in enumerate(plan.firsts):
+        seed[:, 1 + i] = eye[d]
+    grid, _ = plan.launch_shape(n, sm_count, 3)
+    (_, kept), states, grads = _host_paths(host_lib, plan,
+                                           packed[None].numpy(), x, g, grid)
+    out, sgrads = _host_from_state(host_lib, splan, packed.numpy(), seed,
+                                   g[0], grid)
+    assert np.array_equal(out, kept[0])
+    for (dw, dx), (sdw, sdx) in zip(grads[:2], sgrads):
+        assert np.array_equal(dw[0], sdw)
+        assert np.array_equal(dx[0], sdx[:, 0])
+
+
+def _plan_args(layout, features, act, in_dim, closure):
+    net = make_layout_network(layout, features, act, in_dim=in_dim)
+    return (net.tokens, net.activations, closure, net.layer_shapes, in_dim)

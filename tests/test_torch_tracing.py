@@ -120,7 +120,8 @@ def test_on_gives_the_fit_and_predict_span_trees():
     assert [m.attrs["points"] for m in tree[fit]
             if m.name == "pydens.fit.draw"] == [250, 250, 100]
     assert fit.attrs == dict(niters=12, steps=12, batch_size=50,
-                             optimizer="Adam")
+                             optimizer="Adam", taylor_kernels=1,
+                             taylor_plain=0)
     predict = next(r for r in tree if r.name == "pydens.predict")
     assert predict.attrs == {"points": 100}
     assert [m.name for m in tree[predict]][1:] == [
@@ -238,6 +239,52 @@ def test_a_chunk_counts_the_steps_live_device_counter(optimizer, counter):
     assert all(m.attrs[counter] > 0 for m in chunks)
     # No draw a chunk with resample=False: the fixed batch is prepare's.
     assert "pydens.fit.draw" not in {m.name for m in kept}
+
+
+def _nls(device="cpu", **kw):
+    """The periodic Schrodinger system of examples/15 at [16, 16, 2]: its
+    Taylor closure (u_x, u_t, u_xx) from the embedding's state."""
+    def nls(f, x, t):
+        hr, hi = f[:, 0:1], f[:, 1:2]
+        mag2 = hr * hr + hi * hi
+        return (D(hr, t) + 0.5 * D(D(hi, x), x) + mag2 * hi,
+                -D(hi, t) + 0.5 * D(D(hr, x), x) + mag2 * hr)
+    return Solver(nls, ndims=2, domain=[(-5.0, 5.0), (0.0, np.pi / 2)],
+                  periodic=(0,), periodic_ic_decay=False,
+                  initial_condition=lambda x: torch.stack(
+                      [2.0 / torch.cosh(x), torch.zeros_like(x)], -1),
+                  layout="fa fa f", activation="Tanh", units=[16, 16, 2],
+                  device=device, **kw)
+
+
+def _plate():
+    """An order-four equation: its closure is off the kernels."""
+    def pde(f, x, y):
+        return D(D(D(D(f, x), x), x), x) + D(D(f, y), y) - 1.0
+    return Solver(pde, ndims=2, boundary_condition=0, layout="fa f",
+                  activation="Tanh", units=[8, 1], device="cpu")
+
+
+@pytest.mark.parametrize("name,make,fit,routes", [
+    ("raw", _poisson, {}, (1, 0)),
+    ("periodic", _nls, {}, (1, 0)),
+    ("periodic_lm", _nls, dict(optimizer="LM", cg_iters=3,
+                               resample=False), (2, 0)),
+    ("order4", _plate, {}, (0, 1)),
+    ("nested", _poisson, dict(fast_taps=False), (0, 0)),
+])
+def test_the_fit_span_names_the_steps_taylor_routes(name, make, fit, routes):
+    # taylor_kernels / taylor_plain on the pydens.fit span: the step's
+    # Taylor traversals on the fused kernels' route (from the raw
+    # coordinates or an embedding's state) and on the plain traversal; none
+    # with nested gradients.  A cached step reports the same again.
+    s = make()
+    for _ in range(2):
+        with tracing.recording() as kept:
+            s.fit(niters=2, batch_size=32, progress=False, **fit)
+        root, = [m for m in kept if m.name == "pydens.fit"]
+        assert (root.attrs["taylor_kernels"],
+                root.attrs["taylor_plain"]) == routes
 
 
 @pytest.mark.gpu
